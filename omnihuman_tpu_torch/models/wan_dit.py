@@ -1,0 +1,319 @@
+"""Wan 2.1 DiT denoiser, t2v (port of omnihuman_tpu/models/wan_dit.py).
+
+3D patch-embed -> N attention blocks (self-attention with 3D RoPE,
+cross-attention to the text, AdaLN-modulated FFN) -> AdaLN head ->
+unpatchify; velocity prediction for flow matching (reference
+wan/modules/model.py:377-612).
+
+The modules carry the reference parameter names, so a Wan 2.1 state dict
+loads with `load_state_dict`, and the JAX converter
+(omnihuman_tpu/utils/convert.py:convert_wan_dit) reads a port state dict
+unchanged. The forward follows the JAX package's rounding points: time /
+text MLPs, AdaLN and gates in fp32, matmuls in `policy.compute`, the
+residual stream in `policy.residual`. Where the JAX code multiplies
+mixed dtypes it promotes (bf16 @ fp32 -> fp32); `_linear` does the same
+explicitly.
+
+Left for later slices: the i2v branch, audio_ctx, collect_layers, remat
+and token sharding.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanModelConfig
+from omnihuman_tpu_torch.ops.attention import flash_attention
+from omnihuman_tpu_torch.ops.norms import layer_norm, rms_norm
+from omnihuman_tpu_torch.ops.rope import apply_rope
+
+
+def _linear(lin: nn.Linear, x: torch.Tensor,
+            compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x @ W^T + b in `compute_dtype`, or else in the promoted dtype of x
+    and W (what `x @ w + b` does in JAX)."""
+    dt = (compute_dtype if compute_dtype is not None
+          else torch.promote_types(x.dtype, lin.weight.dtype))
+    b = None if lin.bias is None else lin.bias.to(dt)
+    return F.linear(x.to(dt), lin.weight.to(dt), b)
+
+
+def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
+    """[B] -> [B, dim] fp32, cat(cos, sin) (reference model.py:17-27)."""
+    half = dim // 2
+    pos = position.to(torch.float32)
+    freqs = torch.pow(
+        torch.tensor(10000.0, dtype=torch.float32, device=pos.device),
+        -torch.arange(half, dtype=torch.float32, device=pos.device) / half)
+    sinusoid = pos[:, None] * freqs[None, :]
+    return torch.cat([torch.cos(sinusoid), torch.sin(sinusoid)], dim=-1)
+
+
+class WanRMSNorm(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+
+
+class WanAttention(nn.Module):
+    """q/k/v/o projections + qk RMSNorm weights (self_attn and cross_attn
+    share this layout for t2v)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.q = nn.Linear(dim, dim)
+        self.k = nn.Linear(dim, dim)
+        self.v = nn.Linear(dim, dim)
+        self.o = nn.Linear(dim, dim)
+        self.norm_q = WanRMSNorm(dim)
+        self.norm_k = WanRMSNorm(dim)
+
+
+class WanAttentionBlock(nn.Module):
+    def __init__(self, cfg: WanModelConfig):
+        super().__init__()
+        dim = cfg.dim
+        self.self_attn = WanAttention(dim)
+        if cfg.cross_attn_norm:
+            self.norm3 = nn.LayerNorm(dim, eps=cfg.eps,
+                                      elementwise_affine=True)
+        self.cross_attn = WanAttention(dim)
+        self.ffn = nn.Sequential(nn.Linear(dim, cfg.ffn_dim),
+                                 nn.GELU(approximate="tanh"),
+                                 nn.Linear(cfg.ffn_dim, dim))
+        self.modulation = nn.Parameter(torch.zeros(1, 6, dim))
+
+
+class Head(nn.Module):
+    def __init__(self, cfg: WanModelConfig):
+        super().__init__()
+        self.head = nn.Linear(cfg.dim,
+                              math.prod(cfg.patch_size) * cfg.out_dim)
+        self.modulation = nn.Parameter(torch.zeros(1, 2, cfg.dim))
+
+
+def _self_attention(p: WanAttention, x, rope_sin, rope_cos, seq_lens,
+                    cfg: WanModelConfig, policy: DTypePolicy):
+    b, s, _ = x.shape
+    n, d = cfg.num_heads, cfg.head_dim
+    cd = policy.compute
+    xc = x.to(cd)
+    q = rms_norm(_linear(p.q, xc), p.norm_q.weight, eps=cfg.eps)
+    k = rms_norm(_linear(p.k, xc), p.norm_k.weight, eps=cfg.eps)
+    v = _linear(p.v, xc)
+    q = apply_rope(q.reshape(b, s, n, d), rope_sin, rope_cos)
+    k = apply_rope(k.reshape(b, s, n, d), rope_sin, rope_cos)
+    y = flash_attention(q, k, v.reshape(b, s, n, d), k_lens=seq_lens,
+                        window_size=cfg.window_size, dtype=cd)
+    return _linear(p.o, y.reshape(b, s, n * d).to(cd))
+
+
+def _cross_attention(p: WanAttention, x, context, context_lens,
+                     cfg: WanModelConfig, policy: DTypePolicy):
+    b, s, _ = x.shape
+    n, d = cfg.num_heads, cfg.head_dim
+    cd = policy.compute
+    xc = x.to(cd)
+    ctx = context.to(cd)
+    lc = ctx.shape[1]
+    q = rms_norm(_linear(p.q, xc), p.norm_q.weight, eps=cfg.eps)
+    k = rms_norm(_linear(p.k, ctx), p.norm_k.weight, eps=cfg.eps)
+    v = _linear(p.v, ctx)
+    y = flash_attention(q.reshape(b, s, n, d), k.reshape(b, lc, n, d),
+                        v.reshape(b, lc, n, d), k_lens=context_lens,
+                        dtype=cd)
+    return _linear(p.o, y.reshape(b, s, n * d).to(cd))
+
+
+def _block_forward(blk: WanAttentionBlock, x, e0, context, context_lens,
+                   rope_sin, rope_cos, seq_lens, cfg: WanModelConfig,
+                   policy: DTypePolicy):
+    """One transformer block (reference model.py:279-330); x in
+    policy.residual, e0 [B, 6, dim] fp32."""
+    rd, cd, f32 = policy.residual, policy.compute, torch.float32
+    e = blk.modulation.to(f32) + e0                          # [B, 6, dim]
+    sa_shift, sa_scale, sa_gate, ff_shift, ff_scale, ff_gate = (
+        e[:, i:i + 1] for i in range(6))
+
+    h = layer_norm(x, eps=cfg.eps, out_dtype=f32)
+    h = h * (1.0 + sa_scale) + sa_shift
+    y = _self_attention(blk.self_attn, h, rope_sin, rope_cos, seq_lens,
+                        cfg, policy)
+    x = (x + (y.to(f32) * sa_gate).to(rd)).to(rd)
+
+    if cfg.cross_attn_norm:
+        h = layer_norm(x, blk.norm3.weight, blk.norm3.bias, eps=cfg.eps,
+                       out_dtype=f32)
+    else:
+        h = x
+    y = _cross_attention(blk.cross_attn, h, context, context_lens, cfg,
+                         policy)
+    x = x + y.to(rd)
+
+    h = layer_norm(x, eps=cfg.eps, out_dtype=f32)
+    h = h * (1.0 + ff_scale) + ff_shift
+    h = _linear(blk.ffn[0], h.to(cd))
+    h = F.gelu(h, approximate="tanh")
+    h = _linear(blk.ffn[2], h)
+    return x + (h.to(f32) * ff_gate).to(rd)
+
+
+class WanModel(nn.Module):
+    """The t2v DiT with the reference module tree (model.py:377-489)."""
+
+    def __init__(self, cfg: WanModelConfig):
+        super().__init__()
+        if cfg.model_type != "t2v":
+            raise NotImplementedError(
+                f"model_type {cfg.model_type!r}: the i2v DiT comes with the "
+                "i2v slice of the port")
+        self.cfg = cfg
+        dim = cfg.dim
+        self.patch_embedding = nn.Conv3d(cfg.in_dim, dim,
+                                         kernel_size=cfg.patch_size,
+                                         stride=cfg.patch_size)
+        self.text_embedding = nn.Sequential(
+            nn.Linear(cfg.text_dim, dim), nn.GELU(approximate="tanh"),
+            nn.Linear(dim, dim))
+        self.time_embedding = nn.Sequential(
+            nn.Linear(cfg.freq_dim, dim), nn.SiLU(), nn.Linear(dim, dim))
+        self.time_projection = nn.Sequential(nn.SiLU(),
+                                             nn.Linear(dim, dim * 6))
+        self.blocks = nn.ModuleList(
+            [WanAttentionBlock(cfg) for _ in range(cfg.num_layers)])
+        self.head = Head(cfg)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Reference init_weights (model.py:590-612): xavier-uniform
+        linears and patch embedding, normal(0.02) text / time embeddings,
+        zero head, unit-normal / sqrt(dim) modulation tables."""
+        def xavier(w):
+            fan_out, fan_in = w.shape[0], math.prod(w.shape[1:])
+            a = math.sqrt(6.0 / (fan_in + fan_out))
+            w.uniform_(-a, a, generator=generator)
+
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                xavier(m.weight)
+                m.bias.zero_()
+            elif isinstance(m, (WanRMSNorm, nn.LayerNorm)):
+                m.weight.fill_(1.0)
+                if getattr(m, "bias", None) is not None:
+                    m.bias.zero_()
+        xavier(self.patch_embedding.weight)
+        self.patch_embedding.bias.zero_()
+        for seq in (self.text_embedding, self.time_embedding):
+            for m in seq:
+                if isinstance(m, nn.Linear):
+                    m.weight.normal_(0.0, 0.02, generator=generator)
+        dim = self.cfg.dim
+        for blk in self.blocks:
+            blk.modulation.normal_(0.0, dim ** -0.5, generator=generator)
+        self.head.modulation.normal_(0.0, dim ** -0.5, generator=generator)
+        self.head.head.weight.zero_()
+        self.head.head.bias.zero_()
+
+    # -- forward pieces -----------------------------------------------------
+
+    def patchify(self, x: torch.Tensor, policy: DTypePolicy) -> torch.Tensor:
+        """[B, C, F, H, W] -> [B, L, dim] fp32: the stride == kernel Conv3d
+        as one GEMM over (c, pt, ph, pw)-ordered patch vectors."""
+        b, c, f, h, w = x.shape
+        pt, ph, pw = self.cfg.patch_size
+        x = x.reshape(b, c, f // pt, pt, h // ph, ph, w // pw, pw)
+        x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
+        x = x.reshape(b, (f // pt) * (h // ph) * (w // pw), c * pt * ph * pw)
+        pe = self.patch_embedding
+        dt = torch.promote_types(policy.compute, pe.weight.dtype)
+        y = F.linear(x.to(policy.compute).to(dt),
+                     pe.weight.reshape(pe.weight.shape[0], -1).to(dt),
+                     pe.bias.to(dt))
+        return y.to(torch.float32)
+
+    def unpatchify(self, x: torch.Tensor, grid) -> torch.Tensor:
+        """[B, L, prod(patch)*out] -> [B, out, F, H, W] (model.py:565-588)."""
+        b = x.shape[0]
+        f, h, w = grid
+        pt, ph, pw = self.cfg.patch_size
+        c = self.cfg.out_dim
+        x = x[:, :f * h * w].reshape(b, f, h, w, pt, ph, pw, c)
+        x = x.permute(0, 7, 1, 4, 2, 5, 3, 6)
+        return x.reshape(b, c, f * pt, h * ph, w * pw)
+
+    def body(self, tokens, t, context, *, seq_len: int, rope_sin, rope_cos,
+             n_tokens: int, context_lens=None,
+             policy: DTypePolicy = DTypePolicy()) -> torch.Tensor:
+        """The DiT trunk on built tokens (JAX dit_body): pad to seq_len,
+        time / text embeddings, blocks, modulated head.
+        Returns [B, seq_len, prod(patch)*out_dim]."""
+        cfg, f32 = self.cfg, torch.float32
+        b = tokens.shape[0]
+        if n_tokens > seq_len:
+            raise ValueError(f"{n_tokens} tokens > seq_len {seq_len}")
+        x = tokens.to(policy.residual)
+        if n_tokens < seq_len:
+            x = F.pad(x, (0, 0, 0, seq_len - n_tokens))
+        if rope_sin.shape[0] < seq_len:
+            pad = seq_len - rope_sin.shape[0]
+            rope_sin = F.pad(rope_sin, (0, 0, 0, pad))
+            rope_cos = F.pad(rope_cos, (0, 0, 0, pad), value=1.0)
+        seq_lens = torch.full((b,), n_tokens, dtype=torch.int32,
+                              device=x.device)
+
+        # time path, fp32 (model.py:526-528)
+        e = sinusoidal_embedding_1d(cfg.freq_dim, t)
+        e = _linear(self.time_embedding[0], e, f32)
+        e = F.silu(e)
+        e = _linear(self.time_embedding[2], e)                # [B, dim]
+        e0 = _linear(self.time_projection[1], F.silu(e))
+        e0 = e0.reshape(b, 6, cfg.dim)
+
+        # text context MLP, fp32 (model.py:534)
+        ctx = _linear(self.text_embedding[0], context, f32)
+        ctx = F.gelu(ctx, approximate="tanh")
+        ctx = _linear(self.text_embedding[2], ctx)
+
+        for blk in self.blocks:
+            x = _block_forward(blk, x, e0, ctx, context_lens, rope_sin,
+                               rope_cos, seq_lens, cfg, policy)
+
+        # head: fp32, two-chunk modulation (model.py:332-359)
+        he = self.head.modulation.to(f32) + e[:, None]        # [B, 2, dim]
+        h = layer_norm(x, eps=cfg.eps, out_dtype=f32)
+        h = h * (1.0 + he[:, 1:2]) + he[:, 0:1]
+        return _linear(self.head.head, h)
+
+    def forward(self, x, t, context, *, seq_len: int, rope_sin, rope_cos,
+                context_lens=None, policy: DTypePolicy = DTypePolicy()):
+        """Velocity v = model(x_t, t, context) (JAX wan_model_forward):
+        x [B, in_dim, F, H, W], t [B], context [B, Lc, text_dim] ->
+        [B, out_dim, F, H, W] fp32."""
+        pt, ph, pw = self.cfg.patch_size
+        grid = (x.shape[2] // pt, x.shape[3] // ph, x.shape[4] // pw)
+        n_tokens = grid[0] * grid[1] * grid[2]
+        tokens = self.patchify(x, policy)
+        out = self.body(tokens, t, context, seq_len=seq_len,
+                        rope_sin=rope_sin, rope_cos=rope_cos,
+                        n_tokens=n_tokens, context_lens=context_lens,
+                        policy=policy)
+        return self.unpatchify(out, grid).to(torch.float32)
+
+
+def build_wan_model(cfg: WanModelConfig, device, dtype: torch.dtype,
+                    seed: Optional[int] = 0) -> WanModel:
+    """Allocate the DiT straight on `device` in `dtype` (no host copy) and,
+    when `seed` is given, fill it by the reference init from a generator
+    seeded with it."""
+    with torch.device("meta"):
+        model = WanModel(cfg)
+    model = model.to(dtype).to_empty(device=device)
+    if seed is not None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        model.init_weights(gen)
+    return model.eval().requires_grad_(False)
