@@ -36,97 +36,33 @@
 //   - wgmma, TMA, warp specialisation and a persistent schedule are left
 //     to a later change.
 //
+// LSE output (training; flash_pallas `with_lse`, `:287-290`): with a
+// non-null `lse`, each row's natural-log sum exp, log(sum_k exp(scale *
+// q.k)) over its valid keys, is written to lse[b, h, row] in fp32 ([B, N,
+// Lq]); a row with no valid key gets kNegInf (-1e30). The backward kernels
+// (flash_bwd.cu) recompute P from it. A null pointer writes nothing and
+// leaves the serving path as it was.
+//
 // C interface for ctypes; returns cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace omni;
 
 constexpr int kBlockM = 128;             // query rows per block
 constexpr int kBlockN = 64;              // keys per K/V tile
 constexpr int kWarps = kBlockM / 16;     // one warp per 16 query rows
 constexpr int kThreads = kWarps * 32;
-// Must stay FINITE: exp2(kNegInf - kNegInf) = 1 keeps alpha finite on rows
-// that have not met a valid key yet (flash_pallas.py NEG_INF note).
-constexpr float kNegInf = -1e30f;
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes = 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most one committed group is still in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// D[16x8] += A[16x16] * B[16x8], bf16 inputs, fp32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four transposed 8x8 b16 matrices from shared memory (B operands of P.V).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x = lo (low half)
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + nrows) of one head into shared memory (row pitch
-// D + 8 halves: conflict-free fragment loads); rows >= valid_end are zeros.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int row0, int valid_end,
-                                          size_t row_stride, int nrows) {
-  constexpr int kChunks = D / 8;       // 16-byte chunks per row
-  constexpr int kLd = D + 8;
-  for (int i = threadIdx.x; i < nrows * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    const int row = row0 + r;
-    const bool ok = row < valid_end;
-    const bf16* g = src + (size_t)(ok ? row : 0) * row_stride + c * 8;
-    cp_async16(dst + r * kLd + c * 8, g, ok);
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                 const int* __restrict__ k_lens, int Lq, int Lk, int N,
-                 float scale_log2, int causal, int win_left, int win_right,
-                 int q_off, int k_off) {
+                 float* __restrict__ lse, const int* __restrict__ k_lens,
+                 int Lq, int Lk, int N, float scale_log2, int causal,
+                 int win_left, int win_right, int q_off, int k_off) {
   constexpr int kLd = D + 8;
   constexpr int kKSteps = D / 16;        // k-steps of Q.K^T
   constexpr int kDTiles = D / 8;         // n-tiles of P.V
@@ -165,10 +101,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       kv_end > kv_begin ? (kv_end - kv_begin + kBlockN - 1) / kBlockN : 0;
 
   // group 0: Q and K_0; group 1: V_0
-  load_rows<D>(sQ, qb, q0, Lq, row_stride, kBlockM);
-  if (n_tiles > 0) load_rows<D>(sK, kb, kv_begin, kv_end, row_stride, kBlockN);
+  load_rows<D, kThreads>(sQ, qb, q0, Lq, row_stride, kBlockM);
+  if (n_tiles > 0) load_rows<D, kThreads>(sK, kb, kv_begin, kv_end, row_stride, kBlockN);
   cp_async_commit();
-  if (n_tiles > 0) load_rows<D>(sV, vb, kv_begin, kv_end, row_stride, kBlockN);
+  if (n_tiles > 0) load_rows<D, kThreads>(sV, vb, kv_begin, kv_end, row_stride, kBlockN);
   cp_async_commit();
   cp_async_wait_one();
   __syncthreads();
@@ -214,7 +150,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();                       // every warp is done with sK
     const bool more = j + 1 < n_tiles;
     if (more)
-      load_rows<D>(sK, kb, k0 + kBlockN, kv_end, row_stride, kBlockN);
+      load_rows<D, kThreads>(sK, kb, k0 + kBlockN, kv_end, row_stride, kBlockN);
     cp_async_commit();
 
     // mask, scale into the log2 domain, online softmax
@@ -289,7 +225,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();                       // every warp is done with sV
     if (more)
-      load_rows<D>(sV, vb, k0 + kBlockN, kv_end, row_stride, kBlockN);
+      load_rows<D, kThreads>(sV, vb, k0 + kBlockN, kv_end, row_stride, kBlockN);
     cp_async_commit();
   }
 
@@ -301,7 +237,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const bool valid = m_run[r] > 0.5f * kNegInf;
-    inv[r] = valid ? 1.f / (l == 0.f ? 1.f : l) : 0.f;
+    const float denom = l == 0.f ? 1.f : l;
+    inv[r] = valid ? 1.f / denom : 0.f;
+    if (lse != nullptr && t == 0 && rows[r] < Lq)
+      lse[((size_t)b * N + h) * Lq + rows[r]] =
+          valid ? (m_run[r] + log2f(denom)) * kLn2 : kNegInf;
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -315,7 +255,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const int* k_lens, int B, int Lq, int Lk, int N, float scale_log2,
            int causal, int win_left, int win_right, int q_off, int k_off,
            cudaStream_t stream) {
@@ -331,8 +271,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Lq + kBlockM - 1) / kBlockM, N, B);
   flash_fwd_kernel<D><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), k_lens, Lq, Lk, N,
-      scale_log2, causal, win_left, win_right, q_off, k_off);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, k_lens, Lq, Lk,
+      N, scale_log2, causal, win_left, win_right, q_off, k_off);
   return (int)cudaGetLastError();
 }
 
@@ -342,21 +282,24 @@ extern "C" const char* omni_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// lse: null, or [B, N, Lq] fp32 (natural log; see the note at the top).
 extern "C" int omni_flash_fwd_bf16(const void* q, const void* k, const void* v,
-                                   void* o, const void* k_lens, int B, int Lq,
-                                   int Lk, int N, int D, float scale,
-                                   int causal, int win_left, int win_right,
-                                   int q_off, int k_off, void* stream) {
+                                   void* o, void* lse, const void* k_lens,
+                                   int B, int Lq, int Lk, int N, int D,
+                                   float scale, int causal, int win_left,
+                                   int win_right, int q_off, int k_off,
+                                   void* stream) {
   if (B <= 0 || Lq <= 0 || N <= 0) return (int)cudaSuccess;
-  const float scale_log2 = scale * 1.4426950408889634f;
+  const float scale_log2 = scale * kLog2e;
   const int* kl = static_cast<const int*>(k_lens);
+  float* ls = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<64>(q, k, v, o, kl, B, Lq, Lk, N, scale_log2, causal,
+      return launch<64>(q, k, v, o, ls, kl, B, Lq, Lk, N, scale_log2, causal,
                         win_left, win_right, q_off, k_off, s);
     case 128:
-      return launch<128>(q, k, v, o, kl, B, Lq, Lk, N, scale_log2, causal,
+      return launch<128>(q, k, v, o, ls, kl, B, Lq, Lk, N, scale_log2, causal,
                          win_left, win_right, q_off, k_off, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -14,23 +14,39 @@ residual stream in `policy.residual`. Where the JAX code multiplies
 mixed dtypes it promotes (bf16 @ fp32 -> fp32); `_linear` does the same
 explicitly.
 
-Left for later slices: the i2v branch, audio_ctx, collect_layers, remat
-and token sharding.
+Training (the JAX `remat` and `collect_layers` arguments): `remat=True`
+checkpoints every block with `torch.utils.checkpoint` (non-reentrant), an
+int g > 1 groups the blocks in segments of g and checkpoints each segment
+on top of the per-block checkpoints (JAX's grouped two-level remat,
+`:475-507`); `collect_layers` returns the outputs of the listed blocks
+beside the velocity, the APT discriminator's taps (`:508-536`). A Python
+loop over the blocks stands in for the JAX scan.
+
+Left for later slices: the i2v branch, audio_ctx and token sharding.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanModelConfig
 from omnihuman_tpu_torch.ops.attention import flash_attention
 from omnihuman_tpu_torch.ops.norms import layer_norm, rms_norm
 from omnihuman_tpu_torch.ops.rope import apply_rope
+
+
+def padded_seq_len(n_tokens: int) -> int:
+    """The token length the DiT runs at: long sequences round up to the
+    1024 block of the JAX flash kernel, so both packages see the same
+    token counts (the padding is masked through seq_lens)."""
+    align = 1024 if n_tokens >= 4096 else 1
+    return int(math.ceil(n_tokens / align) * align)
 
 
 def _linear(lin: nn.Linear, x: torch.Tensor,
@@ -248,10 +264,12 @@ class WanModel(nn.Module):
 
     def body(self, tokens, t, context, *, seq_len: int, rope_sin, rope_cos,
              n_tokens: int, context_lens=None,
-             policy: DTypePolicy = DTypePolicy()) -> torch.Tensor:
+             policy: DTypePolicy = DTypePolicy(), remat=False,
+             collect_layers: Optional[Sequence[int]] = None):
         """The DiT trunk on built tokens (JAX dit_body): pad to seq_len,
         time / text embeddings, blocks, modulated head.
-        Returns [B, seq_len, prod(patch)*out_dim]."""
+        Returns (out [B, seq_len, prod(patch)*out_dim], taps), taps being
+        {layer: [B, seq_len, dim] in policy.residual} for collect_layers."""
         cfg, f32 = self.cfg, torch.float32
         b = tokens.shape[0]
         if n_tokens > seq_len:
@@ -279,41 +297,88 @@ class WanModel(nn.Module):
         ctx = F.gelu(ctx, approximate="tanh")
         ctx = _linear(self.text_embedding[2], ctx)
 
-        for blk in self.blocks:
-            x = _block_forward(blk, x, e0, ctx, context_lens, rope_sin,
-                               rope_cos, seq_lens, cfg, policy)
+        x, taps = self._blocks(x, (e0, ctx, context_lens, rope_sin,
+                                   rope_cos, seq_lens, cfg, policy),
+                               remat, collect_layers)
 
         # head: fp32, two-chunk modulation (model.py:332-359)
         he = self.head.modulation.to(f32) + e[:, None]        # [B, 2, dim]
         h = layer_norm(x, eps=cfg.eps, out_dtype=f32)
         h = h * (1.0 + he[:, 1:2]) + he[:, 0:1]
-        return _linear(self.head.head, h)
+        return _linear(self.head.head, h), taps
+
+    def _blocks(self, x, args, remat, collect_layers):
+        """The block loop: plain, per-block checkpointed, grouped, or
+        tapped. Checkpointing applies only while autograd records."""
+        grouped = (isinstance(remat, int) and not isinstance(remat, bool)
+                   and remat > 1 and not collect_layers)
+        if grouped and self.cfg.num_layers % remat != 0:
+            raise ValueError(f"remat group {remat} must divide num_layers "
+                             f"{self.cfg.num_layers}")
+        ckpt = bool(remat) and torch.is_grad_enabled()
+
+        def block(i, h):
+            if ckpt:
+                return torch.utils.checkpoint.checkpoint(
+                    _block_forward, self.blocks[i], h, *args,
+                    use_reentrant=False)
+            return _block_forward(self.blocks[i], h, *args)
+
+        taps: Dict[int, torch.Tensor] = {}
+        if grouped:
+            def group(first, h):
+                for i in range(first, first + remat):
+                    h = block(i, h)
+                return h
+
+            for first in range(0, self.cfg.num_layers, remat):
+                if ckpt:
+                    x = torch.utils.checkpoint.checkpoint(
+                        group, first, x, use_reentrant=False)
+                else:
+                    x = group(first, x)
+            return x, taps
+        wanted = set(int(i) for i in collect_layers or ())
+        for i in range(self.cfg.num_layers):
+            x = block(i, x)
+            if i in wanted:
+                taps[i] = x
+        return x, taps
 
     def forward(self, x, t, context, *, seq_len: int, rope_sin, rope_cos,
-                context_lens=None, policy: DTypePolicy = DTypePolicy()):
+                context_lens=None, policy: DTypePolicy = DTypePolicy(),
+                remat=False, collect_layers: Optional[Sequence[int]] = None):
         """Velocity v = model(x_t, t, context) (JAX wan_model_forward):
         x [B, in_dim, F, H, W], t [B], context [B, Lc, text_dim] ->
-        [B, out_dim, F, H, W] fp32."""
+        [B, out_dim, F, H, W] fp32, or (v, {layer: [B, seq_len, dim]})
+        when `collect_layers` is given. `remat`: False, True (per block) or
+        an int group size (grouped two-level; ignored with
+        collect_layers, as in JAX)."""
         pt, ph, pw = self.cfg.patch_size
         grid = (x.shape[2] // pt, x.shape[3] // ph, x.shape[4] // pw)
         n_tokens = grid[0] * grid[1] * grid[2]
         tokens = self.patchify(x, policy)
-        out = self.body(tokens, t, context, seq_len=seq_len,
-                        rope_sin=rope_sin, rope_cos=rope_cos,
-                        n_tokens=n_tokens, context_lens=context_lens,
-                        policy=policy)
-        return self.unpatchify(out, grid).to(torch.float32)
+        out, taps = self.body(tokens, t, context, seq_len=seq_len,
+                              rope_sin=rope_sin, rope_cos=rope_cos,
+                              n_tokens=n_tokens, context_lens=context_lens,
+                              policy=policy, remat=remat,
+                              collect_layers=collect_layers)
+        v = self.unpatchify(out, grid).to(torch.float32)
+        return (v, taps) if collect_layers is not None else v
 
 
 def build_wan_model(cfg: WanModelConfig, device, dtype: torch.dtype,
-                    seed: Optional[int] = 0) -> WanModel:
+                    seed: Optional[int] = 0,
+                    trainable: bool = False) -> WanModel:
     """Allocate the DiT straight on `device` in `dtype` (no host copy) and,
     when `seed` is given, fill it by the reference init from a generator
-    seeded with it."""
+    seeded with it. Frozen for serving unless `trainable`."""
     with torch.device("meta"):
         model = WanModel(cfg)
     model = model.to(dtype).to_empty(device=device)
     if seed is not None:
         gen = torch.Generator(device=device).manual_seed(seed)
         model.init_weights(gen)
+    if trainable:
+        return model.train().requires_grad_(True)
     return model.eval().requires_grad_(False)

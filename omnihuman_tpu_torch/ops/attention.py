@@ -7,8 +7,11 @@ flash-attn shim, wan/modules/attention.py:24-179):
     window_size (left, right), causal, softmax_scale, q_scale
 
 A CPU tensor goes to the plain PyTorch version, a CUDA tensor to the
-hand-written Hopper kernel (ops/flash_attention.py); there is no other
-back-end and no fallback between them. The sequence-parallel paths
+hand-written Hopper kernels (ops/flash_attention.py); there is no other
+back-end and no fallback between them. When a gradient is needed, the call
+goes through the autograd Function `FlashAttention` (forward with the LSE,
+then the flash backward); otherwise it is one forward launch without the
+LSE, the serving path. The sequence-parallel paths
 (ring / ulysses / sp_cross) come with the multi-GPU work.
 """
 
@@ -18,7 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from omnihuman_tpu_torch.ops.flash_attention import flash_fwd
+from omnihuman_tpu_torch.ops.flash_attention import FlashAttention, flash_fwd
 
 
 def flash_attention(
@@ -47,8 +50,13 @@ def flash_attention(
     qc = q.to(dtype)
     if q_scale is not None:
         qc = qc * torch.tensor(q_scale, dtype=dtype, device=q.device)
-    out = flash_fwd(qc.contiguous(), k.to(dtype).contiguous(),
-                    v.to(dtype).contiguous(), k_lens=k_lens,
-                    softmax_scale=softmax_scale, causal=causal,
-                    window_size=tuple(window_size))
+    qc, kc, vc = (x.contiguous() for x in (qc, k.to(dtype), v.to(dtype)))
+    if torch.is_grad_enabled() and (qc.requires_grad or kc.requires_grad
+                                    or vc.requires_grad):
+        out = FlashAttention.apply(qc, kc, vc, k_lens, softmax_scale, causal,
+                                   tuple(window_size), None)
+    else:
+        out = flash_fwd(qc, kc, vc, k_lens=k_lens,
+                        softmax_scale=softmax_scale, causal=causal,
+                        window_size=tuple(window_size))
     return out.to(out_dtype)

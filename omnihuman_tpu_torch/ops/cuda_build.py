@@ -1,10 +1,11 @@
 """Build the port's hand-written CUDA kernels and bind them through ctypes.
 
-Every `*.cu` under `omnihuman_tpu_torch/csrc/` exposes a plain C interface.
-It is compiled with nvcc for Hopper (`sm_90a`) into a shared library at
-first use, under `omnihuman_tpu_torch/_build/` (git-ignored), and loaded
-with ctypes. Library names carry a hash of the source and the flags, so an
-edited source is rebuilt and a stale build is never loaded.
+Every `*.cu` under `omnihuman_tpu_torch/csrc/` exposes a plain C interface
+(device helpers they share live in `csrc/*.cuh`). It is compiled with nvcc
+for Hopper (`sm_90a`) into a shared library at first use, under
+`omnihuman_tpu_torch/_build/` (git-ignored), and loaded with ctypes.
+Library names carry a hash of the source, the shared headers and the
+flags, so an edited source is rebuilt and a stale build is never loaded.
 
 Nothing here runs at import: a machine without nvcc or a GPU (the CPU test
 suite) imports this module and never builds anything.
@@ -40,10 +41,13 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> str:
-    src = os.path.join(CSRC_DIR, source)
+    """The library's path: its name hashes the source, every shared header
+    under csrc/ (`*.cuh`) and the flags."""
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for name in [source] + headers:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")

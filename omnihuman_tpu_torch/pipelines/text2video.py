@@ -26,7 +26,8 @@ from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanConfig, WanModelConf
 from omnihuman_tpu_torch.models.t5 import build_t5_encoder
 from omnihuman_tpu_torch.models.tokenizers import HuggingfaceTokenizer
 from omnihuman_tpu_torch.models.vae import build_vae_decoder, vae_decode
-from omnihuman_tpu_torch.models.wan_dit import WanModel, build_wan_model
+from omnihuman_tpu_torch.models.wan_dit import (
+    WanModel, build_wan_model, padded_seq_len)
 from omnihuman_tpu_torch.ops.rope import rope_angles_3d
 from omnihuman_tpu_torch.samplers.fm_solvers import get_solver
 
@@ -149,14 +150,10 @@ class WanT2V:
                 h // self.vae_stride[1], w // self.vae_stride[2])
 
     def seq_len_for(self, latent_shape) -> int:
-        """Padded token length: long sequences round up to the 1024 block
-        of the JAX flash kernel, so both packages see the same token
-        counts (the padding is masked through seq_lens)."""
+        """Padded token length of a latent (`wan_dit.padded_seq_len`)."""
         _, f, h, w = latent_shape
         pt, ph, pw = self.patch_size
-        n = (f // pt) * (h // ph) * (w // pw)
-        align = 1024 if n >= 4096 else 1
-        return int(math.ceil(n / align) * align)
+        return padded_seq_len((f // pt) * (h // ph) * (w // pw))
 
     # -- generation ---------------------------------------------------------
 

@@ -1,10 +1,12 @@
 """JAX parameter PyTrees -> the port's state dicts (reference names).
 
-Each function is the inverse of a converter of the JAX package
+Each `*_from_jax` function is the inverse of a converter of the JAX package
 (omnihuman_tpu/utils/convert.py): `convert_wan_dit`, `convert_vae` (the
-decoder and `conv2`) and `convert_t5`. Input is the JAX package's params
-PyTree as nested dicts / lists of numpy arrays; output is a
-{name: torch.Tensor} dict for `load_state_dict`.
+decoder and `conv2`) and `convert_t5`; the APT discriminator's probes and
+head come from the JAX params of `apt/model.py:init_apt_discriminator`.
+Input is the JAX package's params PyTree as nested dicts / lists of numpy
+arrays; output is a {name: torch.Tensor} dict for `load_state_dict`.
+`load_wan_dit_checkpoint` reads a reference checkpoint directory's DiT.
 
 Layouts undone here:
   ours Linear [in, out]              -> torch [out, in]           (transpose)
@@ -159,3 +161,46 @@ def t5_state_dict_from_jax(params: Mapping[str, Any],
         sd[f"{b}.ffn.fc1.weight"] = _t(np.asarray(bl["fc1"])[i].T)
         sd[f"{b}.ffn.fc2.weight"] = _t(np.asarray(bl["fc2"])[i].T)
     return sd
+
+
+def _put_norm(sd: StateDict, name: str, p: Mapping[str, Any]) -> None:
+    sd[f"{name}.weight"] = _t(p["w"])
+    sd[f"{name}.bias"] = _t(p["b"])
+
+
+def apt_discriminator_state_dict_from_jax(params: Mapping[str, Any],
+                                          cfg: WanModelConfig) -> StateDict:
+    """JAX APT discriminator params (apt/model.py:init_apt_discriminator:
+    backbone, probes, final_norm, final_proj) -> APTDiscriminator state
+    dict. Probe linears [in, out] become torch [out, in]; the backbone goes
+    through `wan_dit_state_dict_from_jax` under `backbone.`."""
+    sd: StateDict = {}
+    for tap, p in params["probes"].items():
+        base = f"probes.{tap}"
+        sd[f"{base}.query_token"] = _t(p["query_token"])
+        for norm in ("norm", "q_norm", "k_norm"):
+            _put_norm(sd, f"{base}.{norm}", p[norm])
+        for proj in ("q", "k", "v", "o"):
+            _put_linear(sd, f"{base}.{proj}", p[proj])
+    _put_norm(sd, "final_norm", params["final_norm"])
+    _put_linear(sd, "final_proj", params["final_proj"])
+    for k, v in wan_dit_state_dict_from_jax(params["backbone"], cfg).items():
+        sd[f"backbone.{k}"] = v
+    return sd
+
+
+def load_wan_dit_checkpoint(model, checkpoint_dir: str) -> None:
+    """Load the DiT weights of a reference checkpoint directory (every
+    `*.safetensors` file in it, reference parameter names, as the JAX
+    WanT2V._load_checkpoint reads it) into `model`, cast to its dtype."""
+    import os
+
+    from safetensors.torch import load_file
+    files = sorted(f for f in os.listdir(checkpoint_dir)
+                   if f.endswith(".safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no *.safetensors in {checkpoint_dir}")
+    sd: StateDict = {}
+    for f in files:
+        sd.update(load_file(os.path.join(checkpoint_dir, f)))
+    model.load_state_dict(sd, strict=True)

@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernel against its plain PyTorch version, on the
+"""The hand-written CUDA kernels (flash forward with and without the LSE,
+flash backward dkdv and dq) against their plain PyTorch versions, on the
 card. A CUDA kernel has no CPU mode, so every test here is marked `cuda`
 and skips without a GPU. This file imports no JAX, so it runs on a GPU
 machine without it:
@@ -6,14 +7,17 @@ machine without it:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q --noconftest
 
 Tolerance: 2^-6 x max|plain| in bf16, two ulps at the output's own peak
-(the two versions round the bf16 output up to one ulp apart)."""
+(the two versions round the bf16 output up to one ulp apart), for the
+output and for each gradient; the fp32 LSE within 1e-3 (the kernel sums
+exp2 in its own order, the plain version exp)."""
 
 import pytest
 import torch
 
 from omnihuman_tpu_torch.ops.attention import flash_attention
 from omnihuman_tpu_torch.ops.flash_attention import (
-    KERNELS, flash_attention_cuda, flash_attention_plain)
+    KERNELS, NEG_INF, flash_attention_cuda, flash_attention_plain,
+    flash_bwd_cuda, flash_bwd_plain)
 
 CASES = {
     "short_k": dict(lq=300, lk=24, k_lens=None, d=128),
@@ -71,7 +75,7 @@ def test_front_end_counts_launches_by_key_length(cuda_device):
     flash_attention(q, short, short, k_lens=torch.tensor([100, 9]))
     torch.cuda.synchronize()
     assert out.dtype == torch.float32
-    assert [kn.launches - b for kn, b in zip(KERNELS, before)] == [1, 1]
+    assert [kn.launches - b for kn, b in zip(KERNELS, before)] == [1, 1, 0, 0]
 
 
 @pytest.mark.cuda
@@ -123,3 +127,92 @@ def test_flash_kernel_matches_plain_on_random_shapes(cuda_device, seed):
     assert torch.isfinite(got.float()).all(), c
     tol = 2 ** -6 * want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= tol, c
+
+
+def _check_backward(c, g, dev):
+    """Forward with the LSE, then the backward kernels, against the plain
+    forward and backward on the same bf16 inputs."""
+    def rnd(length):
+        return torch.randn(c["b"], length, c["n"], c["d"], generator=g,
+                           device=dev).to(torch.bfloat16)
+
+    q, k, v, dout = rnd(c["lq"]), rnd(c["lk"]), rnd(c["lk"]), rnd(c["lq"])
+    kl = (None if c["k_lens"] is None
+          else torch.tensor(c["k_lens"], dtype=torch.int32, device=dev))
+    kw = dict(k_lens=kl, causal=c.get("causal", False),
+              window_size=c.get("window", (-1, -1)),
+              offsets=c.get("offsets"))
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, flash_attention_cuda(q, k, v, **kw))
+    assert (lse - want_lse).abs().max().item() <= 1e-3, c
+    got = flash_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    want = flash_bwd_plain(q, k, v, out, lse, dout, **kw)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert torch.isfinite(a.float()).all(), (name, c)
+        tol = 2 ** -6 * b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol, (f"d{name}", err, tol, c)
+    if c["k_lens"] is not None:
+        for i, n_valid in enumerate(c["k_lens"]):
+            if n_valid == 0:
+                assert (lse[i] == NEG_INF).all()
+                for x in got:
+                    assert x[i].abs().max().item() == 0.0
+            if n_valid < c["lk"]:     # keys past k_len: dk = dv = 0 exactly
+                assert got[1][i, max(n_valid, 0):].abs().max().item() == 0.0
+                assert got[2][i, max(n_valid, 0):].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_flash_backward_kernels_match_plain(cuda_device, case):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    _check_backward(dict(CASES[case], b=2, n=3), g, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(12))
+def test_flash_backward_kernels_match_plain_on_random_shapes(cuda_device,
+                                                             seed):
+    c = _random_case(100 + seed)
+    g = torch.Generator(device=cuda_device).manual_seed(seed)
+    _check_backward(c, g, cuda_device)
+
+
+@pytest.mark.cuda
+def test_autograd_function_gradients_match_plain(cuda_device):
+    """The front end with requires_grad on the card: forward with the LSE
+    and both backward kernels, one launch each, gradients within the
+    kernel tolerance of the plain backward."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v = (torch.randn(2, 300, 2, 128, generator=g, device=cuda_device)
+               .to(torch.bfloat16).requires_grad_(True) for _ in range(3))
+    dout = torch.randn(2, 300, 2, 128, generator=g, device=cuda_device
+                       ).to(torch.bfloat16)
+    kl = torch.tensor([300, 41], dtype=torch.int32, device=cuda_device)
+    before = [kn.launches for kn in KERNELS]
+    out = flash_attention(q, k, v, k_lens=kl)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert [kn.launches - b for kn, b in zip(KERNELS, before)] == [0, 1, 1, 1]
+    with torch.no_grad():
+        want_out, lse = flash_attention_plain(q, k, v, k_lens=kl,
+                                              return_lse=True)
+        want = flash_bwd_plain(q, k, v, want_out, lse, dout, k_lens=kl)
+    for a, b in zip((q.grad, k.grad, v.grad), want):
+        tol = 2 ** -6 * b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_backward_kernel_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros(1, 8, 1, 128, device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 1, 8, device=cuda_device)
+    with pytest.raises(TypeError):
+        flash_bwd_cuda(x, x, x, x, lse, x.float())   # fp32 dout
+    with pytest.raises(ValueError):
+        flash_bwd_cuda(x, x, x, x, lse[..., :4], x)  # lse shape

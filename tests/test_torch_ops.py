@@ -170,7 +170,9 @@ def test_kernel_counter_stays_zero_on_cpu(rng):
     k = torch.from_numpy(rng.normal(size=(2, 1100, 2, 128)).astype(np.float32))
     flash_attention(q, q, q, k_lens=torch.tensor([16, 3]))
     flash_attention(q, k, k)
-    assert [kn.launches for kn in KERNELS] == [0, 0]
+    qg = q.clone().requires_grad_(True)
+    flash_attention(qg, k, k).sum().backward()
+    assert [kn.launches for kn in KERNELS] == [0, 0, 0, 0]
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
