@@ -53,7 +53,26 @@ Phases (any failure stops the run with a nonzero exit):
  11. one APT D step and one APT G step at full width and 1,560 tokens: the
      losses, and the K2 launches (the G step's gradient flows through the
      discriminator's frozen backbone, so it launches K2; the D step's
-     features are cut, so it does not).
+     features are cut, so it does not);
+ 12. the VAE kernels (vae_conv.cu K3, vae_upsample.cu K4) against their
+     plain versions at every distinct full-width shape of an 81-frame
+     480x832 decode and encode (first-chunk T=1 shapes included), bf16,
+     tolerance 2^-6 of the output's peak: kernel / plain / cuDNN-yardstick
+     times (F.conv3d on the activated input for K3, F.conv2d on the
+     upsampled input for K4) and the bound;
+ 13. the full-width VAE at 81 frames, 480x832: vae_decode and vae_encode
+     through the kernels ("cuda") and through cuDNN ("torch"), relative L2
+     between them, wall times, peak memory, and the launch counts, which
+     must be 588 K3 / 63 K4 for the decode and 420 K3 for the encode;
+ 14. the i2v main path: `WanI2V` for i2v-14B at full width (dim 5120, 40
+     layers, 40 heads, in_dim 36; CLIP ViT-H/14; umT5-xxl; Wan 2.1 VAE),
+     random bf16 weights from a seed with a random head, one seeded
+     480x832 image through `generate()`, cut to 17 frames and 3 steps:
+     every DiT attention (self, text and image cross-attention) through
+     K1, every resblock conv through K3 and every upsample through K4, at
+     the counts the code implies; per-stage seconds;
+ 15. one-step: `SeaweedWanAPTGenerator` over t2v-1.3B, 2 prompts, 81
+     frames, one batched forward and the batched decode through K3 / K4.
 
 The line before last is a JSON object {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -243,7 +262,7 @@ def phase_small_reference():
     against JAX). TF32 is off for the fp32 VAE comparison."""
     import torch
     from omnihuman_tpu_torch.configs.wan import TINY_TEST, TINY_TEST_HD128
-    from omnihuman_tpu_torch.models.vae import build_vae_decoder, vae_decode
+    from omnihuman_tpu_torch.models.vae import build_vae, vae_decode
     from omnihuman_tpu_torch.models.wan_dit import build_wan_model
     from omnihuman_tpu_torch.ops.rope import rope_angles_3d
 
@@ -280,10 +299,10 @@ def phase_small_reference():
     vouts = {}
     z = torch.randn((1, 16, 3, 4, 6), generator=gen.manual_seed(9))
     for device in ("cpu", "cuda"):
-        vae = build_vae_decoder(TINY_TEST.vae, "cpu", torch.float32,
-                                seed=4).to(device)
-        with torch.inference_mode():
-            vouts[device] = vae_decode(vae, z.to(device)).cpu()
+        vae = build_vae(TINY_TEST.vae, "cpu", torch.float32, seed=4).to(device)
+        with torch.inference_mode():   # fp32 at 8 channels: the torch path
+            vouts[device] = vae_decode(vae, z.to(device),
+                                       conv_impl="torch").cpu()
     err = (vouts["cuda"] - vouts["cpu"]).abs().max().item()
     if err > 1e-3:
         fail(f"VAE decode on the card vs the CPU: max abs err {err}")
@@ -572,10 +591,18 @@ def phase_backward_kernels():
             q, k, v, k_lens=kl, return_lse=True, **mkw))
         plain_ms = bench_ms(lambda: flash_bwd_plain(
             q, k, v, out, lse, dout, k_lens=kl, **mkw), reps=1, warmup=0)
-        lib_ms = None
+        lib_ms = lse_lib_ms = None
         if lib_ok:   # yardstick only: the port never calls SDPA
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                           for x in (q, k, v))
+            # the library's forward that also returns the LSE (unmasked);
+            # a yardstick only, so a missing private op is logged, not fatal
+            try:
+                lse_lib_ms = bench_ms(
+                    lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                        qt.detach(), kt.detach(), vt.detach()))
+            except (RuntimeError, AttributeError) as e:
+                log(f"[7] library forward with LSE not measured: {e}")
             ot = F.scaled_dot_product_attention(qt, kt, vt)
             dt = dout.transpose(1, 2)
             lib_ms = bench_ms(lambda: torch.autograd.grad(
@@ -590,7 +617,9 @@ def phase_backward_kernels():
         log(f"[7] {name}: " + ", ".join(
             f"{g} err {e:.3g} (tol {t:.3g})" for g, e, t in errs)
             + f", LSE err {lse_err:.3g}; forward with LSE {fwd_lse_ms:.3f} "
-            f"ms; dkdv {dkdv_ms:.3f} ms (bound "
+            f"ms (library forward with LSE "
+            f"{lse_lib_ms if lse_lib_ms is None else round(lse_lib_ms, 3)} "
+            f"ms); dkdv {dkdv_ms:.3f} ms (bound "
             f"{res['dkdv']['bound_ms']:.3f}, {res['dkdv']['bound_by']}), dq "
             f"{dq_ms:.3f} ms (bound {res['dq']['bound_ms']:.3f}, "
             f"{res['dq']['bound_by']}), plain backward {plain_ms:.1f} ms, "
@@ -950,6 +979,339 @@ def phase_apt_steps(state, npz, kernels):
         fail("the G step did not launch the backward kernels")
 
 
+# ---------------------------------------------------------------------------
+# phases 12-15: the VAE kernels, the VAE at full width, i2v, one-step
+
+# (T, H, W, Cin, Cout) of every distinct K3 call of an 81-frame 480x832
+# decode (28 a latent frame) and encode (20 a chunk); the first chunk / step
+# runs each resolution at T=1
+K3_SHAPES = sorted({
+    (1, 60, 104, 384, 384), (2, 120, 208, 192, 384), (2, 120, 208, 384, 384),
+    (4, 240, 416, 192, 192), (4, 480, 832, 96, 96),        # decode steps
+    (1, 120, 208, 192, 384), (1, 120, 208, 384, 384),
+    (1, 240, 416, 192, 192), (1, 480, 832, 96, 96),        # decode first
+    (4, 240, 416, 96, 192), (1, 240, 416, 96, 192)})       # encode extra
+# (T, h, w, Cin, Cout) of the K4 calls (decode steps, then the first step)
+K4_SHAPES = [(2, 60, 104, 384, 192), (4, 120, 208, 384, 192),
+             (4, 240, 416, 192, 96), (1, 60, 104, 384, 192),
+             (1, 120, 208, 384, 192), (1, 240, 416, 192, 96)]
+K3_ROW, K4_ROW = (4, 480, 832, 96, 96), (4, 240, 416, 192, 96)
+I2V = dict(frames=17, steps=3, size=(832, 480),
+           prompt="a woman turns her head and smiles, soft window light",
+           seed=31)
+ONE_STEP = dict(frames=81, seed=5, prompts=(
+    "a paper boat drifting down a rain-soaked street, close-up",
+    "timelapse of clouds rolling over a mountain ridge at dusk"))
+
+
+def _bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_vae_kernels():
+    """K3 / K4 against their plain versions at the full-width shapes.
+    Returns the JSON rows of the largest call of each."""
+    import torch
+    import torch.nn.functional as F
+    from omnihuman_tpu_torch.ops import vae_kernels as vk
+
+    dev = torch.device("cuda")
+    cl = torch.channels_last_3d
+    gen = torch.Generator(device=dev).manual_seed(1212)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    rows = {}
+    for t, h, w, cin, cout in K3_SHAPES:
+        res_on = cin == cout       # conv2 of an identity block
+        x = rnd(1, cin, t, h, w).to(torch.bfloat16).contiguous(
+            memory_format=cl)
+        cache = rnd(1, cin, 2, h, w).to(torch.bfloat16).contiguous(
+            memory_format=cl)
+        gamma = rnd(cin, scale=0.2) + 1.0
+        wt = rnd(3, 3, 3, cin, cout, scale=(27 * cin) ** -0.5)
+        w2 = vk.pack_conv_weights(wt)
+        bias = rnd(cout, scale=0.05)
+        res = (rnd(1, cout, t, h, w).to(torch.bfloat16).contiguous(
+            memory_format=cl) if res_on else None)
+        got, cnew = vk.fused_act_causal_conv3d_cuda(x, cache, gamma, w2,
+                                                    bias, res)
+        torch.cuda.synchronize()
+        want, cwant = vk.fused_act_causal_conv3d_plain(x, cache, gamma, w2,
+                                                       bias, res)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2 ** -6 * want.float().abs().max().item()
+        cerr = (cnew.float() - cwant.float()).abs().max().item()
+        ctol = 2 ** -6 * cwant.float().abs().max().item()
+        if not torch.isfinite(got.float()).all() or err > tol or cerr > ctol:
+            fail(f"K3 vs plain at {(t, h, w, cin, cout)}: output err {err} "
+                 f"(tol {tol}), cache err {cerr} (tol {ctol})")
+        n_out, hw = t * h * w, h * w
+        flops = 2.0 * 27 * cin * cout * n_out
+        nbytes = 2.0 * (n_out * cin + 2 * 2 * hw * cin + 27 * cin * cout
+                        + n_out * cout * (2 if res_on else 1)) \
+            + 4.0 * (cin + cout)
+        bound, by = _bound(flops, nbytes)
+        ms = bench_ms(lambda: vk.fused_act_causal_conv3d_cuda(
+            x, cache, gamma, w2, bias, res))
+        plain_ms = bench_ms(lambda: vk.fused_act_causal_conv3d_plain(
+            x, cache, gamma, w2, bias, res), reps=3, warmup=1)
+        # yardstick only: cuDNN's conv of the already-activated input
+        xin = torch.cat([cache, vk.activate_plain(x, gamma)], dim=2
+                        ).contiguous(memory_format=cl)
+        wl = wt.permute(4, 3, 0, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=cl)
+        bl = bias.to(torch.bfloat16)
+        lib_ms = bench_ms(lambda: F.conv3d(xin, wl, bl, padding=(0, 1, 1)))
+        log(f"[12] K3 T={t} {h}x{w} {cin}->{cout}"
+            f"{' +residual' if res_on else ''}: max_abs_err {err:.3g} (tol "
+            f"{tol:.3g}), cache err {cerr:.3g}; kernel {ms:.3f} ms, bound "
+            f"{bound:.3f} ms ({by}, {100 * bound / ms:.1f}%), plain "
+            f"{plain_ms:.3f} ms, cuDNN conv3d {lib_ms:.3f} ms")
+        if (t, h, w, cin, cout) == K3_ROW:
+            rows["k3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        del x, cache, res, got, cnew, want, cwant, xin
+        torch.cuda.empty_cache()
+
+    for t, h, w, cin, cout in K4_SHAPES:
+        x = rnd(1, cin, t, h, w).to(torch.bfloat16).contiguous(
+            memory_format=cl)
+        wt = rnd(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+        w4 = vk.pack_upsample_weights(wt.to(torch.bfloat16))
+        bias = rnd(cout, scale=0.05)
+        got = vk.fused_upsample_conv2d_cuda(x, w4, bias)
+        torch.cuda.synchronize()
+        want = vk.fused_upsample_conv2d_plain(x, w4, bias)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2 ** -6 * want.float().abs().max().item()
+        if not torch.isfinite(got.float()).all() or err > tol:
+            fail(f"K4 vs plain at {(t, h, w, cin, cout)}: err {err} > {tol}")
+        n_in = t * h * w
+        flops = 2.0 * 4 * 4 * cin * cout * n_in
+        nbytes = 2.0 * (n_in * cin + 16 * cin * cout + 4 * n_in * cout) \
+            + 4.0 * cout
+        bound, by = _bound(flops, nbytes)
+        ms = bench_ms(lambda: vk.fused_upsample_conv2d_cuda(x, w4, bias))
+        plain_ms = bench_ms(lambda: vk.fused_upsample_conv2d_plain(
+            x, w4, bias), reps=3, warmup=1)
+        # yardstick only: cuDNN's 3x3 conv of the upsampled frames
+        xu = F.interpolate(x, scale_factor=(1, 2, 2), mode="nearest")
+        xu = xu.transpose(1, 2).reshape(t, cin, 2 * h, 2 * w).contiguous(
+            memory_format=torch.channels_last)
+        wl = wt.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        bl = bias.to(torch.bfloat16)
+        lib_ms = bench_ms(lambda: F.conv2d(xu, wl, bl, padding=1))
+        log(f"[12] K4 T={t} {h}x{w} -> {2 * h}x{2 * w} {cin}->{cout}: "
+            f"max_abs_err {err:.3g} (tol {tol:.3g}); kernel {ms:.3f} ms, "
+            f"bound {bound:.3f} ms ({by}, {100 * bound / ms:.1f}%), plain "
+            f"{plain_ms:.3f} ms, cuDNN conv2d {lib_ms:.3f} ms")
+        if (t, h, w, cin, cout) == K4_ROW:
+            rows["k4"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        del x, got, want, xu
+        torch.cuda.empty_cache()
+    return rows
+
+
+def f_lat_of(run) -> int:
+    return (run["frames"] - 1) // 4 + 1
+
+
+def _timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase_vae_full(vae_kernels):
+    """vae_decode / vae_encode at 81 frames, 480x832, K3 / K4 against
+    cuDNN. Returns {path: {kernel: launches}}."""
+    import torch
+    from omnihuman_tpu_torch.configs import T2V_1_3B
+    from omnihuman_tpu_torch.models.vae import build_vae, vae_decode, \
+        vae_encode
+
+    vae = build_vae(T2V_1_3B.vae, "cuda", torch.bfloat16, seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    z = torch.randn((1, 16, 21, 60, 104), generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    video = (torch.rand((1, 3, 81, 480, 832), generator=gen, device="cuda")
+             * 2 - 1).to(torch.bfloat16)
+    counts = {}
+    for name, fn, inp, want in (
+            ("decode", lambda x, impl: vae_decode(vae, x, clamp=False,
+                                                  conv_impl=impl), z,
+             [588, 63]),
+            ("encode", lambda x, impl: vae_encode(vae, x, conv_impl=impl),
+             video, [420, 0])):
+        with torch.inference_mode():
+            fn(inp, "cuda")                           # warm-up
+            _zero(vae_kernels)
+            got, sec, peak = _timed(lambda: fn(inp, "cuda"))
+            counts[f"vae_{name}_81f"] = _count(vae_kernels)
+            fn(inp, "torch")
+            ref, sec_t, peak_t = _timed(lambda: fn(inp, "torch"))
+        launches = list(counts[f"vae_{name}_81f"].values())
+        rel = ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+        log(f"[13] vae_{name} 81 frames 480x832 (bf16, streaming): kernels "
+            f"{sec:.3f} s, peak {peak:.2f} GiB; cuDNN {sec_t:.3f} s, peak "
+            f"{peak_t:.2f} GiB; relative L2 kernels vs cuDNN {rel:.3g} (tol "
+            f"5e-2); output {tuple(got.shape)}; launches "
+            f"{counts[f'vae_{name}_81f']}, expected {want}")
+        if not torch.isfinite(got.float()).all() or rel > 5e-2:
+            fail(f"vae_{name}: kernels vs cuDNN relative L2 {rel}")
+        if launches != want:
+            fail(f"vae_{name}: launches {launches} != {want}")
+        del got, ref
+    del vae, z, video
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_i2v(kernels, flash_kernels):
+    """WanI2V at i2v-14B full width: one request through generate()."""
+    import torch
+    from omnihuman_tpu_torch.configs import I2V_14B
+    from omnihuman_tpu_torch.pipelines.image2video import WanI2V
+
+    t0 = time.perf_counter()
+    pipe = WanI2V(I2V_14B, device="cuda", precision="fast", init_seed=0)
+    with torch.no_grad():    # unit-scale velocities instead of all zeros
+        pipe.model.head.head.weight.normal_(
+            0.0, I2V_14B.model.dim ** -0.5,
+            generator=torch.Generator(device="cuda").manual_seed(5))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in pipe.model.parameters())
+    log(f"[14] WanI2V(i2v-14B) built with random weights in "
+        f"{time.perf_counter() - t0:.1f} s: DiT {n_params / 1e9:.2f} B "
+        f"parameters (bf16), CLIP ViT-H/14 fp32, VAE bf16")
+    w, h = I2V["size"]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    img = torch.rand((3, h, w), generator=gen, device="cuda") * 2 - 1
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    t0 = time.perf_counter()
+    video = pipe.generate(I2V["prompt"], img, max_area=h * w,
+                          frame_num=I2V["frames"],
+                          sampling_steps=I2V["steps"], seed=I2V["seed"])
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = _count(kernels)
+    vf = video.float()
+    tm = pipe.timings
+    log(f"[14] i2v request: video {tuple(video.shape)} in "
+        f"[{vf.min().item():.3f}, {vf.max().item():.3f}], std "
+        f"{vf.std().item():.3f}; total {total:.2f} s: T5 load "
+        f"{tm['t5_load_s']:.2f} s, T5 encode {tm['t5_encode_s']:.2f} s, T5 "
+        f"unload {tm['t5_unload_s']:.2f} s, CLIP {tm['clip_s']:.3f} s, VAE "
+        f"encode {tm['vae_encode_s']:.3f} s, denoise {tm['denoise_s']:.2f} s "
+        f"({tm['denoise_s'] / I2V['steps']:.2f} s/step), VAE decode "
+        f"{tm['vae_decode_s']:.3f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    # the reference's latent size: max_area 480*832 at this aspect gives
+    # sqrt(230400) = 479.99999999999994 in float64, so 58 latent rows
+    lat_h, lat_w = pipe.latent_size_for((h, w), h * w)
+    log(f"[14] latent {lat_h}x{lat_w} -> {lat_h * lat_w // 4 * f_lat_of(I2V)}"
+        f" tokens, seq_len {pipe.seq_len_for((16, f_lat_of(I2V), lat_h, lat_w))}")
+    if tuple(video.shape) != (3, I2V["frames"], 8 * lat_h, 8 * lat_w) or \
+            not torch.isfinite(vf).all() or vf.abs().max().item() > 1.0:
+        fail("the i2v video has the wrong shape or values")
+    layers, steps = I2V_14B.model.num_layers, I2V["steps"]
+    f_lat = f_lat_of(I2V)
+    want = {flash_kernels[0].name: layers * steps,        # self-attention
+            flash_kernels[1].name: 2 * layers * steps,    # text + image
+            kernels[-2].name: 20 * f_lat + 28 * f_lat,    # encode + decode
+            kernels[-1].name: 3 * f_lat}
+    want = {kn.name: want.get(kn.name, 0) for kn in kernels}
+    log(f"[14] launches {counts}, expected {want} ({layers} layers x {steps}"
+        f" steps, CFG in one batch; {f_lat} encode chunks x 20 + {f_lat} "
+        f"decode steps x 28 K3, x 3 K4)")
+    if counts != want:
+        fail("the i2v path did not send every attention through K1 and "
+             "every VAE conv through K3 / K4")
+    del pipe, video
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_one_step(kernels, flash_kernels):
+    """SeaweedWanAPTGenerator: t2v-1.3B, 2 prompts x 81 frames."""
+    import torch
+    from omnihuman_tpu_torch.configs import T2V_1_3B
+    from omnihuman_tpu_torch.pipelines.text2video import WanT2V
+    from omnihuman_tpu_torch.pipelines.wan_inference import (
+        SeaweedWanAPTGenerator)
+
+    pipe = WanT2V(T2V_1_3B, device="cuda", precision="fast", init_seed=0)
+    with torch.no_grad():
+        pipe.model.head.head.weight.normal_(
+            0.0, T2V_1_3B.model.dim ** -0.5,
+            generator=torch.Generator(device="cuda").manual_seed(5))
+    gen = SeaweedWanAPTGenerator(pipe)
+    w, h = FLAGSHIP["size"]
+    pipe.t5                                       # built outside the timing
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    t0 = time.perf_counter()
+    videos = gen.generate_batch(list(ONE_STEP["prompts"]), size=(w, h),
+                                frame_num=ONE_STEP["frames"],
+                                seed=ONE_STEP["seed"])
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = _count(kernels)
+    vf = videos.float()
+    tm = gen.timings
+    log(f"[15] one-step, 2 prompts x {ONE_STEP['frames']} frames: videos "
+        f"{tuple(videos.shape)}, std {vf.std().item():.3f}; total "
+        f"{total:.2f} s: text encode {tm['text_encode_s']:.2f} s, DiT "
+        f"{tm['dit_s']:.3f} s, VAE decode {tm['vae_decode_s']:.3f} s, "
+        f"{tm['frames_per_sec']:.1f} frames/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    if tuple(videos.shape) != (2, 3, ONE_STEP["frames"], h, w) or \
+            not torch.isfinite(vf).all():
+        fail("the one-step videos have the wrong shape or values")
+    f_lat = f_lat_of(ONE_STEP)
+    want = {flash_kernels[0].name: NUM_LAYERS,
+            flash_kernels[1].name: NUM_LAYERS,
+            kernels[-2].name: 28 * f_lat, kernels[-1].name: 3 * f_lat}
+    want = {kn.name: want.get(kn.name, 0) for kn in kernels}
+    log(f"[15] launches {counts}, expected {want}")
+    if counts != want:
+        fail("the one-step path did not go through K1 and K3 / K4")
+    del pipe, gen, videos
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_training_phases(all_kernels, paths):
+    """Phases 8-11 (the attention kernels K1 / K2 only); their models and
+    states are dropped on return."""
+    try:
+        counts, npz = phase_training_main_path(all_kernels)
+        paths.update(counts)
+        state, opt = phase_distill_vs_plain(npz, all_kernels)
+        phase_flagship_distill_step(state, opt)
+        phase_apt_steps(state, npz, all_kernels)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+
+
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "omnihuman_tpu_torch")):
         fail("omnihuman_tpu_torch/ is not beside chip_smoke.py: run this "
@@ -964,11 +1326,14 @@ def main() -> None:
     phase_build()
     rows = phase_kernels()
     bwd_rows = phase_backward_kernels()
+    vae_rows = phase_vae_kernels()
     phase_small_reference()
     from omnihuman_tpu_torch.ops.flash_attention import (
         FLASH_BWD_DKDV, FLASH_BWD_DQ, FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K)
+    from omnihuman_tpu_torch.ops.vae_kernels import VAE_CONV, VAE_UPSAMPLE
     kernels = (FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K)
-    all_kernels = kernels + (FLASH_BWD_DKDV, FLASH_BWD_DQ)
+    flash_kernels = kernels + (FLASH_BWD_DKDV, FLASH_BWD_DQ)
+    all_kernels = flash_kernels + (VAE_CONV, VAE_UPSAMPLE)
     _zero(all_kernels)
     pipe, launches = phase_main_path(kernels)
     paths = {"serve": _count(all_kernels)}
@@ -976,17 +1341,17 @@ def main() -> None:
     phase_flagship_step(pipe)
     del pipe
     gc.collect()
-    import torch
     torch.cuda.empty_cache()
-    try:
-        counts, npz = phase_training_main_path(all_kernels)
-        paths.update(counts)
-        state, opt = phase_distill_vs_plain(npz, all_kernels)
-        phase_flagship_distill_step(state, opt)
-        phase_apt_steps(state, npz, all_kernels)
-    finally:
-        shutil.rmtree(WORK, ignore_errors=True)
+    run_training_phases(flash_kernels, paths)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(phase_vae_full((VAE_CONV, VAE_UPSAMPLE)))
+    paths["i2v"] = phase_i2v(all_kernels, kernels)
+    paths["one_step"] = phase_one_step(all_kernels, kernels)
     log(f"smoke wall time {time.perf_counter() - t_start:.0f} s")
+
+    def by_path(kn):
+        return {p: c.get(kn.name, 0) for p, c in paths.items()}
 
     fwd_src = "omnihuman_tpu_torch/csrc/flash_fwd.cu"
     bwd_src = "omnihuman_tpu_torch/csrc/flash_bwd.cu"
@@ -998,17 +1363,22 @@ def main() -> None:
              "omnihuman_tpu/ops/flash_pallas.py:94")):
         out.append(dict(name=kn.name, route="cuda", source=fwd_src,
                         replaces=replaces, launches=n, **rows[key],
-                        launches_by_path={p: c[kn.name]
-                                          for p, c in paths.items()}))
+                        launches_by_path=by_path(kn)))
     for key, kn, replaces in (
             ("dkdv", FLASH_BWD_DKDV, "omnihuman_tpu/ops/flash_pallas.py:387"),
             ("dq", FLASH_BWD_DQ, "omnihuman_tpu/ops/flash_pallas.py:437")):
         out.append(dict(name=kn.name, route="cuda", source=bwd_src,
                         replaces=replaces,
                         launches=paths["train_distill"][kn.name],
-                        **bwd_rows[key],
-                        launches_by_path={p: c[kn.name]
-                                          for p, c in paths.items()}))
+                        **bwd_rows[key], launches_by_path=by_path(kn)))
+    for key, kn, src, replaces in (
+            ("k3", VAE_CONV, "omnihuman_tpu_torch/csrc/vae_conv.cu",
+             "omnihuman_tpu/ops/vae_pallas.py:58"),
+            ("k4", VAE_UPSAMPLE, "omnihuman_tpu_torch/csrc/vae_upsample.cu",
+             "omnihuman_tpu/ops/vae_pallas.py:278")):
+        out.append(dict(name=kn.name, route="cuda", source=src,
+                        replaces=replaces, launches=paths["i2v"][kn.name],
+                        **vae_rows[key], launches_by_path=by_path(kn)))
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,12 @@
-"""Generation CLI of the port: text-to-video (and t2i, its 1-frame case).
+"""Generation CLI of the port: text-to-video (and t2i, its 1-frame case),
+image-to-video and the one-step APT generator.
 
     python -m omnihuman_tpu_torch.cli.generate --task t2v-1.3B \\
         --size 480*832 --frame_num 81 --prompt "..." --save_file clip.mp4
+    python -m omnihuman_tpu_torch.cli.generate --task i2v-14B \\
+        --size 480*832 --image first_frame.png --prompt "..."
+    python -m omnihuman_tpu_torch.cli.generate --task t2v-1.3B --one_step \\
+        --prompts_file prompts.txt --generator_ckpt distill_out/
 
 Runs on the GPU unless `--device cpu` is given. Weights are random, made
 from a fixed init seed (0); --base_seed seeds the noise. The flags of the
@@ -16,12 +21,7 @@ import sys
 
 # flags of omnihuman_tpu.cli.generate that later slices of the port bring
 LATER_FLAGS = {
-    "--image": "the i2v slice (ROADMAP queue A, slice 2)",
     "--ckpt_dir": "checkpoint loading in the CLI (ROADMAP queue A, slice 2)",
-    "--one_step": "the one-step APT generator (ROADMAP queue A, slice 2)",
-    "--prompts_file": "the one-step APT generator (ROADMAP queue A, slice 2)",
-    "--generator_ckpt": "the one-step APT generator (ROADMAP queue A, "
-                        "slice 2)",
     "--sp_size": "sequence parallelism (ROADMAP queue A, slice 5)",
     "--fsdp_size": "multi-GPU sharding (ROADMAP queue A, slice 5)",
     "--export_step": "serving-step export (ROADMAP queue A, slice 5)",
@@ -37,12 +37,13 @@ LATER_FLAGS = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("omnihuman-tpu-torch generate")
     p.add_argument("--task", default="t2v-1.3B",
-                   help="model registry key (t2v-1.3B, t2v-14B, t2i-14B, "
-                        "t2v-1.3B-small, tiny-test)")
+                   help="model registry key (t2v-1.3B, t2v-14B, i2v-14B, "
+                        "t2i-14B, t2v-1.3B-small, tiny-test)")
     p.add_argument("--size", default="480*832",
                    help="HxW key from SIZE_CONFIGS, e.g. 480*832")
     p.add_argument("--frame_num", type=int, default=None)
     p.add_argument("--prompt", default="a cat walking in the rain")
+    p.add_argument("--image", default=None, help="reference image (i2v)")
     p.add_argument("--n_prompt", default="")
     p.add_argument("--sample_solver", default="unipc",
                    choices=("unipc", "dpm++"))
@@ -59,6 +60,17 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("fused", "sequential"),
                    help="'sequential' lowers the activation peak, for a "
                         "card with less memory than an 80 GB H100")
+    p.add_argument("--one_step", action="store_true",
+                   help="Seaweed-APT one-step generation: one DiT forward "
+                        "at t=T, then the VAE decode")
+    p.add_argument("--prompts_file", default=None, metavar="TXT",
+                   help="one-step batch serving: one prompt per line, all "
+                        "clips in one batched forward and decode; outputs "
+                        "get a _NN suffix. Requires --one_step")
+    p.add_argument("--generator_ckpt", default=None, metavar="DIR",
+                   help="directory of a training checkpoint of the port "
+                        "(utils/checkpoint.py, from cli.train_distill); "
+                        "its EMA stream becomes the one-step generator")
     p.add_argument("--save_file", default=None)
     p.add_argument("--device", default=None,
                    help="torch device (default: the GPU; 'cpu' on request)")
@@ -85,10 +97,16 @@ def main(argv=None):
     if args.task not in WAN_CONFIGS:
         sys.exit(f"unknown task {args.task!r}; choose from "
                  f"{sorted(WAN_CONFIGS)}")
-    if args.task.startswith("i2v"):
-        sys.exit(f"{args.task} is not ported yet: it comes with the i2v "
-                 "slice (ROADMAP queue A, slice 2)")
     cfg = WAN_CONFIGS[args.task]
+    i2v = cfg.model.model_type == "i2v"
+    if args.prompts_file and not args.one_step:
+        sys.exit("--prompts_file is the one-step batch-serving mode; pass "
+                 "--one_step")
+    if args.one_step and i2v:
+        sys.exit("--one_step is the Seaweed-APT t2v path; i2v tasks have "
+                 "no one-step generator")
+    if i2v and not args.image:
+        sys.exit(f"{args.task} needs --image")
     if args.size in SIZE_CONFIGS:
         if args.size not in SUPPORTED_SIZES[args.task]:
             sys.exit(f"size {args.size} unsupported for {args.task}; "
@@ -103,19 +121,84 @@ def main(argv=None):
     frame_num = args.frame_num or (1 if args.task == "t2i-14B"
                                    else cfg.frame_num)
 
-    pipe = WanT2V(cfg, precision=args.precision, device=args.device)
-    video = pipe.generate(
-        args.prompt, size=(w, h), frame_num=frame_num,
-        shift=args.sample_shift or cfg.sample_shift,
-        sample_solver=args.sample_solver,
-        sampling_steps=args.sample_steps or cfg.sample_steps,
-        guide_scale=args.sample_guide_scale or cfg.sample_guide_scale,
-        n_prompt=args.n_prompt, seed=args.base_seed, cfg_mode=args.cfg_mode)
-
     out = args.save_file or (f"{args.task.replace('-', '_')}_"
                              f"{args.size.replace('*', 'x')}.mp4")
+    sampling = dict(shift=args.sample_shift or cfg.sample_shift,
+                    sample_solver=args.sample_solver,
+                    sampling_steps=args.sample_steps or cfg.sample_steps,
+                    guide_scale=(args.sample_guide_scale
+                                 or cfg.sample_guide_scale),
+                    n_prompt=args.n_prompt, seed=args.base_seed,
+                    cfg_mode=args.cfg_mode)
+    if i2v:
+        import numpy as np
+        from PIL import Image
+
+        from omnihuman_tpu_torch.pipelines.image2video import WanI2V
+        pipe = WanI2V(cfg, precision=args.precision, device=args.device)
+        img = np.asarray(Image.open(args.image).convert("RGB"),
+                         np.float32).transpose(2, 0, 1) / 127.5 - 1.0
+        video = pipe.generate(args.prompt, img, max_area=h * w,
+                              frame_num=frame_num, **sampling)
+        timings = pipe.timings
+    elif args.one_step:
+        return _one_step(args, cfg, (w, h), frame_num, out)
+    else:
+        pipe = WanT2V(cfg, precision=args.precision, device=args.device)
+        video = pipe.generate(args.prompt, size=(w, h), frame_num=frame_num,
+                              **sampling)
+        timings = pipe.timings
     path = cache_video(video, out, fps=cfg.sample_fps)
-    print(f"saved {path}  stage timings: {pipe.timings}")
+    print(f"saved {path}  stage timings: {timings}")
+    return path
+
+
+def _one_step(args, cfg, size, frame_num: int, out: str):
+    """--one_step: the pipeline's DiT, or the EMA stream of the training
+    checkpoint in --generator_ckpt, one forward per batch of prompts."""
+    import os
+
+    import torch
+
+    from omnihuman_tpu_torch.pipelines.text2video import WanT2V
+    from omnihuman_tpu_torch.pipelines.wan_inference import (
+        SeaweedWanAPTGenerator)
+    from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
+    from omnihuman_tpu_torch.utils.media import cache_video
+
+    pipe = WanT2V(cfg, precision=args.precision, device=args.device)
+    if args.generator_ckpt:
+        state = CheckpointManager(args.generator_ckpt).restore()
+        if state is None:
+            sys.exit(f"no checkpoint found in {args.generator_ckpt}")
+        # distill / APT states carry the generator as `ema_params`; a bare
+        # {name: tensor} dict is taken as it is
+        ema = state.get("ema_params", state)
+        with torch.no_grad():
+            params = dict(pipe.model.named_parameters())
+            if set(ema) != set(params):
+                sys.exit(f"{args.generator_ckpt}: the EMA parameters do not "
+                         f"match the {cfg.name} DiT")
+            for name, p in params.items():
+                p.copy_(ema[name])
+    gen = SeaweedWanAPTGenerator(pipe)
+    if args.prompts_file:
+        with open(args.prompts_file, encoding="utf-8") as f:
+            prompts = [ln.strip() for ln in f if ln.strip()]
+        if not prompts:
+            sys.exit(f"{args.prompts_file} contains no prompts")
+        videos = gen.generate_batch(prompts, size=size, frame_num=frame_num,
+                                    seed=args.base_seed)
+        root, ext = os.path.splitext(out)
+        paths = [cache_video(videos[i], f"{root}_{i:02d}{ext}",
+                             fps=cfg.sample_fps)
+                 for i in range(videos.shape[0])]
+        print(f"saved {paths}  one-step timings: {gen.timings}")
+        return paths
+    video = gen.generate(args.prompt, size=size, frame_num=frame_num,
+                         seed=args.base_seed)
+    path = cache_video(video, out, fps=cfg.sample_fps)
+    print(f"saved {path}  one-step timings: {gen.timings}")
     return path
 
 

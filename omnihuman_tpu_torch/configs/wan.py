@@ -103,7 +103,8 @@ UMT5_SMALL = T5Config(
 @dataclasses.dataclass(frozen=True)
 class CLIPConfig:
     """XLM-RoBERTa-CLIP ViT-H/14 (reference wan/modules/clip.py:471-499).
-    Carried for the registry; the i2v path comes in a later slice."""
+    The visual tower is ported (models/clip.py); the text-tower fields are
+    carried for the registry."""
 
     embed_dim: int = 1024
     image_size: int = 224

@@ -1,6 +1,7 @@
-// Device helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): cp.async tile loads, mma.sync m16n8k16 (bf16 x bf16 ->
-// fp32), ldmatrix, bf16 packing, and the mask of flash_pallas._mask_block.
+// Device helpers shared by the port's mma.sync kernels (flash_fwd.cu,
+// flash_bwd.cu, vae_conv.cu, vae_upsample.cu): cp.async tile loads,
+// mma.sync m16n8k16 (bf16 x bf16 -> fp32), ldmatrix, bf16 packing, and the
+// mask of flash_pallas._mask_block.
 //
 // Fragment layout of mma.sync m16n8k16 (lane = 4 * g + t):
 //   A (16x16, row-major): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
@@ -51,6 +52,10 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
 // D[16x8] += A[16x16] * B[16x8], bf16 inputs, fp32 accumulate.
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
@@ -59,6 +64,15 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8 (16 contiguous bytes each, any rows).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
 }
 
 // Four transposed 8x8 b16 matrices from shared memory.

@@ -1,35 +1,51 @@
-"""Wan 2.1 3D causal video VAE, decode path (port of omnihuman_tpu/models/vae.py).
+"""Wan 2.1 3D causal video VAE, encoder and decoder (port of
+omnihuman_tpu/models/vae.py).
 
-The decoder of the reference WanVAE (wan/modules/vae.py): causal 3x3x3
-convs, two temporal upsamples (channel-doubling time conv + frame
-interleave, with the 'Rep' first-frame rule), single-head per-frame
-spatial attention in the middle, RMS channel norms, and the latent
-de-normalisation. Module names follow the reference (`decoder.*`,
-`conv2`), so the decoder part of a Wan2.1_VAE.pth state dict loads with
+The reference WanVAE_ (wan/modules/vae.py): causal 3x3x3 convs, RMS channel
+norms, single-head per-frame spatial attention in the middle blocks; the
+encoder downsamples twice in time (stride-2 time conv, frame 0 passed
+through) and thrice in space (corner-padded stride-2 conv), the decoder
+upsamples twice in time (channel-doubling time conv + frame interleave,
+frame 0 passed through) and thrice in space; the latent is normalised by
+per-channel statistics. Module names follow the reference (`encoder.*`,
+`conv1`, `decoder.*`, `conv2`), so a Wan2.1_VAE.pth state dict loads with
 `load_state_dict`.
 
-Two ways to run it, with the same outputs (JAX vae_decode):
+Two ways to run either direction, with the same outputs (JAX vae_encode /
+vae_decode):
   streaming=False: one causal-conv graph over the whole clip;
-  streaming=True:  the first latent frame, then one latent frame per step
-                   with 2-frame conv caches: bounded memory for long clips.
+  streaming=True:  the first frame (latent frame), then 4 frames (one
+                   latent frame) per step with conv caches: bounded memory.
 
-Layout is the reference's [B, C, T, H, W] throughout. Convs are
-torch.nn.functional conv3d (cuDNN on the card), as the JAX package leaves
-this path to XLA; the fused Pallas VAE kernels are opt-in there and come
-in a later slice here. The RGB head is a plain causal conv (the JAX
-`_head_conv_blocked` is a TPU lane-fill rewrite of the same function).
+`conv_impl` chooses how a streaming pass runs each residual-block conv and
+each decoder upsample (JAX `conv_impl`; `streaming=False` ignores it):
+  "torch": torch convs (cuDNN on the card), the counterpart of JAX "xla";
+  "cuda":  the hand-written Hopper kernels K3 / K4 (ops/vae_kernels.py),
+           the counterpart of "pallas"; raises off CUDA;
+  "plain": the same fused structure through the kernels' plain versions,
+           the counterpart of "pallas_interpret";
+  "auto":  "cuda" on a CUDA tensor, "torch" on the CPU.
+The fused paths run in torch.channels_last_3d memory (the logical layout
+stays [B, C, T, H, W]): the kernels take channels-last tensors and every
+op between them keeps that format; the kernels refuse anything else.
+
+The RGB head is a plain causal conv (the JAX `_head_conv_blocked` is a TPU
+lane-fill rewrite of the same function).
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from omnihuman_tpu_torch.configs.wan import VAEConfig
+from omnihuman_tpu_torch.ops import vae_kernels
+
+CONV_IMPLS = ("auto", "torch", "cuda", "plain")
 
 # ---------------------------------------------------------------------------
 # module tree (reference names)
@@ -69,16 +85,40 @@ class AttentionBlock(nn.Module):
 
 
 class Resample(nn.Module):
+    """Up: nearest 2x + 3x3 conv halving the channels; down: corner pad +
+    stride-2 3x3 conv; the 3d modes add a time conv (vae.py:66-162)."""
+
     def __init__(self, dim: int, mode: str):
         super().__init__()
-        if mode not in ("upsample2d", "upsample3d"):
-            raise NotImplementedError(
-                f"Resample {mode!r}: the encoder comes in a later slice")
         self.mode = mode
-        self.resample = nn.Sequential(nn.Identity(),
-                                      nn.Conv2d(dim, dim // 2, 3))
+        cout = dim // 2 if mode.startswith("upsample") else dim
+        self.resample = nn.Sequential(nn.Identity(), nn.Conv2d(dim, cout, 3))
         if mode == "upsample3d":
             self.time_conv = _causal_conv(dim, dim * 2, (3, 1, 1))
+        elif mode == "downsample3d":
+            self.time_conv = _causal_conv(dim, dim, (3, 1, 1))
+
+
+def encoder_spec(cfg: VAEConfig) -> List[Tuple]:
+    """Static layer list of the encoder (JAX encoder_spec)."""
+    dims = [cfg.base_dim * u for u in (1,) + tuple(cfg.dim_mult)]
+    spec: List[Tuple] = [("conv_in", 3, dims[0])]
+    scale = 1.0
+    for i, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
+        for _ in range(cfg.num_res_blocks):
+            spec.append(("res", din, dout))
+            if scale in cfg.attn_scales:
+                spec.append(("attn", dout))
+            din = dout
+        if i != len(cfg.dim_mult) - 1:
+            mode = ("downsample3d" if cfg.temporal_downsample[i]
+                    else "downsample2d")
+            spec.append(("resample", dout, mode))
+            scale /= 2.0
+    out = dims[-1]
+    spec += [("res", out, out), ("attn", out), ("res", out, out),
+             ("head", out, cfg.z_dim * 2)]
+    return spec
 
 
 def decoder_spec(cfg: VAEConfig) -> List[Tuple]:
@@ -113,6 +153,26 @@ def _make_layer(item) -> nn.Module:
     raise ValueError(kind)
 
 
+def _head(cin: int, cout: int) -> nn.Sequential:
+    return nn.Sequential(RMS_norm(cin), nn.SiLU(), _causal_conv(cin, cout))
+
+
+class Encoder3d(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        spec = encoder_spec(cfg)
+        self.conv1 = _causal_conv(spec[0][1], spec[0][2])
+        self.downsamples = nn.Sequential(
+            *[_make_layer(it) for it in spec[1:-4]])
+        self.middle = nn.Sequential(*[_make_layer(it) for it in spec[-4:-1]])
+        self.head = _head(spec[-1][1], spec[-1][2])
+
+    def layers(self) -> List[nn.Module]:
+        """One module per encoder_spec entry."""
+        return ([self.conv1] + list(self.downsamples) + list(self.middle)
+                + [self.head])
+
+
 class Decoder3d(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
@@ -121,17 +181,23 @@ class Decoder3d(nn.Module):
         self.middle = nn.Sequential(*[_make_layer(it) for it in spec[1:4]])
         self.upsamples = nn.Sequential(
             *[_make_layer(it) for it in spec[4:-1]])
-        cin = spec[-1][1]
-        self.head = nn.Sequential(RMS_norm(cin), nn.SiLU(),
-                                  _causal_conv(cin, 3))
+        self.head = _head(spec[-1][1], spec[-1][2])
+
+    def layers(self) -> List[nn.Module]:
+        """One module per decoder_spec entry."""
+        return ([self.conv1] + list(self.middle) + list(self.upsamples)
+                + [self.head])
 
 
-class WanVAEDecoder(nn.Module):
-    """`decoder` + the 1x1x1 latent conv `conv2` of the reference WanVAE_."""
+class WanVAE(nn.Module):
+    """The reference WanVAE_: `encoder`, the 1x1x1 latent convs `conv1`
+    (after the encoder) and `conv2` (before the decoder), `decoder`."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         self.cfg = cfg
+        self.encoder = Encoder3d(cfg)
+        self.conv1 = _causal_conv(cfg.z_dim * 2, cfg.z_dim * 2, (1, 1, 1))
         self.decoder = Decoder3d(cfg)
         self.conv2 = _causal_conv(cfg.z_dim, cfg.z_dim, (1, 1, 1))
 
@@ -152,10 +218,10 @@ class WanVAEDecoder(nn.Module):
                 m.proj.bias.zero_()
 
 
-def build_vae_decoder(cfg: VAEConfig, device, dtype: torch.dtype,
-                      seed: Optional[int] = 0) -> WanVAEDecoder:
+def build_vae(cfg: VAEConfig, device, dtype: torch.dtype,
+              seed: Optional[int] = 0) -> WanVAE:
     with torch.device("meta"):
-        vae = WanVAEDecoder(cfg)
+        vae = WanVAE(cfg)
     vae = vae.to(dtype).to_empty(device=device)
     if seed is not None:
         vae.init_weights(torch.Generator(device=device).manual_seed(seed))
@@ -166,28 +232,40 @@ def build_vae_decoder(cfg: VAEConfig, device, dtype: torch.dtype,
 # primitive layers (x: [B, C, T, H, W])
 
 
-def _conv3d(x, conv: nn.Conv3d, padding: str = "causal"):
+def _conv3d(x, conv: nn.Conv3d, padding: str = "causal", stride=1):
     """padding='causal': zero-pad kt-1 frames at the front, SAME on h/w;
-    'valid_t': no time padding (the caller supplies history)."""
+    'valid_t': no time padding (the caller supplies history). The odd
+    spatial kernels pad symmetrically inside the conv, which keeps x's
+    memory format."""
     w, b = conv.weight, conv.bias
     kt, kh, kw = w.shape[2:]
-    tpad = (kt - 1, 0) if padding == "causal" else (0, 0)
-    x = F.pad(x.to(w.dtype), ((kw - 1) // 2, kw // 2, (kh - 1) // 2, kh // 2)
-              + tpad)
+    x = x.to(w.dtype)
+    if padding == "causal" and kt > 1:
+        x = F.pad(x, (0, 0, 0, 0, kt - 1, 0))
+    pad = (0, (kh - 1) // 2, (kw - 1) // 2)
     if b.dtype == w.dtype:
-        return F.conv3d(x, w, b)
-    return F.conv3d(x, w) + b.view(1, -1, 1, 1, 1)   # JAX promotes here
+        return F.conv3d(x, w, b, stride=stride, padding=pad)
+    return (F.conv3d(x, w, stride=stride, padding=pad)
+            + b.view(1, -1, 1, 1, 1))             # JAX promotes here
 
 
-def _conv2d_frames(x, conv: nn.Conv2d):
-    """Per-frame SAME conv2d on [B, C, T, H, W] (a 1 x kh x kw conv3d)."""
+def _conv2d_frames(x, conv: nn.Conv2d, stride=1, padding="same"):
+    """Per-frame conv2d on [B, C, T, H, W] (a 1 x kh x kw conv3d).
+    padding='corner': zero row / column at the bottom / right, then VALID
+    (the reference's downsample ZeroPad2d((0, 1, 0, 1)))."""
     w, b = conv.weight, conv.bias
     kh, kw = w.shape[2:]
-    x = F.pad(x.to(w.dtype), ((kw - 1) // 2, kw // 2, (kh - 1) // 2, kh // 2))
+    x = x.to(w.dtype)
+    if padding == "corner":
+        x = F.pad(x, (0, 1, 0, 1))
+        pad = 0
+    else:
+        pad = (0, (kh - 1) // 2, (kw - 1) // 2)
     w3 = w.unsqueeze(2)
+    st = (1, stride, stride)
     if b.dtype == w.dtype:
-        return F.conv3d(x, w3, b)
-    return F.conv3d(x, w3) + b.view(1, -1, 1, 1, 1)
+        return F.conv3d(x, w3, b, stride=st, padding=pad)
+    return F.conv3d(x, w3, stride=st, padding=pad) + b.view(1, -1, 1, 1, 1)
 
 
 def _rms_norm_channel(x, gamma):
@@ -220,12 +298,40 @@ def _spatial_attention(p: AttentionBlock, x):
     return idn + y.to(x.dtype)
 
 
+def _channels_last(x) -> bool:
+    """Channels innermost in memory, as in channels_last_3d; true also of
+    a time slice of such a tensor (a streaming chunk or cache)."""
+    return x.stride(1) == 1 and x.shape[1] > 1
+
+
+def _zero_frames(x, frames: int):
+    """Zero history [B, C, frames, H, W] in x's dtype and memory format."""
+    b, c, _, h, w = x.shape
+    fmt = (torch.channels_last_3d if _channels_last(x)
+           else torch.contiguous_format)
+    return torch.empty((b, c, frames, h, w), dtype=x.dtype, device=x.device,
+                       memory_format=fmt).zero_()
+
+
+def _interleave_time(y, c: int):
+    """[B, 2C, t, H, W] -> [B, C, 2t, H, W]: channel group g of frame i
+    becomes frame 2i + g (vae.py:120-126). A channels-last input stays
+    channels-last."""
+    b, _, t, h, w = y.shape
+    if _channels_last(y):
+        z = y.permute(0, 2, 3, 4, 1).reshape(b, t, h, w, 2, c)
+        z = z.permute(0, 1, 4, 2, 3, 5).contiguous().view(b, 2 * t, h, w, c)
+        return z.permute(0, 4, 1, 2, 3)
+    y = y.reshape(b, 2, c, t, h, w).permute(0, 2, 3, 1, 4, 5)
+    return y.reshape(b, c, 2 * t, h, w)
+
+
 # ---------------------------------------------------------------------------
 # cache plumbing
 
 
 class _CacheIO:
-    """Cursor over the ordered per-conv cache list of the streaming decode.
+    """Cursor over the ordered per-conv cache list of a streaming pass.
 
     caches=None: full-sequence mode (plain causal padding). A streaming
     cursor whose list is shorter than the layers reads None past its end,
@@ -258,17 +364,63 @@ def _causal_conv_step(conv: nn.Conv3d, x, io: _CacheIO):
         return _conv3d(x, conv, padding="causal")
     cache = io.next()
     if cache is None:
-        cache = x.new_zeros(x.shape[:2] + (kt - 1,) + x.shape[3:])
+        cache = _zero_frames(x, kt - 1)
     xin = torch.cat([cache.to(x.dtype), x], dim=2)
     io.put(xin[:, :, -(kt - 1):])
     return _conv3d(xin, conv, padding="valid_t")
 
 
-def _residual_block(p: ResidualBlock, x, io: _CacheIO):
-    """RMS -> SiLU -> conv3, RMS -> SiLU -> conv3, + shortcut."""
+class _Fused:
+    """The fused-kernel path of one streaming pass: the kernel functions
+    ("cuda": K3 / K4 on CUDA tensors; "plain": their plain versions) and
+    the weights packed once per pass, as JAX `_optimize_decoder_params`
+    packs them outside its scan."""
+
+    def __init__(self, impl: str, layers: List[nn.Module]):
+        if impl == "cuda":
+            self.conv = vae_kernels.fused_act_causal_conv3d
+            self.up = vae_kernels.fused_upsample_conv2d
+        else:
+            self.conv = vae_kernels.fused_act_causal_conv3d_plain
+            self.up = vae_kernels.fused_upsample_conv2d_plain
+        self.packs: Dict[nn.Module, Tuple] = {}
+        for layer in layers:
+            if isinstance(layer, ResidualBlock):
+                r = layer.residual
+                for norm, conv in ((r[0], r[2]), (r[3], r[6])):
+                    self.packs[conv] = (
+                        vae_kernels.pack_conv_weights(
+                            conv.weight.permute(2, 3, 4, 1, 0)),
+                        norm.gamma.float().reshape(-1).contiguous(),
+                        conv.bias.float().contiguous())
+            elif isinstance(layer, Resample) and \
+                    layer.mode.startswith("upsample"):
+                conv = layer.resample[1]
+                self.packs[conv] = (
+                    vae_kernels.pack_upsample_weights(
+                        conv.weight.permute(2, 3, 1, 0)),
+                    conv.bias.float().contiguous())
+
+
+def _residual_block(p: ResidualBlock, x, io: _CacheIO,
+                    fused: Optional[_Fused]):
+    """RMS -> SiLU -> conv3, RMS -> SiLU -> conv3, + shortcut. Fused: each
+    norm -> SiLU -> causal conv is one K3 call that also returns the new
+    cache; the identity skip rides in conv2's epilogue (vae.py:186-221)."""
     r = p.residual
-    h = x if isinstance(p.shortcut, nn.Identity) else _conv3d(
-        x, p.shortcut, padding="valid_t")
+    identity = isinstance(p.shortcut, nn.Identity)
+    h = x if identity else _conv3d(x, p.shortcut, padding="valid_t")
+    if fused is not None and io.streaming:
+        y = x
+        for i, (norm, conv) in enumerate(((r[0], r[2]), (r[3], r[6]))):
+            cache = io.next()
+            if cache is None:
+                cache = _zero_frames(y, 2)
+            w2, gamma, bias = fused.packs[conv]
+            res = x if identity and i == 1 else None
+            y, cnew = fused.conv(y, cache, gamma, w2, bias, residual=res)
+            io.put(cnew.to(x.dtype))
+        return y if identity else y + h
     y = F.silu(_rms_norm_channel(x, r[0].gamma))
     y = _causal_conv_step(r[2], y, io)
     y = F.silu(_rms_norm_channel(y, r[3].gamma))
@@ -279,79 +431,136 @@ def _residual_block(p: ResidualBlock, x, io: _CacheIO):
 def _upsample3d_time(conv: nn.Conv3d, x, io: _CacheIO, first: bool):
     """Channel-doubling causal time conv + frame interleave (vae.py:79-140).
     Frame 0 passes through with no time conv ('Rep') and zero history."""
-    b, c, t, h, w = x.shape
-
-    def conv_interleave(xin):    # [B, C, T', H, W] -> [B, C, 2(T'-2), H, W]
-        y = _conv3d(xin, conv, padding="valid_t")            # [B, 2C, t, ..]
-        ty = y.shape[2]
-        y = y.reshape(b, 2, c, ty, h, w).permute(0, 2, 3, 1, 4, 5)
-        return y.reshape(b, c, ty * 2, h, w)
-
+    c = x.shape[1]
     if not io.streaming:
         head = x[:, :, :1]
-        if t == 1:
+        if x.shape[2] == 1:
             return head
         tail_in = F.pad(x[:, :, 1:], (0, 0, 0, 0, 2, 0))
-        return torch.cat([head, conv_interleave(tail_in)], dim=2)
+        tail = _interleave_time(_conv3d(tail_in, conv, padding="valid_t"), c)
+        return torch.cat([head, tail], dim=2)
     cache = io.next()
     if first:
-        io.put(x.new_zeros((b, c, 2, h, w)))
+        io.put(_zero_frames(x, 2))
         return x
     xin = torch.cat([cache.to(x.dtype), x], dim=2)
     io.put(xin[:, :, -2:])
-    return conv_interleave(xin)
+    return _interleave_time(_conv3d(xin, conv, padding="valid_t"), c)
 
 
-def _resample(p: Resample, x, io: _CacheIO, first: bool):
+def _downsample3d_time(conv: nn.Conv3d, x, io: _CacheIO, first: bool):
+    """Stride-2 time conv of the encoder (vae.py:91-96,146-161); frame 0
+    (the first chunk) passes through and is kept as the 1-frame cache."""
+    if not io.streaming:
+        tail = _conv3d(x, conv, padding="valid_t", stride=(2, 1, 1))
+        return torch.cat([x[:, :, :1], tail], dim=2)
+    cache = io.next()
+    io.put(x[:, :, -1:])
+    if first:
+        return x
+    xin = torch.cat([cache.to(x.dtype), x], dim=2)
+    return _conv3d(xin, conv, padding="valid_t", stride=(2, 1, 1))
+
+
+def _resample(p: Resample, x, io: _CacheIO, first: bool,
+              fused: Optional[_Fused]):
     if p.mode == "upsample3d":
         x = _upsample3d_time(p.time_conv, x, io, first)
-    x = F.interpolate(x, scale_factor=(1, 2, 2), mode="nearest")
-    return _conv2d_frames(x, p.resample[1])
-
-
-def _run_stack(vae: WanVAEDecoder, spec, x, io: _CacheIO, first: bool):
-    d = vae.decoder
-    layers = [None] + list(d.middle) + list(d.upsamples) + [None]
-    for item, layer in zip(spec, layers):
-        kind = item[0]
-        if kind == "conv_in":
-            x = _causal_conv_step(d.conv1, x, io)
-        elif kind == "res":
-            x = _residual_block(layer, x, io)
-        elif kind == "attn":
-            x = _spatial_attention(layer, x)
-        elif kind == "resample":
-            x = _resample(layer, x, io, first)
-        elif kind == "head":
-            x = F.silu(_rms_norm_channel(x, d.head[0].gamma))
-            x = _causal_conv_step(d.head[2], x, io)
+    conv = p.resample[1]
+    if p.mode.startswith("upsample"):
+        if fused is not None:
+            w4, bias = fused.packs[conv]
+            return fused.up(x, w4, bias)
+        x = F.interpolate(x, scale_factor=(1, 2, 2), mode="nearest")
+        return _conv2d_frames(x, conv)
+    x = _conv2d_frames(x, conv, stride=2, padding="corner")
+    if p.mode == "downsample3d":
+        x = _downsample3d_time(p.time_conv, x, io, first)
     return x
 
 
-def vae_decode(vae: WanVAEDecoder, z: torch.Tensor, streaming: bool = True,
-               clamp: bool = True) -> torch.Tensor:
+def _run_stack(spec, layers, x, io: _CacheIO, first: bool,
+               fused: Optional[_Fused]):
+    for item, layer in zip(spec, layers):
+        kind = item[0]
+        if kind == "conv_in":
+            x = _causal_conv_step(layer, x, io)
+        elif kind == "res":
+            x = _residual_block(layer, x, io, fused)
+        elif kind == "attn":
+            x = _spatial_attention(layer, x)
+        elif kind == "resample":
+            x = _resample(layer, x, io, first, fused)
+        elif kind == "head":
+            x = F.silu(_rms_norm_channel(x, layer[0].gamma))
+            x = _causal_conv_step(layer[2], x, io)
+    return x
+
+
+def _resolve(conv_impl: str, streaming: bool, x: torch.Tensor, layers):
+    """The _Fused plan of a pass, or None for the torch-conv path."""
+    if conv_impl not in CONV_IMPLS:
+        raise ValueError(f"unknown conv_impl {conv_impl!r}; expected one of "
+                         f"{CONV_IMPLS}")
+    if conv_impl == "auto":
+        conv_impl = "cuda" if x.is_cuda else "torch"
+    if not streaming or conv_impl == "torch":
+        return None
+    if conv_impl == "cuda" and not x.is_cuda:
+        raise ValueError(f"conv_impl='cuda' needs a CUDA tensor, got "
+                         f"{x.device}")
+    return _Fused(conv_impl, layers)
+
+
+def _stream(spec, layers, x, fused, chunk: int):
+    """First frame, then `chunk` frames per step, caches carried over."""
+    if fused is not None:
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+    io = _CacheIO([])
+    outs = [_run_stack(spec, layers, x[:, :, :1], io, True, fused)]
+    for i in range(1, x.shape[2], chunk):
+        io = _CacheIO(io.out)
+        outs.append(_run_stack(spec, layers, x[:, :, i:i + chunk], io, False,
+                               fused))
+    return torch.cat(outs, dim=2)
+
+
+def _latent_stats(cfg: VAEConfig, device):
+    mean = torch.tensor(cfg.latent_mean, dtype=torch.float32, device=device)
+    std = torch.tensor(cfg.latent_std, dtype=torch.float32, device=device)
+    return mean.view(1, -1, 1, 1, 1), std.view(1, -1, 1, 1, 1)
+
+
+def vae_encode(vae: WanVAE, video: torch.Tensor, streaming: bool = True,
+               conv_impl: str = "auto") -> torch.Tensor:
+    """[B, 3, T, H, W] (T = 1 + 4k) -> normalised latent mean
+    [B, z, 1 + k, H/8, W/8] in video's dtype (reference encode,
+    vae.py:515-541)."""
+    spec, layers = encoder_spec(vae.cfg), vae.encoder.layers()
+    fused = _resolve(conv_impl, streaming, video, layers)
+    if streaming:
+        out = _stream(spec, layers, video, fused, chunk=4)
+    else:
+        out = _run_stack(spec, layers, video, _CacheIO(None), False, None)
+    out = _conv3d(out, vae.conv1, padding="valid_t")
+    mu = out[:, :vae.cfg.z_dim]
+    mean, std = _latent_stats(vae.cfg, video.device)
+    return ((mu.float() - mean) / std).to(video.dtype)
+
+
+def vae_decode(vae: WanVAE, z: torch.Tensor, streaming: bool = True,
+               clamp: bool = True, conv_impl: str = "auto") -> torch.Tensor:
     """Normalised latent [B, z, Tz, h, w] -> video [B, 3, 1+4(Tz-1), 8h, 8w]
     (reference decode, vae.py:544-566)."""
-    cfg = vae.cfg
-    spec = decoder_spec(cfg)
-    dev = vae.conv2.weight.device
-    mean = torch.tensor(cfg.latent_mean, dtype=torch.float32, device=dev)
-    std = torch.tensor(cfg.latent_std, dtype=torch.float32, device=dev)
-    zt = (z.float() * std.view(1, -1, 1, 1, 1)
-          + mean.view(1, -1, 1, 1, 1)).to(z.dtype)
+    spec, layers = decoder_spec(vae.cfg), vae.decoder.layers()
+    fused = _resolve(conv_impl, streaming, z, layers)
+    mean, std = _latent_stats(vae.cfg, z.device)
+    zt = (z.float() * std + mean).to(z.dtype)
     x = _conv3d(zt, vae.conv2, padding="valid_t")
-    tz = x.shape[2]
-
-    if not streaming:
-        out = _run_stack(vae, spec, x, _CacheIO(None), first=False)
+    if streaming:
+        out = _stream(spec, layers, x, fused, chunk=1)
     else:
-        io = _CacheIO([])
-        outs = [_run_stack(vae, spec, x[:, :, :1], io, first=True)]
-        for i in range(1, tz):
-            io = _CacheIO(io.out)
-            outs.append(_run_stack(vae, spec, x[:, :, i:i + 1], io,
-                                   first=False))
-        out = torch.cat(outs, dim=2)
+        out = _run_stack(spec, layers, x, _CacheIO(None), False, None)
     if clamp:
         out = torch.clamp(out, -1.0, 1.0)
     return out

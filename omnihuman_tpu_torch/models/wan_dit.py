@@ -1,4 +1,4 @@
-"""Wan 2.1 DiT denoiser, t2v (port of omnihuman_tpu/models/wan_dit.py).
+"""Wan 2.1 DiT denoiser, t2v and i2v (port of omnihuman_tpu/models/wan_dit.py).
 
 3D patch-embed -> N attention blocks (self-attention with 3D RoPE,
 cross-attention to the text, AdaLN-modulated FFN) -> AdaLN head ->
@@ -22,7 +22,18 @@ on top of the per-block checkpoints (JAX's grouped two-level remat,
 beside the velocity, the APT discriminator's taps (`:508-536`). A Python
 loop over the blocks stands in for the JAX scan.
 
-Left for later slices: the i2v branch, audio_ctx and token sharding.
+i2v (`model_type="i2v"`, reference WanI2VCrossAttention and MLPProj): the
+conditioning y (mask + reference latent) is concatenated to the latent
+channels before patchify; `img_emb` projects the CLIP tokens (LayerNorm,
+Linear, exact GELU, Linear, LayerNorm, fp32), which are prepended to the
+text context; the cross-attention splits them off again, attends to them
+through `k_img` / `v_img` / `norm_k_img` with no lengths, and adds that
+output to the text attention's. `context_lens` masks the text keys alone,
+as the reference does: the JAX package adds `clip_tokens` to it
+(wan_dit.py:467-468) and so leaves every text mask 257 keys too long
+(ROADMAP queue C); the port does not copy that.
+
+Left for later slices: audio_ctx and token sharding.
 """
 
 from __future__ import annotations
@@ -77,10 +88,10 @@ class WanRMSNorm(nn.Module):
 
 
 class WanAttention(nn.Module):
-    """q/k/v/o projections + qk RMSNorm weights (self_attn and cross_attn
-    share this layout for t2v)."""
+    """q/k/v/o projections + qk RMSNorm weights; the i2v cross-attention
+    adds the image keys / values `k_img`, `v_img`, `norm_k_img`."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, i2v: bool = False):
         super().__init__()
         self.q = nn.Linear(dim, dim)
         self.k = nn.Linear(dim, dim)
@@ -88,6 +99,10 @@ class WanAttention(nn.Module):
         self.o = nn.Linear(dim, dim)
         self.norm_q = WanRMSNorm(dim)
         self.norm_k = WanRMSNorm(dim)
+        if i2v:
+            self.k_img = nn.Linear(dim, dim)
+            self.v_img = nn.Linear(dim, dim)
+            self.norm_k_img = WanRMSNorm(dim)
 
 
 class WanAttentionBlock(nn.Module):
@@ -98,11 +113,21 @@ class WanAttentionBlock(nn.Module):
         if cfg.cross_attn_norm:
             self.norm3 = nn.LayerNorm(dim, eps=cfg.eps,
                                       elementwise_affine=True)
-        self.cross_attn = WanAttention(dim)
+        self.cross_attn = WanAttention(dim, i2v=cfg.model_type == "i2v")
         self.ffn = nn.Sequential(nn.Linear(dim, cfg.ffn_dim),
                                  nn.GELU(approximate="tanh"),
                                  nn.Linear(cfg.ffn_dim, dim))
         self.modulation = nn.Parameter(torch.zeros(1, 6, dim))
+
+
+class MLPProj(nn.Module):
+    """`img_emb`: CLIP tokens [B, 257, clip_embed_dim] -> [B, 257, dim]."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.proj = nn.Sequential(nn.LayerNorm(cin), nn.Linear(cin, cin),
+                                  nn.GELU(), nn.Linear(cin, cout),
+                                  nn.LayerNorm(cout))
 
 
 class Head(nn.Module):
@@ -136,13 +161,24 @@ def _cross_attention(p: WanAttention, x, context, context_lens,
     cd = policy.compute
     xc = x.to(cd)
     ctx = context.to(cd)
-    lc = ctx.shape[1]
     q = rms_norm(_linear(p.q, xc), p.norm_q.weight, eps=cfg.eps)
+    q = q.reshape(b, s, n, d)
+    y_img = None
+    if cfg.model_type == "i2v":   # image tokens first (model.py:211-229)
+        ti = cfg.clip_tokens
+        ctx_img, ctx = ctx[:, :ti], ctx[:, ti:]
+        k_img = rms_norm(_linear(p.k_img, ctx_img), p.norm_k_img.weight,
+                         eps=cfg.eps)
+        v_img = _linear(p.v_img, ctx_img)
+        y_img = flash_attention(q, k_img.reshape(b, ti, n, d),
+                                v_img.reshape(b, ti, n, d), dtype=cd)
+    lc = ctx.shape[1]
     k = rms_norm(_linear(p.k, ctx), p.norm_k.weight, eps=cfg.eps)
     v = _linear(p.v, ctx)
-    y = flash_attention(q.reshape(b, s, n, d), k.reshape(b, lc, n, d),
-                        v.reshape(b, lc, n, d), k_lens=context_lens,
-                        dtype=cd)
+    y = flash_attention(q, k.reshape(b, lc, n, d), v.reshape(b, lc, n, d),
+                        k_lens=context_lens, dtype=cd)
+    if y_img is not None:
+        y = y + y_img
     return _linear(p.o, y.reshape(b, s, n * d).to(cd))
 
 
@@ -180,14 +216,13 @@ def _block_forward(blk: WanAttentionBlock, x, e0, context, context_lens,
 
 
 class WanModel(nn.Module):
-    """The t2v DiT with the reference module tree (model.py:377-489)."""
+    """The t2v / i2v DiT with the reference module tree
+    (model.py:377-489)."""
 
     def __init__(self, cfg: WanModelConfig):
         super().__init__()
-        if cfg.model_type != "t2v":
-            raise NotImplementedError(
-                f"model_type {cfg.model_type!r}: the i2v DiT comes with the "
-                "i2v slice of the port")
+        if cfg.model_type not in ("t2v", "i2v"):
+            raise ValueError(f"unknown model_type {cfg.model_type!r}")
         self.cfg = cfg
         dim = cfg.dim
         self.patch_embedding = nn.Conv3d(cfg.in_dim, dim,
@@ -203,12 +238,15 @@ class WanModel(nn.Module):
         self.blocks = nn.ModuleList(
             [WanAttentionBlock(cfg) for _ in range(cfg.num_layers)])
         self.head = Head(cfg)
+        if cfg.model_type == "i2v":
+            self.img_emb = MLPProj(cfg.clip_embed_dim, dim)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """Reference init_weights (model.py:590-612): xavier-uniform
-        linears and patch embedding, normal(0.02) text / time embeddings,
-        zero head, unit-normal / sqrt(dim) modulation tables."""
+        linears (img_emb's too) and patch embedding, normal(0.02) text /
+        time embeddings, zero head, unit-normal / sqrt(dim) modulation
+        tables, unit norms."""
         def xavier(w):
             fan_out, fan_in = w.shape[0], math.prod(w.shape[1:])
             a = math.sqrt(6.0 / (fan_in + fan_out))
@@ -263,11 +301,12 @@ class WanModel(nn.Module):
         return x.reshape(b, c, f * pt, h * ph, w * pw)
 
     def body(self, tokens, t, context, *, seq_len: int, rope_sin, rope_cos,
-             n_tokens: int, context_lens=None,
+             n_tokens: int, context_lens=None, clip_fea=None,
              policy: DTypePolicy = DTypePolicy(), remat=False,
              collect_layers: Optional[Sequence[int]] = None):
         """The DiT trunk on built tokens (JAX dit_body): pad to seq_len,
-        time / text embeddings, blocks, modulated head.
+        time / text (and, with clip_fea, image) embeddings, blocks,
+        modulated head.
         Returns (out [B, seq_len, prod(patch)*out_dim], taps), taps being
         {layer: [B, seq_len, dim] in policy.residual} for collect_layers."""
         cfg, f32 = self.cfg, torch.float32
@@ -296,6 +335,15 @@ class WanModel(nn.Module):
         ctx = _linear(self.text_embedding[0], context, f32)
         ctx = F.gelu(ctx, approximate="tanh")
         ctx = _linear(self.text_embedding[2], ctx)
+
+        if clip_fea is not None:    # i2v image tokens, fp32 (model.py:536)
+            pr = self.img_emb.proj
+            ci = layer_norm(clip_fea, pr[0].weight, pr[0].bias,
+                            out_dtype=f32)
+            ci = F.gelu(_linear(pr[1], ci))
+            ci = _linear(pr[3], ci)
+            ci = layer_norm(ci, pr[4].weight, pr[4].bias, out_dtype=f32)
+            ctx = torch.cat([ci, ctx], dim=1)
 
         x, taps = self._blocks(x, (e0, ctx, context_lens, rope_sin,
                                    rope_cos, seq_lens, cfg, policy),
@@ -346,14 +394,19 @@ class WanModel(nn.Module):
         return x, taps
 
     def forward(self, x, t, context, *, seq_len: int, rope_sin, rope_cos,
-                context_lens=None, policy: DTypePolicy = DTypePolicy(),
+                context_lens=None, clip_fea=None, y=None,
+                policy: DTypePolicy = DTypePolicy(),
                 remat=False, collect_layers: Optional[Sequence[int]] = None):
         """Velocity v = model(x_t, t, context) (JAX wan_model_forward):
-        x [B, in_dim, F, H, W], t [B], context [B, Lc, text_dim] ->
+        x [B, out_dim, F, H, W], t [B], context [B, Lc, text_dim]; i2v adds
+        clip_fea [B, 257, clip_embed_dim] and y [B, in_dim - out_dim, F, H,
+        W], concatenated to x on the channels ->
         [B, out_dim, F, H, W] fp32, or (v, {layer: [B, seq_len, dim]})
         when `collect_layers` is given. `remat`: False, True (per block) or
         an int group size (grouped two-level; ignored with
         collect_layers, as in JAX)."""
+        if y is not None:           # i2v: mask + reference latent
+            x = torch.cat([x, y.to(x.dtype)], dim=1)
         pt, ph, pw = self.cfg.patch_size
         grid = (x.shape[2] // pt, x.shape[3] // ph, x.shape[4] // pw)
         n_tokens = grid[0] * grid[1] * grid[2]
@@ -361,7 +414,7 @@ class WanModel(nn.Module):
         out, taps = self.body(tokens, t, context, seq_len=seq_len,
                               rope_sin=rope_sin, rope_cos=rope_cos,
                               n_tokens=n_tokens, context_lens=context_lens,
-                              policy=policy, remat=remat,
+                              clip_fea=clip_fea, policy=policy, remat=remat,
                               collect_layers=collect_layers)
         v = self.unpatchify(out, grid).to(torch.float32)
         return (v, taps) if collect_layers is not None else v

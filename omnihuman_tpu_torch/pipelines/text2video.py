@@ -25,7 +25,7 @@ import torch
 from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanConfig, WanModelConfig
 from omnihuman_tpu_torch.models.t5 import build_t5_encoder
 from omnihuman_tpu_torch.models.tokenizers import HuggingfaceTokenizer
-from omnihuman_tpu_torch.models.vae import build_vae_decoder, vae_decode
+from omnihuman_tpu_torch.models.vae import build_vae, vae_decode
 from omnihuman_tpu_torch.models.wan_dit import (
     WanModel, build_wan_model, padded_seq_len)
 from omnihuman_tpu_torch.ops.rope import rope_angles_3d
@@ -86,7 +86,7 @@ class WanT2V:
         self._init_seed = init_seed
         self.model: WanModel = build_wan_model(
             config.model, self.device, param_dtype, seed=init_seed)
-        self.vae = build_vae_decoder(config.vae, self.device, param_dtype,
+        self.vae = build_vae(config.vae, self.device, param_dtype,
                                      seed=init_seed + 1)
         # umT5 is built lazily on first encode and moved to host memory
         # after it: the card need not hold the encoder through the denoise
@@ -157,6 +157,40 @@ class WanT2V:
 
     # -- generation ---------------------------------------------------------
 
+    def text_context(self, prompt: str, n_prompt: str, context, context_null,
+                     context_lens, timings: dict):
+        """(context, context_null, lens) of a request: umT5 encodes the
+        prompt and the negative prompt unless the caller gives contexts,
+        the encoder then moves to host memory; a padded context is trimmed
+        to a 128-bucket of the longest prompt (masked context columns
+        contribute nothing, so this is exact). Stage seconds go to
+        `timings`."""
+        dev = self.device
+        if n_prompt == "":
+            n_prompt = self.config.sample_neg_prompt
+        t0 = time.perf_counter()
+        if context is None:
+            self._get_tokenizer()
+            self.t5                      # built, or brought back to the card
+            _sync(dev)
+            timings["t5_load_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            context, lens_c = self.encode_text([prompt])
+            context_null, lens_n = self.encode_text([n_prompt])
+            context_lens = torch.cat([lens_c, lens_n])
+            _sync(dev)
+            timings["t5_encode_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            self.unload_t5()
+            timings["t5_unload_s"] = time.perf_counter() - t0
+        if context_lens is not None:
+            longest = max(1, int(torch.as_tensor(context_lens).max()))
+            bucket = int(math.ceil(longest / 128) * 128)
+            if bucket < context.shape[1]:
+                context = context[:, :bucket]
+                context_null = context_null[:, :bucket]
+        return context, context_null, context_lens
+
     @torch.inference_mode()
     def generate(
         self,
@@ -186,35 +220,11 @@ class WanT2V:
         takes as long (PERF.md)."""
         cfg = self.config
         dev = self.device
-        if n_prompt == "":
-            n_prompt = cfg.sample_neg_prompt
         seed = seed if seed >= 0 else int(np.random.randint(0, 2 ** 31))
         timings = {}
-
-        t0 = time.perf_counter()
-        if context is None:
-            self._get_tokenizer()
-            self.t5                      # built, or brought back to the card
-            _sync(dev)
-            timings["t5_load_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            context, lens_c = self.encode_text([input_prompt])
-            context_null, lens_n = self.encode_text([n_prompt])
-            context_lens = torch.cat([lens_c, lens_n])
-            _sync(dev)
-            timings["t5_encode_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            self.unload_t5()
-            timings["t5_unload_s"] = time.perf_counter() - t0
-
-        # masked context columns contribute nothing: trim the padded
-        # context to a 128-bucket of the longest prompt (exact)
-        if context_lens is not None:
-            longest = max(1, int(torch.as_tensor(context_lens).max()))
-            bucket = int(math.ceil(longest / 128) * 128)
-            if bucket < context.shape[1]:
-                context = context[:, :bucket]
-                context_null = context_null[:, :bucket]
+        context, context_null, context_lens = self.text_context(
+            input_prompt, n_prompt, context, context_null, context_lens,
+            timings)
 
         lat_shape = self.latent_shape(size, frame_num)
         seq_len = self.seq_len_for(lat_shape)
@@ -244,16 +254,21 @@ class WanT2V:
 
 def cfg_model_step(model: WanModel, x, t: float, ctx2, rope_sin, rope_cos,
                    ctx_lens=None, *, policy: DTypePolicy, seq_len: int,
-                   guide_scale: float, cfg_mode: str = "fused"):
-    """One classifier-free-guidance model call (JAX _cfg_model_step):
-    'fused' stacks cond / uncond on the batch, 'sequential' runs two
-    forwards (half the activation peak)."""
+                   guide_scale: float, cfg_mode: str = "fused", y=None,
+                   clip_fea=None):
+    """One classifier-free-guidance model call (JAX _cfg_model_step and
+    _i2v_cfg_model_step): 'fused' stacks cond / uncond on the batch,
+    'sequential' runs two forwards (half the activation peak). i2v: the
+    same y [1, C, F, H, W] and clip_fea [1, 257, D] condition both."""
     fwd = dict(seq_len=seq_len, rope_sin=rope_sin, rope_cos=rope_cos,
-               policy=policy)
+               policy=policy, y=y, clip_fea=clip_fea)
     if cfg_mode == "fused":
         x2 = torch.cat([x, x], dim=0)
         t2 = torch.full((x2.shape[0],), t, dtype=torch.float32,
                         device=x.device)
+        if y is not None:
+            fwd["y"] = torch.cat([y, y], dim=0)
+            fwd["clip_fea"] = torch.cat([clip_fea, clip_fea], dim=0)
         v2 = model(x2, t2, ctx2, context_lens=ctx_lens, **fwd)
         v_cond, v_uncond = v2.chunk(2, dim=0)
     elif cfg_mode == "sequential":
@@ -275,8 +290,10 @@ def cfg_model_step(model: WanModel, x, t: float, ctx2, rope_sin, rope_cos,
 def sample(model: WanModel, noise, context, context_null, *,
            policy: DTypePolicy, seq_len: int, shift: float, solver: str,
            steps: int, guide_scale: float, num_train_timesteps: int = 1000,
-           cfg_mode: str = "fused", context_lens=None) -> torch.Tensor:
-    """Denoising loop from the caller's noise [1, C, F, H, W] (fp32)."""
+           cfg_mode: str = "fused", context_lens=None, y=None,
+           clip_fea=None) -> torch.Tensor:
+    """Denoising loop from the caller's noise [1, C, F, H, W] (fp32); with
+    y and clip_fea, the i2v loop (JAX _i2v_sample)."""
     cfg: WanModelConfig = model.cfg
     pt, ph, pw = cfg.patch_size
     grid = (noise.shape[2] // pt, noise.shape[3] // ph, noise.shape[4] // pw)
@@ -293,6 +310,6 @@ def sample(model: WanModel, noise, context, context_null, *,
         v = cfg_model_step(model, x, float(np.float32(ts[i])), ctx2,
                            rope_sin, rope_cos, ctx_lens, policy=policy,
                            seq_len=seq_len, guide_scale=float(guide_scale),
-                           cfg_mode=cfg_mode)
+                           cfg_mode=cfg_mode, y=y, clip_fea=clip_fea)
         x, state = sol.step(state, v, x, i)
     return x

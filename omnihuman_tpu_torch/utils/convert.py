@@ -1,9 +1,10 @@
 """JAX parameter PyTrees -> the port's state dicts (reference names).
 
 Each `*_from_jax` function is the inverse of a converter of the JAX package
-(omnihuman_tpu/utils/convert.py): `convert_wan_dit`, `convert_vae` (the
-decoder and `conv2`) and `convert_t5`; the APT discriminator's probes and
-head come from the JAX params of `apt/model.py:init_apt_discriminator`.
+(omnihuman_tpu/utils/convert.py): `convert_wan_dit` (t2v and i2v),
+`convert_vae`, `convert_t5` and the visual tower of `convert_clip`; the APT
+discriminator's probes and head come from the JAX params of
+`apt/model.py:init_apt_discriminator`.
 Input is the JAX package's params PyTree as nested dicts / lists of numpy
 arrays; output is a {name: torch.Tensor} dict for `load_state_dict`.
 `load_wan_dit_checkpoint` reads a reference checkpoint directory's DiT.
@@ -13,6 +14,7 @@ Layouts undone here:
   ours Conv3d [kt, kh, kw, I, O]     -> torch [O, I, kt, kh, kw]
   ours Conv2d [kh, kw, I, O]         -> torch [O, I, kh, kw]
   patch_embedding GEMM [I*kt*kh*kw, O] -> Conv3d [O, I, kt, kh, kw]
+  CLIP patch_embedding GEMM [3*p*p, O] -> Conv2d [O, 3, p, p]
   stacked block leaves [num_layers, ...] -> blocks.{i}.*
   modulation tables [6, dim] / [2, dim] -> [1, 6, dim] / [1, 2, dim]
 """
@@ -24,8 +26,9 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from omnihuman_tpu_torch.configs.wan import T5Config, VAEConfig, WanModelConfig
-from omnihuman_tpu_torch.models.vae import decoder_spec
+from omnihuman_tpu_torch.configs.wan import (
+    CLIPConfig, T5Config, VAEConfig, WanModelConfig)
+from omnihuman_tpu_torch.models.vae import decoder_spec, encoder_spec
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -45,9 +48,8 @@ def _put_linear(sd: StateDict, name: str, p: Mapping[str, Any],
 
 def wan_dit_state_dict_from_jax(params: Mapping[str, Any],
                                 cfg: WanModelConfig) -> StateDict:
-    """JAX DiT params -> WanModel state dict (inverse of convert_wan_dit)."""
-    if cfg.model_type != "t2v":
-        raise NotImplementedError("i2v weights come with the i2v slice")
+    """JAX DiT params -> WanModel state dict (inverse of convert_wan_dit,
+    the i2v keys included: `img_emb`, `k_img`, `v_img`, `norm_k_img`)."""
     sd: StateDict = {}
     pe_w = np.asarray(params["patch_embedding"]["w"])     # [I*kt*kh*kw, O]
     sd["patch_embedding.weight"] = _t(pe_w.T.reshape(
@@ -73,6 +75,11 @@ def wan_dit_state_dict_from_jax(params: Mapping[str, Any],
                 np.asarray(a["norm_q"]["w"])[i])
             sd[f"{base}.{which}.norm_k.weight"] = _t(
                 np.asarray(a["norm_k"]["w"])[i])
+            if "k_img" in a:
+                _put_linear(sd, f"{base}.{which}.k_img", a["k_img"], i)
+                _put_linear(sd, f"{base}.{which}.v_img", a["v_img"], i)
+                sd[f"{base}.{which}.norm_k_img.weight"] = _t(
+                    np.asarray(a["norm_k_img"]["w"])[i])
         _put_linear(sd, f"{base}.ffn.0", blocks["ffn_fc1"], i)
         _put_linear(sd, f"{base}.ffn.2", blocks["ffn_fc2"], i)
         sd[f"{base}.modulation"] = _t(
@@ -82,6 +89,12 @@ def wan_dit_state_dict_from_jax(params: Mapping[str, Any],
                 blocks["norm3"]["w"])[i])
             sd[f"{base}.norm3.bias"] = _t(np.asarray(
                 blocks["norm3"]["b"])[i])
+    if "img_emb" in params:
+        ie = params["img_emb"]
+        _put_norm(sd, "img_emb.proj.0", ie["ln1"])
+        _put_linear(sd, "img_emb.proj.1", ie["fc1"])
+        _put_linear(sd, "img_emb.proj.3", ie["fc2"])
+        _put_norm(sd, "img_emb.proj.4", ie["ln2"])
     return sd
 
 
@@ -122,23 +135,37 @@ def _put_vae_layer(sd: StateDict, base: str, item, p) -> None:
         raise ValueError(kind)
 
 
-def vae_state_dict_from_jax(params: Mapping[str, Any],
-                            cfg: VAEConfig) -> StateDict:
-    """JAX VAE params -> WanVAEDecoder state dict (`decoder.*`, `conv2`;
-    inverse of the decoder half of convert_vae)."""
-    sd: StateDict = {}
-    spec = decoder_spec(cfg)
-    for si, (item, p) in enumerate(zip(spec, params["decoder"])):
+def _put_vae_stack(sd: StateDict, prefix: str, spec, params,
+                   middle: range) -> None:
+    """One spec list onto the reference's conv1 / downsamples or upsamples /
+    middle / head names (JAX _vae_stack)."""
+    seq = "downsamples" if prefix == "encoder" else "upsamples"
+    seq_idx = 0
+    for si, (item, p) in enumerate(zip(spec, params)):
         kind = item[0]
         if kind == "conv_in":
-            _put_conv3d(sd, "decoder.conv1", p["conv"])
+            _put_conv3d(sd, f"{prefix}.conv1", p["conv"])
         elif kind == "head":
-            _put_gamma(sd, "decoder.head.0", p["norm"])
-            _put_conv3d(sd, "decoder.head.2", p["conv"])
-        elif si in (1, 2, 3):
-            _put_vae_layer(sd, f"decoder.middle.{si - 1}", item, p)
+            _put_gamma(sd, f"{prefix}.head.0", p["norm"])
+            _put_conv3d(sd, f"{prefix}.head.2", p["conv"])
+        elif si in middle:
+            _put_vae_layer(sd, f"{prefix}.middle.{si - middle.start}", item,
+                           p)
         else:
-            _put_vae_layer(sd, f"decoder.upsamples.{si - 4}", item, p)
+            _put_vae_layer(sd, f"{prefix}.{seq}.{seq_idx}", item, p)
+            seq_idx += 1
+
+
+def vae_state_dict_from_jax(params: Mapping[str, Any],
+                            cfg: VAEConfig) -> StateDict:
+    """JAX VAE params -> WanVAE state dict (`encoder.*`, `conv1`,
+    `decoder.*`, `conv2`; inverse of convert_vae)."""
+    sd: StateDict = {}
+    es, ds = encoder_spec(cfg), decoder_spec(cfg)
+    _put_vae_stack(sd, "encoder", es, params["encoder"],
+                   range(len(es) - 4, len(es) - 1))
+    _put_vae_stack(sd, "decoder", ds, params["decoder"], range(1, 4))
+    _put_conv3d(sd, "conv1", params["conv1"])
     _put_conv3d(sd, "conv2", params["conv2"])
     return sd
 
@@ -186,6 +213,35 @@ def apt_discriminator_state_dict_from_jax(params: Mapping[str, Any],
     _put_linear(sd, "final_proj", params["final_proj"])
     for k, v in wan_dit_state_dict_from_jax(params["backbone"], cfg).items():
         sd[f"backbone.{k}"] = v
+    return sd
+
+
+def clip_visual_state_dict_from_jax(params: Mapping[str, Any],
+                                    cfg: CLIPConfig) -> StateDict:
+    """JAX CLIP params (init_clip / convert_clip) -> the port's CLIP state
+    dict, the visual tower (`visual.*`, inverse of convert_clip's visual
+    half); the XLM-R text tower is not ported."""
+    vp = params["visual"] if "visual" in params else params
+    dim, p = cfg.vision_dim, cfg.patch_size
+    pe = np.asarray(vp["patch_embedding"]["w"])          # [3*p*p, O]
+    sd: StateDict = {
+        "visual.patch_embedding.weight": _t(pe.T.reshape(dim, 3, p, p)),
+        "visual.cls_embedding": _t(vp["cls_embedding"]),
+        "visual.pos_embedding": _t(vp["pos_embedding"]),
+        "visual.head": _t(vp["head"]),
+    }
+    _put_norm(sd, "visual.pre_norm", vp["pre_norm"])
+    _put_norm(sd, "visual.post_norm", vp["post_norm"])
+    bl = vp["blocks"]
+    for i in range(cfg.vision_layers):
+        base = f"visual.transformer.{i}"
+        for norm in ("norm1", "norm2"):
+            sd[f"{base}.{norm}.weight"] = _t(np.asarray(bl[norm]["w"])[i])
+            sd[f"{base}.{norm}.bias"] = _t(np.asarray(bl[norm]["b"])[i])
+        _put_linear(sd, f"{base}.attn.to_qkv", bl["qkv"], i)
+        _put_linear(sd, f"{base}.attn.proj", bl["proj"], i)
+        _put_linear(sd, f"{base}.mlp.0", bl["fc1"], i)
+        _put_linear(sd, f"{base}.mlp.2", bl["fc2"], i)
     return sd
 
 

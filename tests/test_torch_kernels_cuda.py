@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (flash forward with and without the LSE,
-flash backward dkdv and dq) against their plain PyTorch versions, on the
-card. A CUDA kernel has no CPU mode, so every test here is marked `cuda`
+flash backward dkdv and dq, the VAE's fused resblock conv K3 and fused
+upsample conv K4) against their plain PyTorch versions, on the card. A CUDA kernel has no CPU mode, so every test here is marked `cuda`
 and skips without a GPU. This file imports no JAX, so it runs on a GPU
 machine without it:
 
@@ -9,12 +9,20 @@ machine without it:
 Tolerance: 2^-6 x max|plain| in bf16, two ulps at the output's own peak
 (the two versions round the bf16 output up to one ulp apart), for the
 output and for each gradient; the fp32 LSE within 1e-3 (the kernel sums
-exp2 in its own order, the plain version exp)."""
+exp2 in its own order, the plain version exp). K3 / K4: 2^-6 x the
+output's peak; K3's new cache equal to the plain one but on under 1% of
+the activations, where the pre-SiLU bf16 rounding falls one step apart
+(the fp32 norm sums in another order): at most two ulps of the
+activation. A small bf16 VAE decode / encode with the kernels against the
+plain fused path: 2^-5 relative L2."""
 
 import pytest
 import torch
 
 from omnihuman_tpu_torch.ops.attention import flash_attention
+from omnihuman_tpu_torch.configs.wan import VAEConfig
+from omnihuman_tpu_torch.models import vae as vae_mod
+from omnihuman_tpu_torch.ops import vae_kernels as vk
 from omnihuman_tpu_torch.ops.flash_attention import (
     KERNELS, NEG_INF, flash_attention_cuda, flash_attention_plain,
     flash_bwd_cuda, flash_bwd_plain)
@@ -216,3 +224,137 @@ def test_backward_kernel_refuses_what_it_does_not_take(cuda_device):
         flash_bwd_cuda(x, x, x, x, lse, x.float())   # fp32 dout
     with pytest.raises(ValueError):
         flash_bwd_cuda(x, x, x, x, lse[..., :4], x)  # lse shape
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4
+
+
+def _vae_case(seed):
+    import random
+    r = random.Random(1000 + seed)
+    return dict(b=r.randint(1, 2), t=r.choice([1, 2, 4]),
+                h=r.randint(1, 40), w=r.randint(1, 70),
+                cin=16 * r.randint(1, 8), cout=8 * r.randint(1, 30),
+                residual=r.random() < 0.5)
+
+
+VAE_CASES = {
+    "decode_t1_384": dict(b=1, t=1, h=12, w=20, cin=384, cout=384,
+                          residual=True),
+    "shortcut_192_384": dict(b=1, t=2, h=17, w=33, cin=192, cout=384,
+                             residual=False),
+    "encoder_96_96": dict(b=1, t=4, h=24, w=40, cin=96, cout=96,
+                          residual=True),
+    **{f"random_{i}": _vae_case(i) for i in range(12)},
+}
+
+
+def _cl(t):
+    return t.contiguous(memory_format=torch.channels_last_3d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(VAE_CASES))
+def test_vae_conv_kernel_matches_plain(cuda_device, case):
+    c = VAE_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    b, t, h, w, cin, cout = (c[k] for k in ("b", "t", "h", "w", "cin",
+                                            "cout"))
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=cuda_device) * scale
+
+    x = _cl(rnd(b, cin, t, h, w).to(torch.bfloat16))
+    cache = _cl(rnd(b, cin, 2, h, w).to(torch.bfloat16))
+    gamma = rnd(cin, scale=0.5) + 1.0
+    w2 = vk.pack_conv_weights(rnd(3, 3, 3, cin, cout, scale=cin ** -0.5))
+    bias = rnd(cout, scale=0.1)
+    res = (_cl(rnd(b, cout, t, h, w).to(torch.bfloat16)) if c["residual"]
+           else None)
+    before = vk.VAE_CONV.launches
+    y, cnew = vk.fused_act_causal_conv3d_cuda(x, cache, gamma, w2, bias, res)
+    torch.cuda.synchronize()
+    assert vk.VAE_CONV.launches == before + 1
+    y_want, c_want = vk.fused_act_causal_conv3d_plain(x, cache, gamma, w2,
+                                                      bias, res)
+    assert y.is_contiguous(memory_format=torch.channels_last_3d)
+    assert torch.isfinite(y.float()).all(), c
+    tol = 2 ** -6 * y_want.float().abs().max().item()
+    assert (y.float() - y_want.float()).abs().max().item() <= tol, c
+    diff = (cnew.float() - c_want.float()).abs()
+    two_ulps = 2 ** -6 * c_want.float().abs().clamp_min(2 ** -6)
+    assert (diff <= two_ulps).all(), c
+    assert (diff > 0).float().mean().item() < 1e-2, c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(8))
+def test_vae_upsample_kernel_matches_plain(cuda_device, seed):
+    import random
+    r = random.Random(2000 + seed)
+    b, t, h, w = r.randint(1, 2), r.choice([1, 2, 4]), r.randint(1, 30), \
+        r.randint(1, 60)
+    cin, cout = 16 * r.randint(1, 24), 8 * r.randint(1, 24)
+    g = torch.Generator(device=cuda_device).manual_seed(seed)
+    x = _cl(torch.randn((b, cin, t, h, w), generator=g, device=cuda_device)
+            .to(torch.bfloat16))
+    w4 = vk.pack_upsample_weights(
+        torch.randn((3, 3, cin, cout), generator=g, device=cuda_device)
+        * cin ** -0.5)
+    bias = torch.randn(cout, generator=g, device=cuda_device) * 0.1
+    y = vk.fused_upsample_conv2d_cuda(x, w4, bias)
+    torch.cuda.synchronize()
+    want = vk.fused_upsample_conv2d_plain(x, w4, bias)
+    assert y.shape == (b, cout, t, 2 * h, 2 * w)
+    tol = 2 ** -6 * want.float().abs().max().item()
+    assert (y.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_vae_kernels_refuse_what_they_do_not_take(cuda_device):
+    x = _cl(torch.zeros((1, 16, 1, 4, 4), device=cuda_device,
+                        dtype=torch.bfloat16))
+    cache = _cl(torch.zeros((1, 16, 2, 4, 4), device=cuda_device,
+                            dtype=torch.bfloat16))
+    gamma = torch.ones(16, device=cuda_device)
+    w2 = torch.zeros((27 * 16, 16), device=cuda_device, dtype=torch.bfloat16)
+    bias = torch.zeros(16, device=cuda_device)
+    with pytest.raises(TypeError):                   # fp32 x is refused
+        vk.fused_act_causal_conv3d_cuda(x.float(), cache, gamma, w2, bias)
+    with pytest.raises(ValueError, match="channels_last_3d"):
+        vk.fused_act_causal_conv3d_cuda(x.contiguous(), cache, gamma, w2,
+                                        bias)
+    with pytest.raises(ValueError, match="Cin % 16"):
+        vk.fused_upsample_conv2d_cuda(
+            _cl(torch.zeros((1, 8, 1, 4, 4), device=cuda_device,
+                            dtype=torch.bfloat16)),
+            torch.zeros((2, 2, 32, 16), device=cuda_device,
+                        dtype=torch.bfloat16), bias)
+
+
+@pytest.mark.cuda
+def test_vae_with_kernels_matches_plain_path(cuda_device):
+    """A small bf16 VAE (channels 16-64), batch 2: decode and encode
+    through K3 / K4 against the same fused structure through the plain
+    versions; every resblock conv and upsample launches its kernel once a
+    step."""
+    cfg = VAEConfig(base_dim=16, dim_mult=(1, 2, 4, 4), num_res_blocks=1)
+    vae = vae_mod.build_vae(cfg, cuda_device, torch.bfloat16, seed=3)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    z = torch.randn((2, 16, 3, 6, 10), generator=g, device=cuda_device)
+    video = torch.randn((2, 3, 9, 48, 80), generator=g, device=cuda_device)
+    dspec = [it[0] for it in vae_mod.decoder_spec(cfg)]
+    espec = [it[0] for it in vae_mod.encoder_spec(cfg)]
+    for fn, inp, steps, spec in ((vae_mod.vae_decode, z, 3, dspec),
+                                 (vae_mod.vae_encode, video, 3, espec)):
+        before = [kn.launches for kn in vk.KERNELS]
+        got = fn(vae, inp.to(torch.bfloat16), conv_impl="cuda")
+        torch.cuda.synchronize()
+        launches = [kn.launches - n for kn, n in zip(vk.KERNELS, before)]
+        ups = spec.count("resample") if fn is vae_mod.vae_decode else 0
+        assert launches == [steps * 2 * spec.count("res"), steps * ups]
+        want = fn(vae, inp.to(torch.bfloat16), conv_impl="plain")
+        rel = ((got.float() - want.float()).norm()
+               / want.float().norm()).item()
+        assert rel <= 2 ** -5, (fn.__name__, rel)

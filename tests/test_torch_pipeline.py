@@ -21,7 +21,7 @@ from omnihuman_tpu.models.vae import init_vae, vae_decode as jax_vae_decode
 from omnihuman_tpu.models.wan_dit import init_wan_model
 from omnihuman_tpu.pipelines.text2video import sample as jax_sample
 from omnihuman_tpu_torch.configs.wan import TINY_TEST, DTypePolicy
-from omnihuman_tpu_torch.models.vae import build_vae_decoder, vae_decode
+from omnihuman_tpu_torch.models.vae import build_vae, vae_decode
 from omnihuman_tpu_torch.models.wan_dit import build_wan_model
 from omnihuman_tpu_torch.ops.flash_attention import KERNELS
 from omnihuman_tpu_torch.pipelines.text2video import WanT2V, sample
@@ -47,7 +47,7 @@ def weights():
     model = build_wan_model(TINY_TEST.model, "cpu", torch.float32, seed=None)
     model.load_state_dict(wan_dit_state_dict_from_jax(params,
                                                       TINY_TEST.model))
-    vae = build_vae_decoder(TINY_TEST.vae, "cpu", torch.float32, seed=None)
+    vae = build_vae(TINY_TEST.vae, "cpu", torch.float32, seed=None)
     vae.load_state_dict(vae_state_dict_from_jax(vae_params, TINY_TEST.vae))
     return params, vae_params, model, vae
 
@@ -163,9 +163,10 @@ def test_cli_writes_video_on_cpu(tmp_path):
     assert os.path.exists(out) and os.path.getsize(out) > 0
 
 
-@pytest.mark.parametrize("argv", [["--one_step"], ["--sp_size", "2"],
+@pytest.mark.parametrize("argv", [["--ckpt_dir", "ckpt"],
+                                  ["--sp_size", "2"],
                                   ["--precision", "int8"],
-                                  ["--task", "i2v-14B"]])
+                                  ["--use_prompt_extend"]])
 def test_cli_refuses_paths_of_later_slices(argv):
     from omnihuman_tpu_torch.cli.generate import main
     with pytest.raises(SystemExit, match="slice"):

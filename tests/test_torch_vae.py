@@ -13,7 +13,7 @@ from omnihuman_tpu.configs.wan import TINY_TEST as JAX_TINY
 from omnihuman_tpu.models.vae import init_vae, vae_decode as jax_vae_decode
 from omnihuman_tpu.utils.convert import convert_vae
 from omnihuman_tpu_torch.configs.wan import TINY_TEST
-from omnihuman_tpu_torch.models.vae import build_vae_decoder, vae_decode
+from omnihuman_tpu_torch.models.vae import build_vae, vae_decode
 from omnihuman_tpu_torch.utils.convert import vae_state_dict_from_jax
 
 torch.set_num_threads(1)
@@ -30,7 +30,7 @@ def vae_pair():
         if "proj" in layer:
             layer["proj"]["w"] = (rng.normal(size=layer["proj"]["w"].shape)
                                   * 0.2).astype(np.float32)
-    vae = build_vae_decoder(TINY_TEST.vae, "cpu", torch.float32, seed=None)
+    vae = build_vae(TINY_TEST.vae, "cpu", torch.float32, seed=None)
     vae.load_state_dict(vae_state_dict_from_jax(params, TINY_TEST.vae),
                         strict=True)
     return params, vae
@@ -57,23 +57,11 @@ def test_vae_streaming_equals_full_unclamped(vae_pair):
     np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
 
 
-class _EncoderStub(dict):
-    """Zero stand-ins for the encoder weights the decoder-only port does
-    not carry, shaped so convert_vae's layout transposes run."""
-
-    def __missing__(self, key):
-        if key.endswith((".gamma", ".bias")):
-            return np.zeros(1, np.float32)
-        if any(s in key for s in ("resample.1", "to_qkv", "proj")):
-            return np.zeros((1, 1, 1, 1), np.float32)
-        return np.zeros((1, 1, 1, 1, 1), np.float32)
-
-
 def test_vae_state_dict_round_trips_through_jax_converter(vae_pair):
     params, vae = vae_pair
-    sd = _EncoderStub({k: v.numpy() for k, v in vae.state_dict().items()})
+    sd = {k: v.numpy() for k, v in vae.state_dict().items()}
     back = convert_vae(sd, JAX_TINY.vae)
-    for part in ("decoder", "conv2"):
+    for part in ("encoder", "conv1", "decoder", "conv2"):
         flat_a = jax.tree_util.tree_leaves_with_path(params[part])
         flat_b = dict(jax.tree_util.tree_leaves_with_path(back[part]))
         assert len(flat_a) == len(flat_b)
