@@ -28,14 +28,16 @@ Phases (any failure stops the run with a nonzero exit):
      attention through the plain version;
   6. one warm CFG step at the flagship geometry (latents [1,16,21,60,104]),
      timed, then once more under torch.profiler for its kernel-time split;
-  7. the backward kernels (flash_bwd.cu, dkdv and dq) and the forward's LSE
+  7. the fused backward kernel (flash_bwd.cu, K2) and the forward's LSE
      against their plain versions, B=1, N=12, D=128, bf16, tolerance 2^-6
      of each gradient's own peak: (a) self-attention 32,768 tokens, k_len
      32,760; (b) cross-attention Lq=32,768, Lc=512, no lengths, and with
      k_lens (37, 512) at B=2; (c) Lk=257; (d) a k_len=0 row (gradients
-     exactly 0); (e) ragged Lq=1000, Lk=777, causal, window and offsets.
-     Kernel ms per kernel, bound, plain ms, and the SDPA backward on the
-     unmasked shape as a yardstick;
+     exactly 0); (e) ragged Lq=1000, Lk=777, causal, window and offsets;
+     (f, g) the training CLIs' 1,560 tokens. Keys past k_len get exactly
+     zero dK / dV. The kernel's ms alone and with its wrapper (delta, the
+     fp32 dQ accumulator's zero-fill and cast), its five-product bound,
+     plain ms, and the SDPA backward on the unmasked shape as a yardstick;
   8. the training main path at full width (t2v-1.3B, random weights from a
      seed with a random head, written as a reference `*.safetensors`
      checkpoint directory): `cli.teacher_data` writes 2 samples at 480x832
@@ -43,7 +45,8 @@ Phases (any failure stops the run with a nonzero exit):
      steps, per-block remat) with a checkpoint, which is restored and held
      bit-equal (parameters, EMA, AdamW state). Launch counts are zeroed
      before each CLI and read after it: every attention forward, recompute
-     and backward went through K1 and K2;
+     and backward went through K1 and K2 (one K2 launch per attention
+     backward, 60 a step);
   9. one distill step at full width and 1,560 tokens, kernels against plain
      attention (relative L2 error of the loss and the gradients, tolerance
      5e-2), and the share of parameter elements one bf16 AdamW step
@@ -480,15 +483,13 @@ def phase_flagship_step(pipe):
             f"x{e.count:<5d} {e.key[:90]}")
 
 
-def backward_bound(q_rows, k_rows, pairs, n, d, products, grads_of_q):
-    """Least time of one backward kernel: `products` matmuls of 2*D FLOP per
-    (query, visible key) pair and head; bytes: q, dO, k, v read once and
-    the kernel's gradients written once (dq: q-sized; dk, dv: k-sized), bf16,
-    plus the fp32 LSE and delta. Returns (ms, "operations" | "bytes")."""
-    flops = 2.0 * products * n * d * pairs
-    out_rows = q_rows if grads_of_q else 2 * k_rows
-    nbytes = (2.0 * n * d * (2 * q_rows + 2 * k_rows + out_rows)
-              + 8.0 * q_rows * n)
+def backward_bound(q_rows, k_rows, pairs, n, d):
+    """Least time of the attention backward: five matmuls (S and dP once,
+    dV, dK, dQ) of 2*D FLOP per (query, visible key) pair and head; bytes:
+    q, dO, k, v read once and dq, dk, dv written once (bf16), plus the fp32
+    LSE and delta. Returns (ms, "operations" | "bytes")."""
+    flops = 2.0 * 5 * n * d * pairs
+    nbytes = 2.0 * n * d * (3 * q_rows + 4 * k_rows) + 8.0 * q_rows * n
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -512,13 +513,12 @@ def visible_pairs(b, lq, lk, k_lens, mkw, dev):
 
 
 def phase_backward_kernels():
-    """Returns {row: measurement} for the dkdv and dq JSON rows (case a)."""
+    """Returns the measurement of K2's JSON row (case a)."""
     import torch
     import torch.nn.functional as F
     from omnihuman_tpu_torch.ops.flash_attention import (
         _clamped_lens, bwd_delta, flash_attention_cuda, flash_attention_plain,
-        flash_bwd_cuda, flash_bwd_dkdv_cuda, flash_bwd_dq_cuda,
-        flash_bwd_plain)
+        flash_bwd_cuda, flash_bwd_launch, flash_bwd_plain)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4321)
@@ -575,18 +575,24 @@ def phase_backward_kernels():
             if err > tol:
                 fail(f"{gname} kernel vs plain: {err} > {tol} in {name}")
             errs.append((gname, err, tol))
-        if k_lens is not None and 0 in k_lens:
-            i = list(k_lens).index(0)
-            if any(x[i].abs().max().item() != 0.0 for x in got):
-                fail("a row with k_len=0 has a nonzero gradient")
-        # kernel times, each kernel alone, on the same inputs
+        if k_lens is not None:
+            for i, kv in enumerate(k_lens):
+                if kv == 0 and any(x[i].abs().max().item() != 0.0
+                                   for x in got):
+                    fail("a row with k_len=0 has a nonzero gradient")
+                if kv < lk and (got[1][i, kv:].abs().max().item() != 0.0
+                                or got[2][i, kv:].abs().max().item() != 0.0):
+                    fail(f"keys past k_len have nonzero dK / dV in {name}")
+        # the kernel alone on preallocated outputs, then the whole wrapper
         klc = _clamped_lens(kl, b, lk, dev)
         delta = bwd_delta(out, dout)
         mask = dict(softmax_scale=None, **mkw)
-        dkdv_ms = bench_ms(lambda: flash_bwd_dkdv_cuda(
-            q, k, v, dout, lse, delta, klc, **mask))
-        dq_ms = bench_ms(lambda: flash_bwd_dq_cuda(
-            q, k, v, dout, lse, delta, klc, **mask))
+        dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+        dk_buf, dv_buf = torch.empty_like(k), torch.empty_like(v)
+        kernel_ms = bench_ms(lambda: flash_bwd_launch(
+            q, k, v, dout, lse, delta, klc, dq_acc, dk_buf, dv_buf, **mask))
+        bwd_ms = bench_ms(lambda: flash_bwd_cuda(
+            q, k, v, out, lse, dout, k_lens=kl, **mkw))
         fwd_lse_ms = bench_ms(lambda: flash_attention_cuda(
             q, k, v, k_lens=kl, return_lse=True, **mkw))
         plain_ms = bench_ms(lambda: flash_bwd_plain(
@@ -609,29 +615,23 @@ def phase_backward_kernels():
                 ot, (qt, kt, vt), dt, retain_graph=True))
             del qt, kt, vt, ot
         pairs = visible_pairs(b, lq, lk, k_lens, mkw, dev)
-        res = {}
-        for kname, products, ms in (("dkdv", 4, dkdv_ms), ("dq", 3, dq_ms)):
-            bound, by = backward_bound(b * lq, b * lk, pairs, n, d, products,
-                                       grads_of_q=kname == "dq")
-            res[kname] = dict(ms=ms, bound_ms=bound, bound_by=by)
+        bound, by = backward_bound(b * lq, b * lk, pairs, n, d)
         log(f"[7] {name}: " + ", ".join(
             f"{g} err {e:.3g} (tol {t:.3g})" for g, e, t in errs)
             + f", LSE err {lse_err:.3g}; forward with LSE {fwd_lse_ms:.3f} "
             f"ms (library forward with LSE "
             f"{lse_lib_ms if lse_lib_ms is None else round(lse_lib_ms, 3)} "
-            f"ms); dkdv {dkdv_ms:.3f} ms (bound "
-            f"{res['dkdv']['bound_ms']:.3f}, {res['dkdv']['bound_by']}), dq "
-            f"{dq_ms:.3f} ms (bound {res['dq']['bound_ms']:.3f}, "
-            f"{res['dq']['bound_by']}), plain backward {plain_ms:.1f} ms, "
-            f"SDPA backward {lib_ms if lib_ms is None else round(lib_ms, 3)}"
-            f" ms")
+            f"ms); K2 kernel {kernel_ms:.3f} ms, with its wrapper "
+            f"{bwd_ms:.3f} ms (bound {bound:.3f}, {by}), plain backward "
+            f"{plain_ms:.1f} ms, SDPA backward "
+            f"{lib_ms if lib_ms is None else round(lib_ms, 3)} ms")
         if name.startswith("a "):
-            err_of = {g: e for g, e, _ in errs}
-            for kname, grads in (("dkdv", ("dk", "dv")), ("dq", ("dq",))):
-                rows[kname] = dict(
-                    max_abs_err=max(err_of[g] for g in grads),
-                    plain_ms=plain_ms, library_ms=lib_ms, **res[kname])
+            rows["k2"] = dict(max_abs_err=max(e for _, e, _ in errs),
+                              ms=bwd_ms, kernel_ms=kernel_ms,
+                              plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                              library_ms=lib_ms)
         del q, k, v, dout, out, lse, got, want, want_out, want_lse, delta
+        del dq_acc, dk_buf, dv_buf
         torch.cuda.empty_cache()
     return rows
 
@@ -686,7 +686,7 @@ def phase_training_main_path(kernels):
         f"{vt.std():.3g}; launches {counts['teacher_data']}")
     if not (vt.shape == (2, 16, 1, 60, 104) and abs(vt).max() > 0):
         fail("teacher data has the wrong shape or is all zeros")
-    want = [NUM_LAYERS, NUM_LAYERS, 0, 0]
+    want = [NUM_LAYERS, NUM_LAYERS, 0]
     if list(counts["teacher_data"].values()) != want:
         fail(f"teacher_data launches {counts['teacher_data']}, want {want}")
 
@@ -709,12 +709,12 @@ def phase_training_main_path(kernels):
         if not (h["loss"] > 0 and h["grad_norm"] > 0):
             fail("a distill step has a zero or non-finite loss / gradient")
     steps = len(history)
-    want = [2 * NUM_LAYERS * steps] * 4
+    want = [2 * NUM_LAYERS * steps] * 3
     log(f"[8] cli.train_distill: {steps} steps in {total:.1f} s (with model "
         f"build and the checkpoint save), peak device memory {peak:.1f} GiB;"
         f" launches {counts['train_distill']}, expected {want} (per step: "
         f"30 layers x self + cross attention, K1 forward + remat recompute, "
-        f"one dkdv and one dq each)")
+        f"one K2 each)")
     if steps != 2 or list(counts["train_distill"].values()) != want:
         fail("the training path did not send every attention forward, "
              "recompute and backward through K1 and K2")
@@ -896,18 +896,16 @@ def phase_flagship_distill_step(state, opt):
     if total == 0:
         log("[10] profiler: no device time recorded")
         return sec
-    groups = {"flash_fwd (K1)": 0.0, "flash_bwd_dkdv (K2a)": 0.0,
-              "flash_bwd_dq (K2b)": 0.0, "GEMM (cuBLAS)": 0.0,
+    groups = {"flash_fwd (K1)": 0.0, "flash_bwd (K2)": 0.0,
+              "GEMM (cuBLAS)": 0.0,
               "other (elementwise, norms, optimizer, copies)": 0.0}
     for e in kernels:
         t = e.self_device_time_total / 1e3
         name = e.key.lower()
         if "flash_fwd" in name:
             groups["flash_fwd (K1)"] += t
-        elif "flash_bwd_dkdv" in name:
-            groups["flash_bwd_dkdv (K2a)"] += t
-        elif "flash_bwd_dq" in name:
-            groups["flash_bwd_dq (K2b)"] += t
+        elif "flash_bwd" in name:
+            groups["flash_bwd (K2)"] += t
         elif any(x in name for x in ("gemm", "xmma", "cutlass", "cublas",
                                      "nvjet")):
             groups["GEMM (cuBLAS)"] += t
@@ -1329,10 +1327,10 @@ def main() -> None:
     vae_rows = phase_vae_kernels()
     phase_small_reference()
     from omnihuman_tpu_torch.ops.flash_attention import (
-        FLASH_BWD_DKDV, FLASH_BWD_DQ, FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K)
+        FLASH_BWD, FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K)
     from omnihuman_tpu_torch.ops.vae_kernels import VAE_CONV, VAE_UPSAMPLE
     kernels = (FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K)
-    flash_kernels = kernels + (FLASH_BWD_DKDV, FLASH_BWD_DQ)
+    flash_kernels = kernels + (FLASH_BWD,)
     all_kernels = flash_kernels + (VAE_CONV, VAE_UPSAMPLE)
     _zero(all_kernels)
     pipe, launches = phase_main_path(kernels)
@@ -1364,13 +1362,11 @@ def main() -> None:
         out.append(dict(name=kn.name, route="cuda", source=fwd_src,
                         replaces=replaces, launches=n, **rows[key],
                         launches_by_path=by_path(kn)))
-    for key, kn, replaces in (
-            ("dkdv", FLASH_BWD_DKDV, "omnihuman_tpu/ops/flash_pallas.py:387"),
-            ("dq", FLASH_BWD_DQ, "omnihuman_tpu/ops/flash_pallas.py:437")):
-        out.append(dict(name=kn.name, route="cuda", source=bwd_src,
-                        replaces=replaces,
-                        launches=paths["train_distill"][kn.name],
-                        **bwd_rows[key], launches_by_path=by_path(kn)))
+    out.append(dict(name=FLASH_BWD.name, route="cuda", source=bwd_src,
+                    replaces="omnihuman_tpu/ops/flash_pallas.py:387 and "
+                             "omnihuman_tpu/ops/flash_pallas.py:437",
+                    launches=paths["train_distill"][FLASH_BWD.name],
+                    **bwd_rows["k2"], launches_by_path=by_path(FLASH_BWD)))
     for key, kn, src, replaces in (
             ("k3", VAE_CONV, "omnihuman_tpu_torch/csrc/vae_conv.cu",
              "omnihuman_tpu/ops/vae_pallas.py:58"),

@@ -1,75 +1,103 @@
 // Flash-attention backward for Hopper (sm_90a): bf16 q/k/v/dO in, bf16
-// dq/dk/dv out, fp32 LSE / delta / accumulators.
+// dk/dv and an fp32 dq accumulator out, fp32 LSE / delta.
 //
-// Replaces the TPU Pallas kernels of omnihuman_tpu/ops/flash_pallas.py
-// with two kernels that keep the TPU split, so neither needs atomics and
-// the gradients are deterministic:
-//   flash_bwd_dkdv_kernel <- `_bwd_dkdv_kernel` (:387): one block per
-//     (b, head, 128-key tile); the K/V tile stays in shared memory and the
-//     block loops over 32-query tiles, accumulating
-//       dV += P^T dO,  dK += dS^T Q;
-//   flash_bwd_dq_kernel   <- `_bwd_dq_kernel` (:437): one block per
-//     (b, head, 128-query tile); the Q/dO tile stays in shared memory and
-//     the block loops over 64-key tiles, accumulating  dQ += dS K.
-// Both recompute, per tile,
-//   S = scale * Q K^T,  P = where(mask, exp(S - lse), 0),  dP = dO V^T,
-//   dS = P * (dP - delta) * scale,
-// with lse from the forward (flash_fwd.cu, natural log; -1e30 on a row with
-// no valid key: the mask is applied BEFORE the exponential, exp(s + 1e30)
-// would be inf) and delta = rowsum(dO * O) computed in fp32 by the caller
-// from the stored bf16 O. P and dS are rounded to bf16 before their products,
-// as the Pallas kernels do (`p.astype(do.dtype)`, `ds.astype(q.dtype)`).
-// The mask is the forward's (flash_pallas._mask_block): key < k_lens[b],
-// causal and (left, right) window in global coordinates shifted by
-// (q_off, k_off) and Lk - Lq. Keys at or past k_len get dK = dV = 0. Ragged
-// Lq / Lk tails are zero-filled on load, masked, and never stored.
+// Replaces the two TPU Pallas kernels of omnihuman_tpu/ops/flash_pallas.py,
+// `_bwd_dkdv_kernel` (:387) and `_bwd_dq_kernel` (:437), with ONE kernel:
+// one block per (b, head, 128-key tile); the K / V tile stays in shared
+// memory and the block walks the query tiles that can see its keys. Per
+// (key tile, query tile) it computes S and dP once,
+//   S^T = scale K Q^T,  P^T = where(mask, exp(S^T - lse), 0),  dP^T = V dO^T,
+//   dS^T = P^T (dP^T - delta) scale,
+// and all three gradients from them:
+//   dV += P^T dO,  dK += dS^T Q  (in registers, stored once at the end),
+//   dQ_partial = dS K            (added into an fp32 dq accumulator).
+// lse comes from the forward (flash_fwd.cu, natural log; -1e30 on a row
+// with no valid key: the mask is applied BEFORE the exponential,
+// exp(s + 1e30) would be inf) and delta = rowsum(dO * O) computed in fp32
+// by the caller from the stored bf16 O. P and dS are rounded to bf16
+// before their products, as the Pallas kernels do. The mask is the
+// forward's (flash_pallas._mask_block): key < k_lens[b], causal and
+// (left, right) window in global coordinates shifted by (q_off, k_off) and
+// Lk - Lq. Keys at or past k_len get dK = dV = 0. Ragged Lq / Lk tails are
+// zero-filled on load, masked, and never stored.
 //
-// What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), for
-// B=1, N=12, D=128, L=32768 self-attention:
-//   dkdv: four products (S, dP, dV, dK) = 8*N*Lq*Lk*D = 1.32e13 FLOP -> 13.3 ms
-//   dq:   three products (S, dP, dQ)   = 6*N*Lq*Lk*D = 9.9e12 FLOP  -> 10.0 ms
-// Both are compute-bound (their bytes take ~0.1 ms). The gradient itself
-// needs five products (16.7 ms); the TPU split recomputes S and dP in both
-// kernels, so the pair can reach at most 71% of that bound.
+// Determinism: dK and dV are bitwise deterministic (each block owns its
+// keys). dQ is not: the key tiles' fp32 partial sums reach the accumulator
+// (TMA reduce-add at L2) in an order that varies from run to run. The
+// caller zero-fills the accumulator and casts it to bf16.
 //
-// What the design does about it (deliberately simple, FA2-style, no wgmma
-// or TMA yet): every product runs on the tensor cores through mma.sync
-// m16n8k16; each of 8 warps owns 16 rows of the resident tile (keys in
-// dkdv, queries in dq) and keeps its fp32 accumulators in registers; S and
-// dP stay in registers and their C fragments are re-packed as the A operand
-// of the next product; the streamed tiles are double-buffered in shared
-// memory with cp.async. Register budget (the risk here): dkdv holds two fp32
-// [16, D] accumulators per warp (128 registers a thread at D=128), so its
-// streamed query tile is only 32 rows (S^T and dP^T: 16 registers each);
-// dq holds one (64) and streams 64 keys. Tiles that the k_len / causal /
-// window mask empties are skipped.
+// What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): the
+// five products, 10*N*Lq*Lk*D FLOP; for B=1, N=12, D=128, L=32768
+// self-attention 1.65e13 FLOP -> 16.7 ms, compute-bound (the bytes take
+// ~0.2 ms). The TPU split recomputes S and dP in its dq kernel (seven
+// products, 23.3 ms); this kernel does not. Beside the products, the dQ
+// partials move 4*N*Lq*D bytes per key tile through L2's adders (52 GB at
+// the shape above).
 //
-// C interface for ctypes; each entry returns cudaGetLastError() after the
-// launch.
+// What the design does about it: every product is a warpgroup MMA (wgmma,
+// m64nNk16, fp32 accumulators in registers). Two consumer warpgroups each
+// own 64 keys of the tile; a step takes 64 queries:
+//   S^T, dP^T  m64n64   A = K / V rows (shared, K-major),
+//                       B = Q / dO tile (shared, K-major)
+//   dV, dK     m64nD    A = P^T / dS^T packed to bf16 from the S^T / dP^T
+//                       accumulators (registers),
+//                       B = dO / Q tile (shared, MN-major: transpose bit)
+//   dQ         m64n64   A = dS^T written once to shared memory as bf16
+//                       (MN-major: transpose bit), B = K (MN-major); at
+//                       D=128 each warpgroup takes 64 of D's columns over
+//                       all 128 keys, at D=64 its own 64 keys over all of D
+// A producer warpgroup (one working warp) loads K / V once and Q / dO into
+// a 2-stage ring with TMA (4-D tensor maps over [B, L, N, D], 128-byte
+// swizzle: rows past L arrive as zeros) and stages lse / delta; mbarriers
+// hand the stages over. setmaxnreg gives the producer 24 registers and the
+// consumers 240 (dK and dV 128, S^T and dP^T 64); the block's launch
+// allocation, 384 x 168, is all it can redistribute. The P^T exponentials
+// overlap the dP^T products and the dQ products overlap dV / dK; each
+// warpgroup stages its fp32 dQ partial in shared memory (swizzled) and
+// adds it to the accumulator with TMA reduce-adds: two bulk operations a
+// step in place of 16 vector atomics a thread. Tiles that the k_len /
+// causal / window mask empties are skipped, and tiles it does not cut
+// skip the mask. Each block starts its walk at a query tile staggered by
+// its key-tile index, so the blocks of one head do not add into the same
+// dq rows at the same time.
+//
+// C interface for ctypes; the entry returns cudaGetLastError() after the
+// launch (and cudaErrorInvalidValue if a tensor map cannot be made).
+
+#include <cuda.h>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace omni;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kDkdvBlockK = kWarps * 16;   // resident keys per dkdv block
-constexpr int kDkdvBlockQ = 32;            // streamed queries per step
-constexpr int kDqBlockQ = kWarps * 16;     // resident queries per dq block
-constexpr int kDqBlockK = 64;              // streamed keys per step
+constexpr int kConsumers = 2;              // warpgroups, 64 keys each
+// + a producer warpgroup: setmaxnreg moves registers only within the
+// block's launch allocation (384 x 168 = 128 x 24 + 256 x 240)
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr int kBlockK = kConsumers * 64;   // resident keys per block
+constexpr int kBlockQ = 64;                // streamed queries per step
+constexpr int kRow = 128;                  // bytes of a swizzled tile row
+constexpr int kStages = 2;                 // ring of query tiles
 
+// Byte offsets of the shared-memory tiles (each 1024-byte aligned).
 template <int D>
-constexpr int dkdv_smem_bytes() {
-  return (2 * kDkdvBlockK + 4 * kDkdvBlockQ) * (D + 8) * 2 +
-         4 * kDkdvBlockQ * 4;
-}
-
-template <int D>
-constexpr int dq_smem_bytes() {
-  return (2 * kDqBlockQ + 4 * kDqBlockK) * (D + 8) * 2;
-}
+struct Smem {
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kBlockK * D * 2;
+  static constexpr int kQ = kV + kBlockK * D * 2;             // [kStages]
+  static constexpr int kdO = kQ + kStages * kBlockQ * D * 2;  // [kStages]
+  // dS^T: [2][kBlockK][kBlockQ]
+  static constexpr int kdS = kdO + kStages * kBlockQ * D * 2;
+  // dQ partial, fp32: [kConsumers][2 boxes][kBlockQ][32]
+  static constexpr int kdQ = kdS + 2 * kBlockK * kBlockQ * 2;
+  static constexpr int kL = kdQ + kConsumers * kBlockQ * 64 * 4;  // [kStages]
+  static constexpr int kDelta = kL + kStages * kBlockQ * 4;   // [kStages]
+  static constexpr int kBar = kDelta + kStages * kBlockQ * 4;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
 
 // Zero rows [row0, row_end) of one head of a [B, L, N, D] bf16 tensor.
 template <int D>
@@ -83,10 +111,10 @@ __device__ __forceinline__ void zero_rows(bf16* dst, int row0, int row_end,
   }
 }
 
-// One warp's [16, D] fp32 accumulator (C fragments of D/8 n-tiles) as bf16
-// rows row0 + g and row0 + g + 8; rows >= row_end are not stored.
+// One warp's rows of a warpgroup's [64, D] fp32 accumulator as bf16 rows
+// row0 + g and row0 + g + 8; rows >= row_end are not stored.
 template <int D>
-__device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[D / 8][4],
+__device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[D / 2],
                                           int row0, int row_end,
                                           size_t row_stride, int g, int t) {
 #pragma unroll
@@ -95,46 +123,69 @@ __device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[D / 8][4
     if (row >= row_end) continue;
     bf16* out = dst + (size_t)row * row_stride + 2 * t;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(out + dt * 8) =
-          pack_bf16(acc[dt][2 * r], acc[dt][2 * r + 1]);
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<uint32_t*>(out + i * 8) =
+          pack_bf16(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
   }
 }
 
+// 2^x; P is rounded to bf16 right after, and a masked x (up to +1e30)
+// gives inf that the mask then replaces.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// dV += P^T dO or dK += dS^T Q for one 16-query k-step.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      const int* __restrict__ k_lens, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int Lq, int Lk, int N,
-                      float scale, int causal, int win_left, int win_right,
-                      int q_off, int k_off) {
-  constexpr int kLd = D + 8;
-  constexpr int kKSteps = D / 16;           // k-steps of K.Q^T and V.dO^T
-  constexpr int kDTiles = D / 8;            // n-tiles of dV and dK
-  constexpr int kNTiles = kDkdvBlockQ / 8;  // n-tiles of S^T and dP^T
+__device__ __forceinline__ void wgmma_rs(float (&acc)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 128)
+    wgmma_m64n128k16_rs<1>(acc, a, b, 1);
+  else
+    wgmma_m64n64k16_rs<1>(acc, a, b, 1);
+}
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kDkdvBlockK * kLd;
-  bf16* sQ = sV + kDkdvBlockK * kLd;              // [2][kDkdvBlockQ][kLd]
-  bf16* sdO = sQ + 2 * kDkdvBlockQ * kLd;         // [2][kDkdvBlockQ][kLd]
-  float* sL = reinterpret_cast<float*>(sdO + 2 * kDkdvBlockQ * kLd);
-  float* sDelta = sL + 2 * kDkdvBlockQ;           // [2][kDkdvBlockQ]
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 const __grid_constant__ CUtensorMap map_do,
+                 const __grid_constant__ CUtensorMap map_dq,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 const int* __restrict__ k_lens, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv, int Lq, int Lk,
+                 int N, float scale, int causal, int win_left, int win_right,
+                 int q_off, int k_off) {
+  using S = Smem<D>;
+  constexpr int kKSteps = D / 16;          // k-steps of S^T and dP^T
+  constexpr bool kSplitDq = D == 128;      // dQ: columns per warpgroup
+  constexpr int kDqSteps = kSplitDq ? kBlockK / 16 : 64 / 16;
+  constexpr int kKvBlock = kBlockK * kRow;   // column-block stride of K, V
+  constexpr int kQBlock = kBlockQ * kRow;    // ... of a Q / dO stage
+  constexpr int kQBytes = kBlockQ * D * 2;   // one Q (or dO) stage
+  constexpr int kDsBytes = kBlockK * kBlockQ * 2;
 
-  const int k0 = blockIdx.x * kDkdvBlockK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  float* sL = reinterpret_cast<float*>(smem + S::kL);
+  float* sDelta = reinterpret_cast<float*>(smem + S::kDelta);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + S::kBar);
+  uint64_t* full = bar_kv + 1;             // [kStages]: a query tile landed
+  uint64_t* empty = full + kStages;        // [kStages]: consumers are done
+
+  const int k0 = blockIdx.x * kBlockK;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;    // 0, 1: consumers (64 keys); 2: loads
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
 
   const size_t row_stride = (size_t)N * D;
-  const size_t q_base = (size_t)b * Lq * row_stride + (size_t)h * D;
   const size_t k_base = (size_t)b * Lk * row_stride + (size_t)h * D;
-  const float* lse_b = lse + ((size_t)b * N + h) * Lq;
-  const float* delta_b = delta + ((size_t)b * N + h) * Lq;
-  const int k_end = min(k0 + kDkdvBlockK, Lk);
+  const int k_end = min(k0 + kBlockK, Lk);
 
   Mask mask;
   mask.k_valid = min(max(k_lens[b], 0), Lk);
@@ -152,336 +203,326 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (causal) q_begin = max(q_begin, k0 - mask.diag);
     if (win_right >= 0) q_begin = max(q_begin, k0 - mask.diag - win_right);
     if (win_left >= 0) q_end = min(q_end, k_hi - 1 + win_left - mask.diag + 1);
-    q_begin = (max(q_begin, 0) / kDkdvBlockQ) * kDkdvBlockQ;
+    q_begin = (max(q_begin, 0) / kBlockQ) * kBlockQ;
   }
   const int n_qt =
-      q_end > q_begin ? (q_end - q_begin + kDkdvBlockQ - 1) / kDkdvBlockQ : 0;
+      q_end > q_begin ? (q_end - q_begin + kBlockQ - 1) / kBlockQ : 0;
   if (n_qt == 0) {                  // no query sees these keys: zero grads
     zero_rows<D>(dk + k_base, k0, k_end, row_stride);
     zero_rows<D>(dv + k_base, k0, k_end, row_stride);
     return;
   }
-
-  auto load_q_tile = [&](int j, int stage) {
-    const int qt = q_begin + j * kDkdvBlockQ;
-    load_rows<D, kThreads>(sQ + stage * kDkdvBlockQ * kLd, q + q_base, qt, Lq,
-                           row_stride, kDkdvBlockQ);
-    load_rows<D, kThreads>(sdO + stage * kDkdvBlockQ * kLd, dout + q_base, qt,
-                           Lq, row_stride, kDkdvBlockQ);
-    if (threadIdx.x < kDkdvBlockQ) {
-      const int row = qt + threadIdx.x;
-      const bool ok = row < Lq;
-      sL[stage * kDkdvBlockQ + threadIdx.x] = ok ? lse_b[row] * kLog2e : 0.f;
-      sDelta[stage * kDkdvBlockQ + threadIdx.x] = ok ? delta_b[row] : 0.f;
-    }
+  const int j0 = blockIdx.x % n_qt;   // staggered first query tile
+  auto tile_of = [&](int j) {
+    const int jj = j + j0;
+    return q_begin + (jj < n_qt ? jj : jj - n_qt) * kBlockQ;
   };
 
-  // group 0: the resident K / V tile and query tile 0
-  load_rows<D, kThreads>(sK, k + k_base, k0, Lk, row_stride, kDkdvBlockK);
-  load_rows<D, kThreads>(sV, v + k_base, k0, Lk, row_stride, kDkdvBlockK);
-  load_q_tile(0, 0);
-  cp_async_commit();
-
-  float acc_dk[kDTiles][4], acc_dv[kDTiles][4];
-#pragma unroll
-  for (int i = 0; i < kDTiles; ++i) {
-    acc_dk[i][0] = acc_dk[i][1] = acc_dk[i][2] = acc_dk[i][3] = 0.f;
-    acc_dv[i][0] = acc_dv[i][1] = acc_dv[i][2] = acc_dv[i][3] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 32);                 // the producer warp's lanes
+      mbar_init(empty + s, kConsumers * 4);    // every consumer warp
+    }
+    mbar_init_fence();
   }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ---- producer: one warp issues the TMA loads and stages lse / delta
+    setmaxnreg_dec<24>();
+    if (warp != 0) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_kv, 2 * kBlockK * D * 2);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(smem + S::kK + c * kKvBlock, &map_k, bar_kv, c * 64, h,
+                    k0, b);
+        tma_load_4d(smem + S::kV + c * kKvBlock, &map_v, bar_kv, c * 64, h,
+                    k0, b);
+      }
+    }
+    const float* lse_b = lse + ((size_t)b * N + h) * Lq;
+    const float* delta_b = delta + ((size_t)b * N + h) * Lq;
+    for (int j = 0; j < n_qt; ++j) {
+      const int stage = j % kStages;
+      if (j >= kStages) mbar_wait(empty + stage, (j / kStages - 1) & 1);
+      const int qt = tile_of(j);
+      for (int r = lane; r < kBlockQ; r += 32) {
+        const int row = qt + r;
+        const bool ok = row < Lq;
+        sL[stage * kBlockQ + r] = ok ? lse_b[row] * kLog2e : 0.f;
+        sDelta[stage * kBlockQ + r] = ok ? delta_b[row] : 0.f;
+      }
+      if (lane == 0) {     // rows past Lq arrive as zeros
+        mbar_arrive_expect_tx(full + stage, 2 * kQBytes);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(smem + S::kQ + stage * kQBytes + c * kQBlock, &map_q,
+                      full + stage, c * 64, h, qt, b);
+          tma_load_4d(smem + S::kdO + stage * kQBytes + c * kQBlock, &map_do,
+                      full + stage, c * 64, h, qt, b);
+        }
+      } else {
+        mbar_arrive(full + stage);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns keys k0 + 64 wg .. + 63
+  setmaxnreg_inc<240>();
+
+  // Does the mask cut the tile of queries [qt, qt + kBlockQ)?
+  const bool keys_cut = k0 + kBlockK > mask.k_valid;
+  auto tile_is_cut = [&](int qt) {
+    if (keys_cut || qt + kBlockQ > Lq) return true;
+    if (!mask.idx) return false;
+    const int rel_hi = k0 + kBlockK - 1 - qt - mask.diag;   // key - q - diag
+    const int rel_lo = k0 - (qt + kBlockQ - 1) - mask.diag;
+    return (causal && rel_hi > 0) || (win_right >= 0 && rel_hi > win_right) ||
+           (win_left >= 0 && -rel_lo > win_left);
+  };
+
+  // this warpgroup's K / V rows as the K-major A of S^T and dP^T
+  const uint64_t desc_k = wgmma_desc(smem + S::kK + wg * 64 * kRow, 16, 1024);
+  const uint64_t desc_v = wgmma_desc(smem + S::kV + wg * 64 * kRow, 16, 1024);
+  // dS^T (MN-major A, two buffers) and K (MN-major B) of dQ
+  const int dq_row0 = kSplitDq ? 0 : wg * 64;
+  const uint64_t desc_ds = wgmma_desc(smem + S::kdS + dq_row0 * kRow, kQBlock,
+                                      1024);
+  const uint64_t desc_kt = wgmma_desc(
+      smem + S::kK + (kSplitDq ? wg * kKvBlock : dq_row0 * kRow), kKvBlock,
+      1024);
+  const int dq_col0 = kSplitDq ? wg * 64 : 0;
+
+  float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
   const float scale_log2 = scale * kLog2e;
-  const int key_row = k0 + warp * 16 + g;     // keys of c0,c1 / c2,c3: +0, +8
-  const bf16* kw = sK + warp * 16 * kLd;
-  const bf16* vw = sV + warp * 16 * kLd;
-  const int mat = lane >> 3, r8 = lane & 7;   // ldmatrix.x4 addressing
+  const int key_row = k0 + wg * 64 + warp * 16 + g;   // d[4i+2r+c]: +8r
+  const int ds_row = wg * 64 + warp * 16 + g;         // row % 8 == g
+  unsigned char* sdq = smem + S::kdQ + wg * kBlockQ * 64 * 4;
+  mbar_wait(bar_kv, 0);
 
   for (int j = 0; j < n_qt; ++j) {
-    const int stage = j & 1;
-    const int qt = q_begin + j * kDkdvBlockQ;
-    // stage^1 was last read in step j-1, which ended with __syncthreads()
-    if (j + 1 < n_qt) load_q_tile(j + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait_one();                      // step j's tile has landed
-    __syncthreads();
-    const bf16* qs = sQ + stage * kDkdvBlockQ * kLd;
-    const bf16* dos = sdO + stage * kDkdvBlockQ * kLd;
-    const float* ls = sL + stage * kDkdvBlockQ;
-    const float* des = sDelta + stage * kDkdvBlockQ;
+    const int stage = j % kStages;
+    const int qt = tile_of(j);
+    const int buf = j & 1;              // dS^T buffer of this step
+    unsigned char* sq = smem + S::kQ + stage * kQBytes;
+    unsigned char* sdo = smem + S::kdO + stage * kQBytes;
+    const float* ls = sL + stage * kBlockQ;
+    const float* des = sDelta + stage * kBlockQ;
+    unsigned char* sdS = smem + S::kdS + buf * kDsBytes;
+    const uint64_t desc_q = wgmma_desc(sq, 16, 1024);         // K-major
+    const uint64_t desc_do = wgmma_desc(sdo, 16, 1024);
+    const uint64_t desc_qt = wgmma_desc(sq, kQBlock, 1024);   // MN-major
+    const uint64_t desc_dot = wgmma_desc(sdo, kQBlock, 1024);
+    const bool cut = tile_is_cut(qt);
+    mbar_wait(full + stage, (j / kStages) & 1);
 
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 32 queries
-    float s[kNTiles][4], dp[kNTiles][4];
+    // S^T = K Q^T and dP^T = V dO^T: this warpgroup's 64 keys x 64 queries
+    float s[32], dp[32];
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt)
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    for (int kk = 0; kk < kKSteps; ++kk)
+      wgmma_m64n64k16_ss<0, 0>(
+          s, desc_k + (((kk / 4) * kKvBlock + (kk % 4) * 32) >> 4),
+          desc_q + (((kk / 4) * kQBlock + (kk % 4) * 32) >> 4), kk > 0);
+    wgmma_commit();
 #pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks) {
-      uint32_t ka[4], va[4];
-      load_a_frag(ka, kw + ks * 16, kLd, g, t);
-      load_a_frag(va, vw + ks * 16, kLd, g, t);
-#pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-        const bf16* qr = qs + (nt * 8 + g) * kLd + ks * 16 + 2 * t;
-        const bf16* dr = dos + (nt * 8 + g) * kLd + ks * 16 + 2 * t;
-        mma_16816(s[nt], ka, ld_u32(qr), ld_u32(qr + 8));
-        mma_16816(dp[nt], va, ld_u32(dr), ld_u32(dr + 8));
-      }
-    }
+    for (int kk = 0; kk < kKSteps; ++kk)
+      wgmma_m64n64k16_ss<0, 0>(
+          dp, desc_v + (((kk / 4) * kKvBlock + (kk % 4) * 32) >> 4),
+          desc_do + (((kk / 4) * kQBlock + (kk % 4) * 32) >> 4), kk > 0);
+    wgmma_commit();
 
-    // P^T = where(mask, exp(S^T - lse), 0); dS^T = P^T (dP^T - delta) scale
+    // P^T = where(mask, exp(S^T - lse), 0), while dP^T is in flight
+    wgmma_wait<1>();
+    fence_operands(s);
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
+    for (int i = 0; i < 8; ++i) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * i + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + 2 * t + (e & 1);   // query within the tile
-        const int row = qt + c;
-        const int key = key_row + 8 * (e >> 1);
-        const bool ok = row < Lq && mask(row, key);
-        const float p = ok ? exp2f(s[nt][e] * scale_log2 - ls[c]) : 0.f;
-        s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - des[c]) * scale;
+        float p =
+            exp2_approx(s[4 * i + e] * scale_log2 - ((e & 1) ? l2.y : l2.x));
+        if (cut) {
+          const int row = qt + 8 * i + 2 * t + (e & 1);
+          const int key = key_row + 8 * (e >> 1);
+          p = (row < Lq && mask(row, key)) ? p : 0.f;
+        }
+        s[4 * i + e] = p;
       }
+    }
+    // dS^T = P^T (dP^T - delta) scale
+    wgmma_wait<0>();
+    fence_operands(dp);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 d2 = *reinterpret_cast<const float2*>(des + 8 * i + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * i + e] = s[4 * i + e] *
+                        (dp[4 * i + e] - ((e & 1) ? d2.y : d2.x)) * scale;
     }
 
-    // dV += P^T dO and dK += dS^T Q over the tile's 32 queries
+    // P^T and dS^T as bf16 A fragments, one per 16-query k-step; dS^T also
+    // to shared memory (rows: keys, 128 bytes of queries, swizzled)
+    uint32_t pa[4][4], da[4][4];
 #pragma unroll
-    for (int kk = 0; kk < kDkdvBlockQ / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const uint32_t da[4] = {
-          pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-          pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-          pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-          pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-      const int off = (kk * 16 + (mat & 1) * 8 + r8) * kLd + (mat >> 1) * 8;
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int dt = 0; dt < kDTiles; dt += 2) {
-        uint32_t f[4];
-        ldmatrix_x4_trans(f, dos + off + dt * 8);
-        mma_16816(acc_dv[dt], pa, f[0], f[1]);
-        mma_16816(acc_dv[dt + 1], pa, f[2], f[3]);
-        ldmatrix_x4_trans(f, qs + off + dt * 8);
-        mma_16816(acc_dk[dt], da, f[0], f[1]);
-        mma_16816(acc_dk[dt + 1], da, f[2], f[3]);
+      for (int e = 0; e < 4; ++e) {
+        pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+        da[kk][e] = pack_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
+        const int i = 2 * kk + (e >> 1), row = ds_row + 8 * (e & 1);
+        *reinterpret_cast<uint32_t*>(sdS + row * kRow + ((i ^ g) << 4) +
+                                     4 * t) = da[kk][e];
       }
+
+    // dV += P^T dO and dK += dS^T Q over the tile's 64 queries
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(acc_dv, pa[kk], desc_dot + ((kk * 16 * kRow) >> 4));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(acc_dk, da[kk], desc_qt + ((kk * 16 * kRow) >> 4));
+    wgmma_commit();
+
+    // dS^T from both warpgroups, visible to wgmma. The other buffer's last
+    // readers (step j-1's dQ) finished before their warpgroup got here, and
+    // so did step j-1's reduce-add of the dQ staging tile.
+    if (threadIdx.x % 128 == 0) bulk_wait_read();
+    fence_proxy_async();
+    named_barrier(1, kConsumers * 128);
+
+    // dQ_partial = dS K (64 queries x 64 columns a warpgroup)
+    float dq[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDqSteps; ++kk)
+      wgmma_m64n64k16_ss<1, 1>(
+          dq, desc_ds + ((buf * kDsBytes + kk * 16 * kRow) >> 4),
+          desc_kt + ((kk * 16 * kRow) >> 4), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dq);
+    fence_operands(acc_dv);
+    fence_operands(acc_dk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {   // the A registers stay live until here
+      fence_operands(pa[kk]);
+      fence_operands(da[kk]);
     }
-    __syncthreads();                 // every warp is done with this stage
+    if (lane == 0) mbar_arrive(empty + stage);   // this warp is done with it
+
+    // dQ_partial to this warpgroup's staging tile (two 32-column boxes in
+    // the 128-byte swizzle), then one TMA reduce-add per box into dq_acc
+    // (rows past Lq are not written)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + g + 8 * r;        // row % 8 == g
+        const int chunk = 2 * (i % 4) + t / 2;        // 16 bytes: 4 floats
+        *reinterpret_cast<float2*>(sdq + (i / 4) * kBlockQ * kRow +
+                                   row * kRow + ((chunk ^ g) << 4) +
+                                   (t % 2) * 8) =
+            make_float2(dq[4 * i + 2 * r], dq[4 * i + 2 * r + 1]);
+      }
+    fence_proxy_async();
+    named_barrier(2 + wg, 128);
+    if (threadIdx.x % 128 == 0) {
+      tma_reduce_add_4d(&map_dq, sdq, dq_col0, h, qt, b);
+      tma_reduce_add_4d(&map_dq, sdq + kBlockQ * kRow, dq_col0 + 32, h, qt,
+                        b);
+      bulk_commit();
+    }
   }
+  if (threadIdx.x % 128 == 0) bulk_wait();
 
   // keys past k_len never passed the mask: their rows hold exact zeros
-  store_acc<D>(dk + k_base, acc_dk, k0 + warp * 16, k_end, row_stride, g, t);
-  store_acc<D>(dv + k_base, acc_dv, k0 + warp * 16, k_end, row_stride, g, t);
+  store_acc<D>(dk + k_base, acc_dk, k0 + wg * 64 + warp * 16, k_end,
+               row_stride, g, t);
+  store_acc<D>(dv + k_base, acc_dv, k0 + wg * 64 + warp * 16, k_end,
+               row_stride, g, t);
+}
+
+// cuTensorMapEncodeTiled (a CUDA driver API call), looked up through the
+// runtime: the library links only the runtime.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &status) == cudaSuccess &&
+        status == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// One head's rows of a [B, L, N, D] tensor (bf16, or fp32 when `fp32`) as
+// boxes of `rows` x 128 bytes in the 128-byte swizzle; rows past L read as
+// zeros and are not written.
+bool make_map(CUtensorMap* map, const void* base, int B, int L, int N, int D,
+              int rows, bool fp32 = false) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t es = fp32 ? 4 : 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {D * es, N * D * es, L * N * D * es};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / es), 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map,
+                fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    const int* __restrict__ k_lens, bf16* __restrict__ dq,
-                    int Lq, int Lk, int N, float scale, int causal,
-                    int win_left, int win_right, int q_off, int k_off) {
-  constexpr int kLd = D + 8;
-  constexpr int kKSteps = D / 16;          // k-steps of Q.K^T and dO.V^T
-  constexpr int kDTiles = D / 8;           // n-tiles of dQ
-  constexpr int kNTiles = kDqBlockK / 8;   // n-tiles of S and dP
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdO = sQ + kDqBlockQ * kLd;
-  bf16* sK = sdO + kDqBlockQ * kLd;              // [2][kDqBlockK][kLd]
-  bf16* sV = sK + 2 * kDqBlockK * kLd;           // [2][kDqBlockK][kLd]
-
-  const int q0 = blockIdx.x * kDqBlockQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-
-  const size_t row_stride = (size_t)N * D;
-  const size_t q_base = (size_t)b * Lq * row_stride + (size_t)h * D;
-  const size_t k_base = (size_t)b * Lk * row_stride + (size_t)h * D;
-
-  Mask mask;
-  mask.k_valid = min(max(k_lens[b], 0), Lk);
-  mask.diag = q_off + (Lk - Lq) - k_off;
-  mask.causal = causal;
-  mask.left = win_left;
-  mask.right = win_right;
-  mask.idx = causal || win_left >= 0 || win_right >= 0;
-
-  // keys this block can see (as in the forward)
-  int kv_begin = 0, kv_end = mask.k_valid;
-  if (mask.idx) {
-    const int q_last = min(q0 + kDqBlockQ, Lq) - 1;
-    if (causal) kv_end = min(kv_end, q_last + mask.diag + 1);
-    if (win_right >= 0) kv_end = min(kv_end, q_last + mask.diag + win_right + 1);
-    if (win_left >= 0) kv_begin = max(0, q0 + mask.diag - win_left);
-    kv_begin = (kv_begin / kDqBlockK) * kDqBlockK;
-  }
-  const int n_kt =
-      kv_end > kv_begin ? (kv_end - kv_begin + kDqBlockK - 1) / kDqBlockK : 0;
-
-  auto load_kv_tile = [&](int j, int stage) {
-    const int kt = kv_begin + j * kDqBlockK;
-    load_rows<D, kThreads>(sK + stage * kDqBlockK * kLd, k + k_base, kt,
-                           kv_end, row_stride, kDqBlockK);
-    load_rows<D, kThreads>(sV + stage * kDqBlockK * kLd, v + k_base, kt,
-                           kv_end, row_stride, kDqBlockK);
-  };
-
-  // group 0: the resident Q / dO tile and key tile 0
-  load_rows<D, kThreads>(sQ, q + q_base, q0, Lq, row_stride, kDqBlockQ);
-  load_rows<D, kThreads>(sdO, dout + q_base, q0, Lq, row_stride, kDqBlockQ);
-  if (n_kt > 0) load_kv_tile(0, 0);
-  cp_async_commit();
-
-  // this thread's two rows: lse (log2 domain) and delta
-  const int row_a = q0 + warp * 16 + g;
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + 8 * r;
-    const bool ok = row < Lq;
-    const size_t i = ((size_t)b * N + h) * Lq + (ok ? row : 0);
-    lse2[r] = ok ? lse[i] * kLog2e : 0.f;
-    dl[r] = ok ? delta[i] : 0.f;
-  }
-
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int i = 0; i < kDTiles; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  const float scale_log2 = scale * kLog2e;
-  const bf16* qw = sQ + warp * 16 * kLd;
-  const bf16* dw = sdO + warp * 16 * kLd;
-  const int mat = lane >> 3, r8 = lane & 7;
-
-  for (int j = 0; j < n_kt; ++j) {
-    const int stage = j & 1;
-    const int kt = kv_begin + j * kDqBlockK;
-    if (j + 1 < n_kt) load_kv_tile(j + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const bf16* ks_ = sK + stage * kDqBlockK * kLd;
-    const bf16* vs = sV + stage * kDqBlockK * kLd;
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 queries x 64 keys
-    float s[kNTiles][4], dp[kNTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks) {
-      uint32_t qa[4], da[4];
-      load_a_frag(qa, qw + ks * 16, kLd, g, t);
-      load_a_frag(da, dw + ks * 16, kLd, g, t);
-#pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-        const bf16* kr = ks_ + (nt * 8 + g) * kLd + ks * 16 + 2 * t;
-        const bf16* vr = vs + (nt * 8 + g) * kLd + ks * 16 + 2 * t;
-        mma_16816(s[nt], qa, ld_u32(kr), ld_u32(kr + 8));
-        mma_16816(dp[nt], da, ld_u32(vr), ld_u32(vr + 8));
-      }
-    }
-
-    // P = where(mask, exp(S - lse), 0); dS = P (dP - delta) scale
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int key = kt + nt * 8 + 2 * t + (e & 1);
-        const bool ok = mask(row_a + 8 * r, key);
-        const float p = ok ? exp2f(s[nt][e] * scale_log2 - lse2[r]) : 0.f;
-        dp[nt][e] = p * (dp[nt][e] - dl[r]) * scale;
-      }
-    }
-
-    // dQ += dS K over the tile's 64 keys
-#pragma unroll
-    for (int kk = 0; kk < kDqBlockK / 16; ++kk) {
-      const uint32_t da[4] = {
-          pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-          pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-          pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-          pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-      const int off = (kk * 16 + (mat & 1) * 8 + r8) * kLd + (mat >> 1) * 8;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; dt += 2) {
-        uint32_t f[4];
-        ldmatrix_x4_trans(f, ks_ + off + dt * 8);
-        mma_16816(acc[dt], da, f[0], f[1]);
-        mma_16816(acc[dt + 1], da, f[2], f[3]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // rows with no valid key (n_kt == 0, or all masked) hold exact zeros
-  store_acc<D>(dq + q_base, acc, q0 + warp * 16, Lq, row_stride, g, t);
-}
-
-struct Args {
-  const bf16 *q, *k, *v, *dout;
-  const float *lse, *delta;
-  const int* k_lens;
-  int B, Lq, Lk, N;
-  float scale;
-  int causal, win_left, win_right, q_off, k_off;
-  cudaStream_t stream;
-};
-
-template <int D>
-int launch_dkdv(const Args& a, bf16* dk, bf16* dv) {
-  constexpr int kSmem = dkdv_smem_bytes<D>();
+int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+           const float* lse, const float* delta, const int* k_lens,
+           float* dq_acc, bf16* dk, bf16* dv, int B, int Lq, int Lk, int N,
+           float scale, int causal, int win_left, int win_right, int q_off,
+           int k_off, cudaStream_t stream) {
+  constexpr int kSmem = Smem<D>::kBytes;
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const dim3 grid((a.Lk + kDkdvBlockK - 1) / kDkdvBlockK, a.N, a.B);
-  flash_bwd_dkdv_kernel<D><<<grid, kThreads, kSmem, a.stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.k_lens, dk, dv, a.Lq, a.Lk,
-      a.N, a.scale, a.causal, a.win_left, a.win_right, a.q_off, a.k_off);
+  CUtensorMap map_q, map_k, map_v, map_do, map_dq;
+  if (!make_map(&map_q, q, B, Lq, N, D, kBlockQ) ||
+      !make_map(&map_do, dout, B, Lq, N, D, kBlockQ) ||
+      !make_map(&map_k, k, B, Lk, N, D, kBlockK) ||
+      !make_map(&map_v, v, B, Lk, N, D, kBlockK) ||
+      !make_map(&map_dq, dq_acc, B, Lq, N, D, kBlockQ, true))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((Lk + kBlockK - 1) / kBlockK, N, B);
+  flash_bwd_kernel<D><<<grid, kThreads, kSmem, stream>>>(
+      map_q, map_k, map_v, map_do, map_dq, lse, delta, k_lens, dk, dv, Lq, Lk,
+      N, scale, causal, win_left, win_right, q_off, k_off);
   return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_dq(const Args& a, bf16* dq) {
-  constexpr int kSmem = dq_smem_bytes<D>();
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmem);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
-  const dim3 grid((a.Lq + kDqBlockQ - 1) / kDqBlockQ, a.N, a.B);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, kSmem, a.stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.k_lens, dq, a.Lq, a.Lk, a.N,
-      a.scale, a.causal, a.win_left, a.win_right, a.q_off, a.k_off);
-  return (int)cudaGetLastError();
-}
-
-Args make_args(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, const void* k_lens, int B,
-               int Lq, int Lk, int N, float scale, int causal, int win_left,
-               int win_right, int q_off, int k_off, void* stream) {
-  return Args{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-              static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-              static_cast<const float*>(lse), static_cast<const float*>(delta),
-              static_cast<const int*>(k_lens), B, Lq, Lk, N, scale, causal,
-              win_left, win_right, q_off, k_off,
-              static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
@@ -491,42 +532,32 @@ extern "C" const char* omni_cuda_error_string(int err) {
 }
 
 // q, dout: [B, Lq, N, D] bf16; k, v, dk, dv: [B, Lk, N, D] bf16;
+// dq_acc: [B, Lq, N, D] fp32, zero-filled by the caller (added into);
 // lse, delta: [B, N, Lq] fp32; k_lens: [B] int32.
-extern "C" int omni_flash_bwd_dkdv_bf16(
+extern "C" int omni_flash_bwd_bf16(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, const void* k_lens, void* dk,
-    void* dv, int B, int Lq, int Lk, int N, int D, float scale, int causal,
-    int win_left, int win_right, int q_off, int k_off, void* stream) {
-  if (B <= 0 || Lk <= 0 || N <= 0) return (int)cudaSuccess;
-  const Args a = make_args(q, k, v, dout, lse, delta, k_lens, B, Lq, Lk, N,
-                           scale, causal, win_left, win_right, q_off, k_off,
-                           stream);
+    const void* lse, const void* delta, const void* k_lens, void* dq_acc,
+    void* dk, void* dv, int B, int Lq, int Lk, int N, int D, float scale,
+    int causal, int win_left, int win_right, int q_off, int k_off,
+    void* stream) {
+  // (the caller zeroes dk and dv itself when Lq = 0: a tensor map needs a
+  // nonempty tensor)
+  if (B <= 0 || Lq <= 0 || Lk <= 0 || N <= 0) return (int)cudaSuccess;
+  auto run = [&](auto launch_d) {
+    return launch_d(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<const int*>(k_lens), static_cast<float*>(dq_acc),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, Lq, Lk, N, scale,
+        causal, win_left, win_right, q_off, k_off,
+        static_cast<cudaStream_t>(stream));
+  };
   switch (D) {
     case 64:
-      return launch_dkdv<64>(a, static_cast<bf16*>(dk), static_cast<bf16*>(dv));
+      return run(launch<64>);
     case 128:
-      return launch_dkdv<128>(a, static_cast<bf16*>(dk),
-                              static_cast<bf16*>(dv));
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// dq: [B, Lq, N, D] bf16; the other arguments as above.
-extern "C" int omni_flash_bwd_dq_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, const void* k_lens, void* dq, int B,
-    int Lq, int Lk, int N, int D, float scale, int causal, int win_left,
-    int win_right, int q_off, int k_off, void* stream) {
-  if (B <= 0 || Lq <= 0 || N <= 0) return (int)cudaSuccess;
-  const Args a = make_args(q, k, v, dout, lse, delta, k_lens, B, Lq, Lk, N,
-                           scale, causal, win_left, win_right, q_off, k_off,
-                           stream);
-  switch (D) {
-    case 64:
-      return launch_dq<64>(a, static_cast<bf16*>(dq));
-    case 128:
-      return launch_dq<128>(a, static_cast<bf16*>(dq));
+      return run(launch<128>);
     default:
       return (int)cudaErrorInvalidValue;
   }

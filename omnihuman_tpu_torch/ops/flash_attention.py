@@ -5,8 +5,9 @@ Port of omnihuman_tpu/ops/flash_pallas.py. One CUDA kernel,
 `csrc/flash_fwd.cu`, computes what the two TPU forward kernels
 `_fwd_kernel` (Lk <= block_k) and `_fwd_kernel_u2` (Lk > block_k) compute,
 with the natural-log LSE as an optional output; `csrc/flash_bwd.cu` holds
-the two backward kernels, `_bwd_dkdv_kernel` and `_bwd_dq_kernel`. The
-source notes there say what bounds each and how it is built.
+one fused backward kernel that computes what the two TPU backward kernels
+`_bwd_dkdv_kernel` and `_bwd_dq_kernel` compute. The source notes there
+say what bounds each and how it is built.
 
 Contract (flash_pallas.pallas_flash_attention, forward):
   q [B, Lq, N, D], k / v [B, Lk, N, D] in the compute dtype;
@@ -51,15 +52,11 @@ FLASH_FWD_LONG_K = CudaKernel("flash_fwd (Lk > 1024)", "flash_fwd.cu",
                               "omni_flash_fwd_bf16", _FWD_ARGTYPES)
 FLASH_FWD_SHORT_K = CudaKernel("flash_fwd (Lk <= 1024)", "flash_fwd.cu",
                                "omni_flash_fwd_bf16", _FWD_ARGTYPES)
-FLASH_BWD_DKDV = CudaKernel(
-    "flash_bwd_dkdv", "flash_bwd.cu", "omni_flash_bwd_dkdv_bf16",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float]
+FLASH_BWD = CudaKernel(
+    "flash_bwd (K2)", "flash_bwd.cu", "omni_flash_bwd_bf16",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float]
     + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-FLASH_BWD_DQ = CudaKernel(
-    "flash_bwd_dq", "flash_bwd.cu", "omni_flash_bwd_dq_bf16",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
-    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-KERNELS = (FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K, FLASH_BWD_DKDV, FLASH_BWD_DQ)
+KERNELS = (FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K, FLASH_BWD)
 
 
 def _check_shapes(q, k, v):
@@ -287,43 +284,29 @@ def _check_bwd_shapes(q, out, lse, dout) -> None:
         raise ValueError(f"lse {tuple(lse.shape)} != {(b, n, lq)}")
 
 
-def flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, kl, softmax_scale=None,
-                        causal=False, window_size=(-1, -1), offsets=None):
-    """One launch of the dkdv kernel (flash_bwd.cu) on checked inputs:
-    returns (dk, dv), bf16 like k and v. `kl` is the clamped int32 k_lens;
-    lse and delta are [B, N, Lq] fp32 contiguous."""
+def flash_bwd_launch(q, k, v, dout, lse, delta, kl, dq_acc, dk, dv,
+                     softmax_scale=None, causal=False, window_size=(-1, -1),
+                     offsets=None) -> None:
+    """One launch of the backward kernel (flash_bwd.cu) on checked inputs:
+    writes dk and dv (bf16 like k and v) and adds dQ into `dq_acc`, an fp32
+    tensor shaped like q. `kl` is the clamped int32 k_lens; lse and delta
+    are [B, N, Lq] fp32 contiguous."""
     b, lq, n, d = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
-        return dk, dv
+        return
+    if lq == 0:     # no query sees a key; a tensor map needs rows to map
+        dk.zero_()
+        dv.zero_()
+        return
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        FLASH_BWD_DKDV.launch(
+        FLASH_BWD.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), kl.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, lq, k.shape[1], n, d,
+            lse.data_ptr(), delta.data_ptr(), kl.data_ptr(),
+            dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, lq,
+            k.shape[1], n, d,
             *_mask_args(softmax_scale, d, causal, window_size, offsets),
             stream)
-    return dk, dv
-
-
-def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, kl, softmax_scale=None,
-                      causal=False, window_size=(-1, -1), offsets=None):
-    """One launch of the dq kernel (flash_bwd.cu) on checked inputs:
-    returns dq, bf16 like q."""
-    b, lq, n, d = q.shape
-    dq = torch.empty_like(q)
-    if dq.numel() == 0:
-        return dq
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        FLASH_BWD_DQ.launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), kl.data_ptr(), dq.data_ptr(),
-            b, lq, k.shape[1], n, d,
-            *_mask_args(softmax_scale, d, causal, window_size, offsets),
-            stream)
-    return dq
 
 
 def flash_bwd_cuda(
@@ -335,9 +318,10 @@ def flash_bwd_cuda(
     window_size: Tuple[int, int] = (-1, -1),
     offsets: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch csrc/flash_bwd.cu (dkdv, then dq) on the current stream,
-    with delta computed here in fp32 from the stored O; raises on anything
-    the kernels do not take."""
+    """Launch csrc/flash_bwd.cu once on the current stream, with delta
+    computed here in fp32 from the stored O; raises on anything the kernel
+    does not take. dQ is summed in a zero-filled fp32 accumulator (its sum
+    order varies from run to run) and cast to q's dtype."""
     _check_shapes(q, k, v)
     _check_bwd_shapes(q, out, lse, dout)
     _check_kernel_inputs(q=q, k=k, v=v, out=out, dout=dout)
@@ -349,9 +333,10 @@ def flash_bwd_cuda(
     delta = bwd_delta(out, dout)
     mask = dict(softmax_scale=softmax_scale, causal=causal,
                 window_size=window_size, offsets=offsets)
-    dk, dv = flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, kl, **mask)
-    dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, kl, **mask)
-    return dq, dk, dv
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    flash_bwd_launch(q, k, v, dout, lse, delta, kl, dq_acc, dk, dv, **mask)
+    return dq_acc.to(q.dtype), dk, dv
 
 
 def flash_fwd(q, k, v, k_lens=None, softmax_scale=None, causal=False,
@@ -368,7 +353,7 @@ def flash_fwd(q, k, v, k_lens=None, softmax_scale=None, causal=False,
 
 def flash_bwd(q, k, v, out, lse, dout, k_lens=None, softmax_scale=None,
               causal=False, window_size=(-1, -1), offsets=None):
-    """The backward kernels on CUDA tensors, the plain backward on CPU
+    """The backward kernel on CUDA tensors, the plain backward on CPU
     tensors: (dq, dk, dv)."""
     if q.is_cuda:
         return flash_bwd_cuda(q, k, v, out, lse, dout, k_lens, softmax_scale,

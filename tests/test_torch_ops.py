@@ -172,7 +172,7 @@ def test_kernel_counter_stays_zero_on_cpu(rng):
     flash_attention(q, k, k)
     qg = q.clone().requires_grad_(True)
     flash_attention(qg, k, k).sum().backward()
-    assert [kn.launches for kn in KERNELS] == [0, 0, 0, 0]
+    assert [kn.launches for kn in KERNELS] == [0, 0, 0]
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
