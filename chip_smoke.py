@@ -62,7 +62,9 @@ Phases (any failure stops the run with a nonzero exit):
      480x832 decode and encode (first-chunk T=1 shapes included), bf16,
      tolerance 2^-6 of the output's peak: kernel / plain / cuDNN-yardstick
      times (F.conv3d on the activated input for K3, F.conv2d on the
-     upsampled input for K4) and the bound;
+     upsampled input for K4) and the bound; K3's pre-pass timed alone
+     beside the whole call, and ptxas's registers, spills and shared
+     memory for K3's kernels;
  13. the full-width VAE at 81 frames, 480x832: vae_decode and vae_encode
      through the kernels ("cuda") and through cuDNN ("torch"), relative L2
      between them, wall times, peak memory, and the launch counts, which
@@ -1022,6 +1024,14 @@ def phase_vae_kernels():
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
+    # ptxas of K3's kernels: registers, spills, shared memory
+    from omnihuman_tpu_torch.ops import cuda_build
+    for line in cuda_build.build_log(vk.VAE_CONV.source).splitlines():
+        if "entry function" in line:
+            log(f"[12] ptxas {line.split(chr(39))[1][:90]}")
+        elif ("registers" in line or "spill" in line or "wgmma" in line
+              or "arning" in line):
+            log(f"[12]   {line.strip()}")
     rows = {}
     for t, h, w, cin, cout in K3_SHAPES:
         res_on = cin == cout       # conv2 of an identity block
@@ -1032,11 +1042,12 @@ def phase_vae_kernels():
         gamma = rnd(cin, scale=0.2) + 1.0
         wt = rnd(3, 3, 3, cin, cout, scale=(27 * cin) ** -0.5)
         w2 = vk.pack_conv_weights(wt)
+        wk = vk.conv_weights_kmajor(w2)    # made once a VAE pass
         bias = rnd(cout, scale=0.05)
         res = (rnd(1, cout, t, h, w).to(torch.bfloat16).contiguous(
             memory_format=cl) if res_on else None)
         got, cnew = vk.fused_act_causal_conv3d_cuda(x, cache, gamma, w2,
-                                                    bias, res)
+                                                    bias, res, wk)
         torch.cuda.synchronize()
         want, cwant = vk.fused_act_causal_conv3d_plain(x, cache, gamma, w2,
                                                        bias, res)
@@ -1054,7 +1065,9 @@ def phase_vae_kernels():
             + 4.0 * (cin + cout)
         bound, by = _bound(flops, nbytes)
         ms = bench_ms(lambda: vk.fused_act_causal_conv3d_cuda(
-            x, cache, gamma, w2, bias, res))
+            x, cache, gamma, w2, bias, res, wk))
+        # the pre-pass alone (its plain version: act_cache_plain)
+        pre_ms = bench_ms(lambda: vk.act_cache_cuda(x, cache, gamma))
         plain_ms = bench_ms(lambda: vk.fused_act_causal_conv3d_plain(
             x, cache, gamma, w2, bias, res), reps=3, warmup=1)
         # yardstick only: cuDNN's conv of the already-activated input
@@ -1066,7 +1079,8 @@ def phase_vae_kernels():
         lib_ms = bench_ms(lambda: F.conv3d(xin, wl, bl, padding=(0, 1, 1)))
         log(f"[12] K3 T={t} {h}x{w} {cin}->{cout}"
             f"{' +residual' if res_on else ''}: max_abs_err {err:.3g} (tol "
-            f"{tol:.3g}), cache err {cerr:.3g}; kernel {ms:.3f} ms, bound "
+            f"{tol:.3g}), cache err {cerr:.3g}; kernel {ms:.3f} ms (pre-pass "
+            f"{pre_ms:.3f}, conv {ms - pre_ms:.3f}), bound "
             f"{bound:.3f} ms ({by}, {100 * bound / ms:.1f}%), plain "
             f"{plain_ms:.3f} ms, cuDNN conv3d {lib_ms:.3f} ms")
         if (t, h, w, cin, cout) == K3_ROW:

@@ -64,8 +64,6 @@
 // C interface for ctypes; the entry returns cudaGetLastError() after the
 // launch (and cudaErrorInvalidValue if a tensor map cannot be made).
 
-#include <cuda.h>
-
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -452,48 +450,20 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
                row_stride, g, t);
 }
 
-// cuTensorMapEncodeTiled (a CUDA driver API call), looked up through the
-// runtime: the library links only the runtime.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &status) == cudaSuccess &&
-        status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // One head's rows of a [B, L, N, D] tensor (bf16, or fp32 when `fp32`) as
 // boxes of `rows` x 128 bytes in the 128-byte swizzle; rows past L read as
 // zeros and are not written.
 bool make_map(CUtensorMap* map, const void* base, int B, int L, int N, int D,
               int rows, bool fp32 = false) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
   const cuuint64_t es = fp32 ? 4 : 2;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)L,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {D * es, N * D * es, L * N * D * es};
   const cuuint32_t box[4] = {(cuuint32_t)(128 / es), 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map,
-                fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                4, const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_tensor_map(map, base,
+                         fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int D>

@@ -1,8 +1,9 @@
 // Device helpers shared by the port's mma.sync kernels (flash_fwd.cu,
-// vae_conv.cu, vae_upsample.cu): cp.async tile loads, mma.sync m16n8k16
-// (bf16 x bf16 -> fp32), ldmatrix, bf16 packing, and the mask of
-// flash_pallas._mask_block (flash_bwd.cu, a wgmma kernel, takes the mask
-// and the bf16 packing; its own helpers are in hopper_common.cuh).
+// vae_upsample.cu): cp.async tile loads, mma.sync m16n8k16 (bf16 x bf16
+// -> fp32), ldmatrix, bf16 packing, and the mask of
+// flash_pallas._mask_block. The wgmma kernels take some of these too
+// (flash_bwd.cu the mask and the packing, vae_conv.cu ldmatrix and the
+// packing); their own helpers are in hopper_common.cuh.
 //
 // Fragment layout of mma.sync m16n8k16 (lane = 4 * g + t):
 //   A (16x16, row-major): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],

@@ -1,21 +1,23 @@
-// Device helpers for the port's Hopper (sm_90a) kernels: shared-memory
-// matrix descriptors for 128-byte-swizzled tiles, the warpgroup matrix
-// multiply (wgmma) and its fences, the async-proxy fence, mbarriers, TMA
-// tile loads and reduce-adds, register reallocation (setmaxnreg) and named
-// barriers. Used by flash_bwd.cu; the mma.sync helpers stay in
-// flash_common.cuh.
+// Helpers for the port's Hopper (sm_90a) kernels: shared-memory matrix
+// descriptors for swizzled tiles, the warpgroup matrix multiply (wgmma)
+// and its fences, the async-proxy fence, mbarriers, TMA tile loads and
+// reduce-adds, register reallocation (setmaxnreg), named barriers, and on
+// the host the tensor-map encoder. Used by flash_bwd.cu and vae_conv.cu;
+// the mma.sync helpers stay in flash_common.cuh.
 //
 // Tile layout (what TMA's CU_TENSOR_MAP_SWIZZLE_128B writes): a bf16 tile
 // of R rows x C columns is stored as C / 64 column blocks of R rows x 128
 // bytes; in each block, the 16-byte chunk j of row r sits at chunk
 // j ^ (r % 8). Blocks start at 1024-byte-aligned addresses, since the
-// hardware applies the XOR to address bits 4-6 from bits 7-9.
+// hardware applies the XOR to address bits 4-6 from bits 7-9. The 64-byte
+// swizzle (rows of 32 bf16) XORs bits 4-5 with bits 7-8: chunk j of row r
+// sits at chunk j ^ ((r / 2) % 4), in 512-byte-aligned blocks.
 //
 // wgmma operands (PTX ISA, "Matrix Descriptor"; CUTLASS make_gmma_desc):
 //   K-major (the reduction dimension runs along a row): 8-row groups
-//     SBO = 1024 bytes apart, LBO unused; the k-step of 16 elements moves
-//     the start address 32 bytes along the row (and to the next column
-//     block after four steps).
+//     SBO = 1024 bytes apart (512 in the 64-byte swizzle), LBO unused; the
+//     k-step of 16 elements moves the start address 32 bytes along the row
+//     (and to the next column block after four steps).
 //   MN-major (M or N runs along a row; the transpose bit set): 8-row
 //     groups of the reduction dimension SBO = 1024 bytes apart, 64-element
 //     column blocks LBO bytes apart; the k-step moves 16 rows (2048 bytes).
@@ -26,19 +28,23 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace omni {
 
-// Descriptor of a 128-byte-swizzled shared-memory operand at p.
+// Descriptor of a swizzled shared-memory operand at p (kSwizzle bytes:
+// 128, layout type 1, or 64, layout type 2).
+template <int kSwizzle = 128>
 __device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo,
                                                uint32_t sbo) {
+  static_assert(kSwizzle == 128 || kSwizzle == 64, "128- or 64-byte swizzle");
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (1ull << 62);   // layout type 1: 128-byte swizzle
+         (static_cast<uint64_t>(kSwizzle == 128 ? 1 : 2) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -169,6 +175,92 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "n"(kTransB));
 }
 
+// D[64 x 96] (+)= A[64 x 16] B[16 x 96], A in registers (the C fragment
+// layout packed to bf16), B in shared memory.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n96k16_rs(float (&d)[48],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+// D[64 x 192] (+)= A[64 x 16] B[16 x 192], A in registers (the C fragment
+// layout packed to bf16), B in shared memory.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n192k16_rs(float (&d)[96],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+        "n"(kTransB));
+}
+
 // mbarrier: init (one thread), arrive, arrive with an expected transaction
 // byte count (TMA), and the wait on a phase's parity.
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -207,8 +299,24 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   }
 }
 
+// TMA: one box of a 3-D tensor map into shared memory, completing its
+// bytes of the barrier's transaction count.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+         "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(static_cast<uint32_t>(__cvta_generic_to_shared(bar))),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // TMA: one box of a 4-D tensor map into shared memory, completing `bytes`
-// of the barrier's transaction count.
+// of the barrier's transaction count. Box coordinates may be negative or
+// run past the tensor: those elements arrive as zeros.
 __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
@@ -265,6 +373,48 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // Barrier `id` (1-15; 0 is __syncthreads) over `count` threads.
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+
+// cuTensorMapEncodeTiled (a CUDA driver API call), looked up through the
+// runtime: the libraries link only the runtime.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &status) == cudaSuccess &&
+        status == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tiled tensor map of `rank` dims (dims[0] contiguous; strides[i] is
+// the byte stride of dim i + 1) read in boxes of box[] elements, with the
+// given swizzle; elements outside the tensor read as zeros and are not
+// written. False if the driver refuses the map.
+inline bool make_tensor_map(CUtensorMap* map, const void* base,
+                            CUtensorMapDataType type, int rank,
+                            const cuuint64_t* dims, const cuuint64_t* strides,
+                            const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return encode(map, type, rank, const_cast<void*>(base), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace omni

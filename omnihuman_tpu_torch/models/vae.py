@@ -388,11 +388,14 @@ class _Fused:
             if isinstance(layer, ResidualBlock):
                 r = layer.residual
                 for norm, conv in ((r[0], r[2]), (r[3], r[6])):
+                    w2 = vae_kernels.pack_conv_weights(
+                        conv.weight.permute(2, 3, 4, 1, 0))
                     self.packs[conv] = (
-                        vae_kernels.pack_conv_weights(
-                            conv.weight.permute(2, 3, 4, 1, 0)),
-                        norm.gamma.float().reshape(-1).contiguous(),
-                        conv.bias.float().contiguous())
+                        w2, norm.gamma.float().reshape(-1).contiguous(),
+                        conv.bias.float().contiguous(),
+                        # K3's K-major copy (the plain version reads w2)
+                        vae_kernels.conv_weights_kmajor(w2)
+                        if impl == "cuda" else None)
             elif isinstance(layer, Resample) and \
                     layer.mode.startswith("upsample"):
                 conv = layer.resample[1]
@@ -416,9 +419,11 @@ def _residual_block(p: ResidualBlock, x, io: _CacheIO,
             cache = io.next()
             if cache is None:
                 cache = _zero_frames(y, 2)
-            w2, gamma, bias = fused.packs[conv]
+            w2, gamma, bias, wk = fused.packs[conv]
             res = x if identity and i == 1 else None
-            y, cnew = fused.conv(y, cache, gamma, w2, bias, residual=res)
+            kw = {} if wk is None else {"wk": wk}
+            y, cnew = fused.conv(y, cache, gamma, w2, bias, residual=res,
+                                 **kw)
             io.put(cnew.to(x.dtype))
         return y if identity else y + h
     y = F.silu(_rms_norm_channel(x, r[0].gamma))

@@ -28,6 +28,13 @@ not take: bf16 activations in channels_last_3d memory, fp32 gamma and
 bias, Cin % 16 == 0 and Cout % 8 == 0. The public functions run the
 kernel on CUDA tensors and the plain version on CPU tensors; nothing
 falls back.
+
+K3 runs in two launches that count as one ("vae_conv (K3)"): a pre-pass
+writes the activated frames a ([B, Cin, T, H, W], channels_last_3d) and
+the new cache (`act_cache_plain` is its plain version), then the conv
+reads [cache, a] and the weights in the K-major layout [27, Cout, Cin]
+(`conv_weights_kmajor`, made once per VAE pass beside the packed weights,
+or per call when the caller does not pass it).
 """
 
 from __future__ import annotations
@@ -46,6 +53,11 @@ CL3D = torch.channels_last_3d
 VAE_CONV = CudaKernel(
     "vae_conv (K3)", "vae_conv.cu", "omni_vae_conv_bf16",
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+# the pre-pass alone, for the card tests and the smoke's timing; K3's own
+# launches run it inside VAE_CONV
+VAE_ACT_CACHE = CudaKernel(
+    "vae_conv pre-pass (K3)", "vae_conv.cu", "omni_vae_act_cache_bf16",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 VAE_UPSAMPLE = CudaKernel(
     "vae_upsample (K4)", "vae_upsample.cu", "omni_vae_upsample_bf16",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
@@ -62,6 +74,15 @@ def pack_conv_weights(w: torch.Tensor) -> torch.Tensor:
     (dt, dy, dx, ci) order (vae_pallas.pack_conv_weights)."""
     kt, kh, kw, cin, cout = w.shape
     return w.reshape(kt * kh * kw * cin, cout).to(torch.bfloat16).contiguous()
+
+
+def conv_weights_kmajor(w2: torch.Tensor) -> torch.Tensor:
+    """K-packed [27 * Cin, Cout] (`pack_conv_weights`) -> the layout K3's
+    kernel reads, [27, Cout, Cin] bf16: per tap, each output channel's
+    Cin weights contiguous (the K-major B operand of its wgmma)."""
+    cin = w2.shape[0] // 27
+    return w2.reshape(27, cin, w2.shape[1]).transpose(1, 2).to(
+        torch.bfloat16).contiguous()
 
 
 def pack_upsample_weights(w: torch.Tensor) -> torch.Tensor:
@@ -96,6 +117,16 @@ def activate_plain(x: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
     return (y * torch.sigmoid(y)).to(torch.bfloat16)
 
 
+def act_cache_plain(x: torch.Tensor, cache: torch.Tensor,
+                    gamma: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's pre-pass in plain PyTorch: a = activate_plain(x) ([B, Cin, T,
+    H, W] bf16) and the new cache, the last 2 frames of [cache, a] along
+    time, both channels-last like the kernel's."""
+    a = activate_plain(x, gamma).contiguous(memory_format=CL3D)
+    new_cache = torch.cat([cache.to(torch.bfloat16), a], dim=2)[:, :, -2:]
+    return a, new_cache.contiguous(memory_format=CL3D)
+
+
 def fused_act_causal_conv3d_plain(
     x: torch.Tensor, cache: torch.Tensor, gamma: torch.Tensor,
     w2: torch.Tensor, b: torch.Tensor,
@@ -107,15 +138,14 @@ def fused_act_causal_conv3d_plain(
     Returns (y [B, Cout, T, H, W] in x's dtype, new cache [B, Cin, 2, H, W]
     bf16), channels-last like the kernel's."""
     cin, cout = x.shape[1], w2.shape[1]
-    xin = torch.cat([cache.to(torch.bfloat16), activate_plain(x, gamma)],
-                    dim=2)
+    a, new_cache = act_cache_plain(x, cache, gamma)
+    xin = torch.cat([cache.to(torch.bfloat16), a], dim=2)
     w = w2.float().reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2)
     y = F.conv3d(xin.float(), w, padding=(0, 1, 1))
     y = y + b.float().reshape(1, cout, 1, 1, 1)
     if residual is not None:
         y = y + residual.float()
-    return (y.to(x.dtype).contiguous(memory_format=CL3D),
-            xin[:, :, -2:].contiguous(memory_format=CL3D))
+    return y.to(x.dtype).contiguous(memory_format=CL3D), new_cache
 
 
 def fused_upsample_conv2d_plain(x: torch.Tensor, w4: torch.Tensor,
@@ -163,29 +193,66 @@ def _check_channels(cin: int, cout: int) -> None:
                          "Cin % 16 == 0 and Cout % 8 == 0")
 
 
-def fused_act_causal_conv3d_cuda(
-    x: torch.Tensor, cache: torch.Tensor, gamma: torch.Tensor,
-    w2: torch.Tensor, b: torch.Tensor,
-    residual: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch csrc/vae_conv.cu (K3): same contract as the plain version,
-    for bf16 x / cache / residual in channels_last_3d memory (x in fp32 is
-    refused, not converted), fp32 gamma and bias, bf16 w2."""
+def _check_act_inputs(x, cache, gamma):
     bsz, cin, t, h, w = x.shape
-    cout = w2.shape[1]
     dev = x.device
     _check("x", x, torch.bfloat16, dev, True)
     _check("cache", cache, torch.bfloat16, dev, True)
     _check("gamma", gamma, torch.float32, dev, False)
+    if tuple(cache.shape) != (bsz, cin, 2, h, w):
+        raise ValueError(f"cache {tuple(cache.shape)} != {(bsz, cin, 2, h, w)}")
+    if gamma.numel() != cin:
+        raise ValueError(f"gamma {gamma.numel()} does not fit Cin {cin}")
+
+
+def act_cache_cuda(x: torch.Tensor, cache: torch.Tensor,
+                   gamma: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's pre-pass alone on the card (csrc/vae_conv.cu
+    `act_cache_kernel`): the same contract as `act_cache_plain`, for the
+    inputs `fused_act_causal_conv3d_cuda` takes."""
+    _check_act_inputs(x, cache, gamma)
+    bsz, cin, t, h, w = x.shape
+    _check_channels(cin, 8)
+    a = torch.empty((bsz, cin, t, h, w), dtype=torch.bfloat16,
+                    device=x.device, memory_format=CL3D)
+    new_cache = torch.empty((bsz, cin, 2, h, w), dtype=torch.bfloat16,
+                            device=x.device, memory_format=CL3D)
+    if x.numel() == 0:
+        return a, new_cache
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        VAE_ACT_CACHE.launch(x.data_ptr(), cache.data_ptr(), gamma.data_ptr(),
+                             a.data_ptr(), new_cache.data_ptr(), bsz, t, h,
+                             w, cin, stream)
+    return a, new_cache
+
+
+def fused_act_causal_conv3d_cuda(
+    x: torch.Tensor, cache: torch.Tensor, gamma: torch.Tensor,
+    w2: torch.Tensor, b: torch.Tensor,
+    residual: Optional[torch.Tensor] = None,
+    wk: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch csrc/vae_conv.cu (K3): same contract as the plain version,
+    for bf16 x / cache / residual in channels_last_3d memory (x in fp32 is
+    refused, not converted), fp32 gamma and bias, bf16 w2. `wk` is
+    `conv_weights_kmajor(w2)` made ahead (made here when None)."""
+    bsz, cin, t, h, w = x.shape
+    cout = w2.shape[1]
+    dev = x.device
+    _check_act_inputs(x, cache, gamma)
     _check("w2", w2, torch.bfloat16, dev, False)
     _check("b", b, torch.float32, dev, False)
     _check_channels(cin, cout)
-    if tuple(cache.shape) != (bsz, cin, 2, h, w):
-        raise ValueError(f"cache {tuple(cache.shape)} != {(bsz, cin, 2, h, w)}")
-    if tuple(w2.shape) != (27 * cin, cout) or gamma.numel() != cin \
-            or b.numel() != cout:
-        raise ValueError(f"weights {tuple(w2.shape)} / gamma {gamma.numel()} "
-                         f"/ bias {b.numel()} do not fit {cin} -> {cout}")
+    if tuple(w2.shape) != (27 * cin, cout) or b.numel() != cout:
+        raise ValueError(f"weights {tuple(w2.shape)} / bias {b.numel()} do "
+                         f"not fit {cin} -> {cout}")
+    if wk is None:
+        wk = conv_weights_kmajor(w2)
+    _check("wk", wk, torch.bfloat16, dev, False)
+    if tuple(wk.shape) != (27, cout, cin):
+        raise ValueError(f"wk {tuple(wk.shape)} != {(27, cout, cin)}: pass "
+                         "conv_weights_kmajor(w2)")
     if residual is not None:
         _check("residual", residual, torch.bfloat16, dev, True)
         if tuple(residual.shape) != (bsz, cout, t, h, w):
@@ -195,15 +262,17 @@ def fused_act_causal_conv3d_cuda(
                     memory_format=CL3D)
     new_cache = torch.empty((bsz, cin, 2, h, w), dtype=torch.bfloat16,
                             device=dev, memory_format=CL3D)
-    inv_norm = torch.empty((bsz, t, h, w), dtype=torch.float32, device=dev)
+    # the activated frames, read by the conv's TMA loads; freed on return
+    a = torch.empty((bsz, cin, t, h, w), dtype=torch.bfloat16, device=dev,
+                    memory_format=CL3D)
     if x.numel() == 0:
         return y, new_cache
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         VAE_CONV.launch(
-            x.data_ptr(), cache.data_ptr(), gamma.data_ptr(), w2.data_ptr(),
+            x.data_ptr(), cache.data_ptr(), gamma.data_ptr(), wk.data_ptr(),
             b.data_ptr(), None if residual is None else residual.data_ptr(),
-            y.data_ptr(), new_cache.data_ptr(), inv_norm.data_ptr(),
+            y.data_ptr(), new_cache.data_ptr(), a.data_ptr(),
             bsz, t, h, w, cin, cout, stream)
     return y, new_cache
 
@@ -234,10 +303,12 @@ def fused_upsample_conv2d_cuda(x: torch.Tensor, w4: torch.Tensor,
     return y
 
 
-def fused_act_causal_conv3d(x, cache, gamma, w2, b, residual=None):
-    """K3 on CUDA tensors, its plain version on CPU tensors."""
+def fused_act_causal_conv3d(x, cache, gamma, w2, b, residual=None, wk=None):
+    """K3 on CUDA tensors, its plain version on CPU tensors (which reads
+    w2; `wk`, the kernel's copy of the same weights, is then unused)."""
     if x.is_cuda:
-        return fused_act_causal_conv3d_cuda(x, cache, gamma, w2, b, residual)
+        return fused_act_causal_conv3d_cuda(x, cache, gamma, w2, b, residual,
+                                            wk)
     if x.device.type != "cpu":
         raise ValueError(f"no K3 path for device {x.device}")
     return fused_act_causal_conv3d_plain(x, cache, gamma, w2, b, residual)

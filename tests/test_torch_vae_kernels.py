@@ -67,6 +67,62 @@ def test_packers_bit_equal_to_jax(dtype):
     np.testing.assert_array_equal(got4.float().numpy(), want4)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kmajor_weight_copy_matches_packers(dtype):
+    """K3's kernel layout [27, Cout, Cin] holds, element for element, the
+    K-packed rows of the port's and the JAX packer: wk[tap, co, ci] =
+    w2[tap * Cin + ci, co]."""
+    rng = np.random.default_rng(4)
+    cin, cout = 32, 24
+    w3 = rng.normal(size=(3, 3, 3, cin, cout)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(vae_pallas.pack_conv_weights(
+        jnp.asarray(w3, jd)).astype(jnp.float32))
+    w2 = vk.pack_conv_weights(torch.from_numpy(w3).to(td))
+    wk = vk.conv_weights_kmajor(w2)
+    assert wk.dtype == torch.bfloat16 and wk.is_contiguous()
+    assert wk.shape == (27, cout, cin)
+    got = wk.float().numpy()
+    for tap in range(27):
+        for ci in range(cin):
+            np.testing.assert_array_equal(got[tap, :, ci],
+                                          want[tap * cin + ci])
+            np.testing.assert_array_equal(
+                got[tap, :, ci], w2[tap * cin + ci].float().numpy())
+
+
+@pytest.mark.parametrize("t", [1, 4])
+def test_act_cache_plain_matches_jax_silu_rms(t):
+    """K3's pre-pass (a, the activated frames, and the new cache, the last
+    two frames of [cache, a]) against the JAX kernel's own activation
+    `_silu_rms` with the cache concatenated."""
+    rng = np.random.default_rng(20 + t)
+    B, H, W, C = 2, 5, 7, 48
+    x = np.array(_bf16(rng.normal(size=(B, t, H, W, C)) * 3.0))
+    x[0, 0, 0, 0] = 0.0                  # a zero pixel: the 1e-12 floor
+    cache = _bf16(rng.normal(size=(B, 2, H, W, C)))
+    gamma = (rng.normal(size=(C,)) * 0.5 + 1.0).astype(np.float32)
+    act = np.asarray(jax.jit(lambda x, g: vae_pallas._silu_rms(
+        x.astype(jnp.float32), g, C))(jnp.asarray(x, jnp.bfloat16), gamma),
+        np.float32)
+    want = np.concatenate([cache, act], axis=1)
+    bf = torch.bfloat16
+    a, cnew = vk.act_cache_plain(_port(x).to(bf), _port(cache).to(bf),
+                                 torch.from_numpy(gamma))
+    assert a.dtype == cnew.dtype == bf
+    assert a.shape == (B, C, t, H, W) and cnew.shape == (B, C, 2, H, W)
+    assert a.is_contiguous(memory_format=CL3D)
+    assert cnew.is_contiguous(memory_format=CL3D)
+    # exact but for one-ulp activations (the fp32 sigmoids differ)
+    diff = np.abs(_jax(a) - act)
+    assert (diff <= 2 ** -7 * np.maximum(np.abs(act), 1.0)).all()
+    assert (diff > 0).mean() < 1e-2
+    np.testing.assert_array_equal(_jax(cnew), np.concatenate(
+        [cache, _jax(a)], axis=1)[:, -2:])
+    np.testing.assert_allclose(_jax(cnew), want[:, -2:], rtol=2 ** -7,
+                               atol=2 ** -7)
+
+
 def _k3_inputs(t, residual, seed=11):
     rng = np.random.default_rng(seed)
     B, H, W, Ci, Co = 2, 9, 13, 16, 24
