@@ -8,14 +8,20 @@ Phases (any failure stops the run with a nonzero exit):
      versions, whether triton imports;
   2. build every kernel in omnihuman_tpu_torch/csrc/ with nvcc (sm_90a),
      one nvcc per source, all in parallel;
-  3. every kernel against its plain PyTorch version on the card, in bf16,
-     at the main path's shapes (flagship geometry: 480x832, 81 frames,
-     32,760 tokens padded to 32,768; text context trimmed to 128 / 512):
-     max abs error against the stated tolerance, kernel / plain /
-     SDPA-yardstick times (CUDA events, warm, median of 7) and the bound;
+  3. the attention forward K1 (flash_fwd.cu) against its plain PyTorch
+     version on the card, in bf16, at the main path's shapes (flagship
+     geometry: 480x832, 81 frames, 32,760 tokens padded to 32,768; text
+     context trimmed to 128 / 512; the 257 image tokens of i2v): max abs
+     error against the stated tolerance, kernel / plain / SDPA-yardstick
+     times (CUDA events, warm, median of 7; the kernel also alone, on
+     preallocated outputs, without its wrapper) and the bound; the training
+     forward with the LSE at B=1 beside the library's forward that also
+     returns it; ptxas's registers, spills, shared memory and any wgmma
+     serialization warning for K1;
   4. a small-input reference: the DiT forward and the VAE decode on the
      card against the same weights on the CPU (the CPU path is the one the
-     test suite holds against the JAX package);
+     test suite holds against the JAX package); the VAE is fp32 at 8
+     channels, which conv_impl "auto" sends to torch convs;
   5. the main path: `WanT2V` for t2v-1.3B at full width (dim 1536, 30
      layers, 12 heads, umT5-xxl), random bf16 weights from a seed,
      precision "fast", answers 2 requests through `generate()` at 480x832,
@@ -182,12 +188,40 @@ def phase_build():
                 log(f"[2]   {s}: {line.strip()}")
 
 
+def k1_ptxas_facts():
+    """ptxas's report on K1 (registers, spills, wgmma serialization) and
+    the dynamic shared memory of its two configurations."""
+    import ctypes
+    from omnihuman_tpu_torch.ops import cuda_build
+    from omnihuman_tpu_torch.ops.flash_attention import FLASH_FWD_LONG_K
+    spills, warnings = [], []
+    for line in cuda_build.build_log(FLASH_FWD_LONG_K.source).splitlines():
+        if "entry function" in line:
+            log(f"[3] ptxas {line.split(chr(39))[1][:90]}")
+        elif "registers" in line or "spill" in line or "C75" in line:
+            log(f"[3]   {line.strip()[:160]}")
+        if "spill stores" in line and not line.strip().startswith("0 bytes"):
+            spills.append(line.strip())
+        if "C7512" in line or "C7513" in line or "C7514" in line:
+            warnings.append(line.strip())
+    smem = cuda_build.load(FLASH_FWD_LONG_K.source).omni_flash_fwd_smem_bytes
+    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    log("[3] K1 shared memory a block: " + ", ".join(
+        f"D={d}: {smem(d, 32768)} B (Lk 32,768), {smem(d, 512)} B (Lk 512)"
+        for d in (64, 128)))
+    log(f"[3] K1 ptxas: {len(spills)} kernels with spills, "
+        f"{len(warnings)} wgmma serialization warnings")
+
+
 def phase_kernels():
     """Returns {kernel name: measurement row} for the JSON line."""
     import torch
     import torch.nn.functional as F
     from omnihuman_tpu_torch.ops.flash_attention import (
-        flash_attention_cuda, flash_attention_plain)
+        _clamped_lens, flash_attention_cuda, flash_attention_plain,
+        flash_fwd_launch)
+
+    k1_ptxas_facts()
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -236,6 +270,10 @@ def phase_kernels():
         k_valid = [min(x, lk) for x in (k_lens or (lk,) * b)]
         bound, bound_by = attention_bound(b, lq, n, d, k_valid)
         ms = bench_ms(lambda: flash_attention_cuda(q, k, v, k_lens=kl))
+        # the kernel alone, on preallocated outputs and clamped lengths
+        out, klc = torch.empty_like(q), _clamped_lens(kl, b, lk, dev)
+        kernel_ms = bench_ms(lambda: flash_fwd_launch(q, k, v, out, None,
+                                                      klc))
         plain_ms = bench_ms(
             lambda: flash_attention_plain(q, k, v, k_lens=kl), reps=3,
             warmup=1)
@@ -249,14 +287,49 @@ def phase_kernels():
             lib_ms = bench_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask))
         log(f"[3] {name}: max_abs_err {err:.3g} (tol {tol:.3g}), kernel "
-            f"{ms:.3f} ms, bound {bound:.3f} ms ({bound_by}), plain "
+            f"{ms:.3f} ms ({kernel_ms:.3f} alone), bound {bound:.3f} ms "
+            f"({bound_by}, {100 * bound / kernel_ms:.1f}% alone), plain "
             f"{plain_ms:.3f} ms, SDPA {lib_ms if lib_ms is None else round(lib_ms, 3)} ms")
         if row is not None:
-            rows[row] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound, bound_by=bound_by,
-                             library_ms=lib_ms)
-        del k, v, got, want
+            rows[row] = dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
+                             plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=bound_by, library_ms=lib_ms)
+        del k, v, got, want, out
         torch.cuda.empty_cache()
+
+    # the training forward: B=1 with the LSE, beside the library's forward
+    # that also returns it (unmasked; a yardstick the port never calls)
+    q, k, v = rnd(1, L), rnd(1, L), rnd(1, L)
+    kl = torch.tensor([32760], dtype=torch.int32, device=dev)
+    got, lse = flash_attention_cuda(q, k, v, k_lens=kl, return_lse=True)
+    torch.cuda.synchronize()
+    want, want_lse = flash_attention_plain(q, k, v, k_lens=kl,
+                                           return_lse=True)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 2 ** -6 * want.float().abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
+    if err > tol or lse_err > 1e-3:
+        fail(f"K1 with the LSE vs plain: err {err} (tol {tol}), LSE err "
+             f"{lse_err} (tol 1e-3)")
+    bound, bound_by = attention_bound(1, L, n, d, [32760])
+    ms = bench_ms(lambda: flash_attention_cuda(q, k, v, k_lens=kl,
+                                               return_lse=True))
+    out, klc = torch.empty_like(q), _clamped_lens(kl, 1, L, dev)
+    kernel_ms = bench_ms(lambda: flash_fwd_launch(q, k, v, out, lse, klc))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:
+        lib_ms = round(bench_ms(
+            lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt)), 3)
+    except (RuntimeError, AttributeError) as e:
+        lib_ms = f"not measured ({e})"
+    log(f"[3] f self-attention with the LSE B=1 L=32768 k_len=32760: "
+        f"max_abs_err {err:.3g} (tol {tol:.3g}), LSE err {lse_err:.3g} (tol "
+        f"1e-3), kernel {ms:.3f} ms ({kernel_ms:.3f} alone), bound "
+        f"{bound:.3f} ms ({bound_by}, {100 * bound / kernel_ms:.1f}% alone), "
+        f"library forward with LSE {lib_ms} ms")
+    del q, k, v, got, want, lse, want_lse, out
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -305,9 +378,8 @@ def phase_small_reference():
     z = torch.randn((1, 16, 3, 4, 6), generator=gen.manual_seed(9))
     for device in ("cpu", "cuda"):
         vae = build_vae(TINY_TEST.vae, "cpu", torch.float32, seed=4).to(device)
-        with torch.inference_mode():   # fp32 at 8 channels: the torch path
-            vouts[device] = vae_decode(vae, z.to(device),
-                                       conv_impl="torch").cpu()
+        with torch.inference_mode():   # fp32 at 8 channels: "auto" is torch
+            vouts[device] = vae_decode(vae, z.to(device)).cpu()
     err = (vouts["cuda"] - vouts["cpu"]).abs().max().item()
     if err > 1e-3:
         fail(f"VAE decode on the card vs the CPU: max abs err {err}")

@@ -127,14 +127,6 @@ __device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[D / 2],
   }
 }
 
-// 2^x; P is rounded to bf16 right after, and a masked x (up to +1e30)
-// gives inf that the mask then replaces.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // dV += P^T dO or dK += dS^T Q for one 16-query k-step.
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&acc)[D / 2],
@@ -335,7 +327,9 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
           desc_do + (((kk / 4) * kQBlock + (kk % 4) * 32) >> 4), kk > 0);
     wgmma_commit();
 
-    // P^T = where(mask, exp(S^T - lse), 0), while dP^T is in flight
+    // P^T = where(mask, exp(S^T - lse), 0), while dP^T is in flight; P is
+    // rounded to bf16 right after, and a masked x (up to +1e30) gives inf
+    // that the mask then replaces
     wgmma_wait<1>();
     fence_operands(s);
 #pragma unroll
@@ -450,22 +444,6 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
                row_stride, g, t);
 }
 
-// One head's rows of a [B, L, N, D] tensor (bf16, or fp32 when `fp32`) as
-// boxes of `rows` x 128 bytes in the 128-byte swizzle; rows past L read as
-// zeros and are not written.
-bool make_map(CUtensorMap* map, const void* base, int B, int L, int N, int D,
-              int rows, bool fp32 = false) {
-  const cuuint64_t es = fp32 ? 4 : 2;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)L,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {D * es, N * D * es, L * N * D * es};
-  const cuuint32_t box[4] = {(cuuint32_t)(128 / es), 1, (cuuint32_t)rows, 1};
-  return make_tensor_map(map, base,
-                         fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                         4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 template <int D>
 int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
            const float* lse, const float* delta, const int* k_lens,
@@ -482,11 +460,11 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
     configured = true;
   }
   CUtensorMap map_q, map_k, map_v, map_do, map_dq;
-  if (!make_map(&map_q, q, B, Lq, N, D, kBlockQ) ||
-      !make_map(&map_do, dout, B, Lq, N, D, kBlockQ) ||
-      !make_map(&map_k, k, B, Lk, N, D, kBlockK) ||
-      !make_map(&map_v, v, B, Lk, N, D, kBlockK) ||
-      !make_map(&map_dq, dq_acc, B, Lq, N, D, kBlockQ, true))
+  if (!make_head_map(&map_q, q, B, Lq, N, D, kBlockQ) ||
+      !make_head_map(&map_do, dout, B, Lq, N, D, kBlockQ) ||
+      !make_head_map(&map_k, k, B, Lk, N, D, kBlockK) ||
+      !make_head_map(&map_v, v, B, Lk, N, D, kBlockK) ||
+      !make_head_map(&map_dq, dq_acc, B, Lq, N, D, kBlockQ, true))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((Lk + kBlockK - 1) / kBlockK, N, B);
   flash_bwd_kernel<D><<<grid, kThreads, kSmem, stream>>>(

@@ -1,9 +1,10 @@
-// Device helpers shared by the port's mma.sync kernels (flash_fwd.cu,
-// vae_upsample.cu): cp.async tile loads, mma.sync m16n8k16 (bf16 x bf16
-// -> fp32), ldmatrix, bf16 packing, and the mask of
+// Device helpers shared by the port's kernels: cp.async copies, mma.sync
+// m16n8k16 (bf16 x bf16 -> fp32) and ldmatrix for the mma.sync kernel
+// (vae_upsample.cu), bf16 packing, the softmax constants and the mask of
 // flash_pallas._mask_block. The wgmma kernels take some of these too
-// (flash_bwd.cu the mask and the packing, vae_conv.cu ldmatrix and the
-// packing); their own helpers are in hopper_common.cuh.
+// (flash_fwd.cu and flash_bwd.cu the mask, the constants and the packing,
+// vae_conv.cu ldmatrix and the packing); their own helpers are in
+// hopper_common.cuh.
 //
 // Fragment layout of mma.sync m16n8k16 (lane = 4 * g + t):
 //   A (16x16, row-major): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
@@ -26,9 +27,9 @@ namespace omni {
 
 typedef __nv_bfloat16 bf16;
 
-// Must stay FINITE: exp2(kNegInf - kNegInf) = 1 keeps the online softmax's
-// rescale finite on rows that have not met a valid key yet, and a row that
-// never meets one stores lse = kNegInf (flash_pallas.py NEG_INF note).
+// The LSE of a row with no valid key, finite as flash_pallas.py's NEG_INF
+// (the forward keeps its own running max at -inf and never subtracts two
+// infinities; the backward applies the mask before the exponential).
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -47,11 +48,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most one committed group is still in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -86,41 +82,9 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x = lo (low half)
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The A fragment of a 16x16 row-major tile whose top-left element is at p
-// (row pitch ld halves): rows g and g+8, columns 2t and 2t+8.
-__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], const bf16* p,
-                                            int ld, int g, int t) {
-  const bf16* r = p + g * ld + 2 * t;
-  a[0] = ld_u32(r);
-  a[1] = ld_u32(r + 8 * ld);
-  a[2] = ld_u32(r + 8);
-  a[3] = ld_u32(r + 8 * ld + 8);
-}
-
-// Rows [row0, row0 + nrows) of one head into shared memory (row pitch
-// D + 8 halves: conflict-free fragment loads); rows >= valid_end are zeros.
-template <int D, int kThreads>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int row0, int valid_end,
-                                          size_t row_stride, int nrows) {
-  constexpr int kChunks = D / 8;       // 16-byte chunks per row
-  constexpr int kLd = D + 8;
-  for (int i = threadIdx.x; i < nrows * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    const int row = row0 + r;
-    const bool ok = row < valid_end;
-    const bf16* g = src + (size_t)(ok ? row : 0) * row_stride + c * 8;
-    cp_async16(dst + r * kLd + c * 8, g, ok);
-  }
 }
 
 // flash_pallas._mask_block on one (query row, key col) pair, given

@@ -24,7 +24,9 @@ each decoder upsample (JAX `conv_impl`; `streaming=False` ignores it):
            the counterpart of "pallas"; raises off CUDA;
   "plain": the same fused structure through the kernels' plain versions,
            the counterpart of "pallas_interpret";
-  "auto":  "cuda" on a CUDA tensor, "torch" on the CPU.
+  "auto":  "cuda" where K3 / K4 take the whole pass (`auto_conv_impl`:
+           CUDA, bf16 weights, every fused conv within the kernels' channel
+           rule), else "torch" (the JAX "auto" is XLA everywhere).
 The fused paths run in torch.channels_last_3d memory (the logical layout
 stays [B, C, T, H, W]): the kernels take channels-last tensors and every
 op between them keeps that format; the kernels refuse anything else.
@@ -370,6 +372,34 @@ def _causal_conv_step(conv: nn.Conv3d, x, io: _CacheIO):
     return _conv3d(xin, conv, padding="valid_t")
 
 
+def _fused_convs(layers: List[nn.Module]):
+    """The convs a fused pass runs through K3 / K4: (norm, conv) of each
+    residual-block conv, then (None, conv) of each decoder upsample."""
+    for layer in layers:
+        if isinstance(layer, ResidualBlock):
+            r = layer.residual
+            yield r[0], r[2]
+            yield r[3], r[6]
+        elif isinstance(layer, Resample) and \
+                layer.mode.startswith("upsample"):
+            yield None, layer.resample[1]
+
+
+def auto_conv_impl(layers: List[nn.Module], dtype: torch.dtype,
+                   device) -> str:
+    """What conv_impl="auto" picks for a streaming pass over `layers` whose
+    weights (the compute dtype: `_conv3d` casts to it) are `dtype`, on
+    `device`: "cuda" only where K3 / K4 take every fused conv of the pass
+    (a CUDA device, bf16, the kernels' channel rule), else "torch"."""
+    if torch.device(device).type != "cuda" or dtype != torch.bfloat16:
+        return "torch"
+    if all(vae_kernels.kernel_takes_channels(conv.in_channels,
+                                             conv.out_channels)
+           for _, conv in _fused_convs(layers)):
+        return "cuda"
+    return "torch"
+
+
 class _Fused:
     """The fused-kernel path of one streaming pass: the kernel functions
     ("cuda": K3 / K4 on CUDA tensors; "plain": their plain versions) and
@@ -384,21 +414,17 @@ class _Fused:
             self.conv = vae_kernels.fused_act_causal_conv3d_plain
             self.up = vae_kernels.fused_upsample_conv2d_plain
         self.packs: Dict[nn.Module, Tuple] = {}
-        for layer in layers:
-            if isinstance(layer, ResidualBlock):
-                r = layer.residual
-                for norm, conv in ((r[0], r[2]), (r[3], r[6])):
-                    w2 = vae_kernels.pack_conv_weights(
-                        conv.weight.permute(2, 3, 4, 1, 0))
-                    self.packs[conv] = (
-                        w2, norm.gamma.float().reshape(-1).contiguous(),
-                        conv.bias.float().contiguous(),
-                        # K3's K-major copy (the plain version reads w2)
-                        vae_kernels.conv_weights_kmajor(w2)
-                        if impl == "cuda" else None)
-            elif isinstance(layer, Resample) and \
-                    layer.mode.startswith("upsample"):
-                conv = layer.resample[1]
+        for norm, conv in _fused_convs(layers):
+            if norm is not None:
+                w2 = vae_kernels.pack_conv_weights(
+                    conv.weight.permute(2, 3, 4, 1, 0))
+                self.packs[conv] = (
+                    w2, norm.gamma.float().reshape(-1).contiguous(),
+                    conv.bias.float().contiguous(),
+                    # K3's K-major copy (the plain version reads w2)
+                    vae_kernels.conv_weights_kmajor(w2)
+                    if impl == "cuda" else None)
+            else:
                 self.packs[conv] = (
                     vae_kernels.pack_upsample_weights(
                         conv.weight.permute(2, 3, 1, 0)),
@@ -502,13 +528,15 @@ def _run_stack(spec, layers, x, io: _CacheIO, first: bool,
     return x
 
 
-def _resolve(conv_impl: str, streaming: bool, x: torch.Tensor, layers):
-    """The _Fused plan of a pass, or None for the torch-conv path."""
+def _resolve(conv_impl: str, streaming: bool, x: torch.Tensor, layers,
+             dtype: torch.dtype):
+    """The _Fused plan of a pass with weights of `dtype`, or None for the
+    torch-conv path."""
     if conv_impl not in CONV_IMPLS:
         raise ValueError(f"unknown conv_impl {conv_impl!r}; expected one of "
                          f"{CONV_IMPLS}")
     if conv_impl == "auto":
-        conv_impl = "cuda" if x.is_cuda else "torch"
+        conv_impl = auto_conv_impl(layers, dtype, x.device)
     if not streaming or conv_impl == "torch":
         return None
     if conv_impl == "cuda" and not x.is_cuda:
@@ -542,7 +570,8 @@ def vae_encode(vae: WanVAE, video: torch.Tensor, streaming: bool = True,
     [B, z, 1 + k, H/8, W/8] in video's dtype (reference encode,
     vae.py:515-541)."""
     spec, layers = encoder_spec(vae.cfg), vae.encoder.layers()
-    fused = _resolve(conv_impl, streaming, video, layers)
+    fused = _resolve(conv_impl, streaming, video, layers,
+                     vae.conv1.weight.dtype)
     if streaming:
         out = _stream(spec, layers, video, fused, chunk=4)
     else:
@@ -558,7 +587,8 @@ def vae_decode(vae: WanVAE, z: torch.Tensor, streaming: bool = True,
     """Normalised latent [B, z, Tz, h, w] -> video [B, 3, 1+4(Tz-1), 8h, 8w]
     (reference decode, vae.py:544-566)."""
     spec, layers = decoder_spec(vae.cfg), vae.decoder.layers()
-    fused = _resolve(conv_impl, streaming, z, layers)
+    fused = _resolve(conv_impl, streaming, z, layers,
+                     vae.conv2.weight.dtype)
     mean, std = _latent_stats(vae.cfg, z.device)
     zt = (z.float() * std + mean).to(z.dtype)
     x = _conv3d(zt, vae.conv2, padding="valid_t")

@@ -256,14 +256,26 @@ def flash_attention_cuda(
     `return_lse` the kernel also writes the LSE [B, N, Lq] fp32."""
     _check_shapes(q, k, v)
     _check_kernel_inputs(q=q, k=k, v=v)
-    b, lq, n, d = q.shape
-    lk = k.shape[1]
+    b, lq, n, _ = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((b, n, lq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    kl = _clamped_lens(k_lens, b, k.shape[1], q.device)
+    flash_fwd_launch(q, k, v, out, lse, kl, softmax_scale, causal,
+                     window_size, offsets)
+    return (out, lse) if return_lse else out
+
+
+def flash_fwd_launch(q, k, v, out, lse, kl, softmax_scale=None, causal=False,
+                     window_size=(-1, -1), offsets=None) -> None:
+    """One launch of the forward kernel (flash_fwd.cu) on checked inputs:
+    writes `out` (bf16 like q) and, unless `lse` is None, the LSE into
+    `lse` ([B, N, Lq] fp32 contiguous). `kl` is the clamped int32
+    k_lens."""
+    b, lq, n, d = q.shape
+    lk = k.shape[1]
     if out.numel() == 0:
-        return (out, lse) if return_lse else out
-    kl = _clamped_lens(k_lens, b, lk, q.device)
+        return
     stream = torch.cuda.current_stream(q.device).cuda_stream
     kernel = FLASH_FWD_LONG_K if lk > PALLAS_BLOCK_K else FLASH_FWD_SHORT_K
     with torch.cuda.device(q.device):
@@ -272,7 +284,6 @@ def flash_attention_cuda(
                       kl.data_ptr(), b, lq, lk, n, d,
                       *_mask_args(softmax_scale, d, causal, window_size,
                                   offsets), stream)
-    return (out, lse) if return_lse else out
 
 
 def _check_bwd_shapes(q, out, lse, dout) -> None:

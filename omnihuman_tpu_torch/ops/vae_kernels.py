@@ -187,8 +187,13 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, dev,
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def kernel_takes_channels(cin: int, cout: int) -> bool:
+    """The channel rule of K3 and K4: Cin % 16 == 0 and Cout % 8 == 0."""
+    return cin % 16 == 0 and cout % 8 == 0
+
+
 def _check_channels(cin: int, cout: int) -> None:
-    if cin % 16 or cout % 8:
+    if not kernel_takes_channels(cin, cout):
         raise ValueError(f"channels {cin} -> {cout}: the kernel needs "
                          "Cin % 16 == 0 and Cout % 8 == 0")
 

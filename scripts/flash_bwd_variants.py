@@ -32,8 +32,8 @@ VARIANTS = {
         [("const int j0 = blockIdx.x % n_qt;", "const int j0 = 0;")]),
     "exp2f": (
         "the accurate exp2f in place of ex2.approx",
-        [("asm(\"ex2.approx.ftz.f32 %0, %1;\" : \"=f\"(y) : \"f\"(x));",
-          "y = exp2f(x);")]),
+        [("#include \"hopper_common.cuh\"\n",
+          "#include \"hopper_common.cuh\"\n#define exp2_approx exp2f\n")]),
     "three_stages": (
         "a 3-stage ring of query tiles in place of 2",
         [("constexpr int kStages = 2;", "constexpr int kStages = 3;")]),

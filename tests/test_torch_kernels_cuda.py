@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from omnihuman_tpu_torch.ops.attention import flash_attention
-from omnihuman_tpu_torch.configs.wan import VAEConfig
+from omnihuman_tpu_torch.configs.wan import TINY_TEST, VAEConfig
 from omnihuman_tpu_torch.models import vae as vae_mod
 from omnihuman_tpu_torch.ops import vae_kernels as vk
 from omnihuman_tpu_torch.ops.flash_attention import (
@@ -142,6 +142,87 @@ def test_flash_kernel_matches_plain_on_random_shapes(cuda_device, seed):
     assert torch.isfinite(got.float()).all(), c
     tol = 2 ** -6 * want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= tol, c
+
+
+# shapes at the edges of the forward kernel's tiles (128 query rows a work
+# item, 64 a warpgroup, 128 keys a K/V tile), each with and without the
+# LSE, at D = 64 and 128
+FWD_TILE_CASES = {
+    "lq_not_multiple_of_64": dict(b=2, n=2, lq=200, lk=384, k_lens=None),
+    "lq_below_64": dict(b=1, n=3, lq=37, lk=256, k_lens=None),
+    "lk_not_multiple_of_128": dict(b=1, n=2, lq=256, lk=300, k_lens=None),
+    "lk_below_128": dict(b=2, n=2, lq=130, lk=50, k_lens=(50, 37)),
+    "k_len_on_tile_boundary": dict(b=2, n=2, lq=192, lk=512,
+                                   k_lens=(256, 257)),
+    "k_lens_zero_and_full": dict(b=2, n=2, lq=333, lk=260, k_lens=(0, 260)),
+    # the first query tiles see one key tile, the last ones all of them
+    "causal_empties_tiles": dict(b=1, n=2, lq=700, lk=700, k_lens=None,
+                                 causal=True),
+    # a band of 164 keys: every work item skips tiles on both sides
+    "window_empties_tiles": dict(b=1, n=2, lq=1000, lk=1000, k_lens=None,
+                                 window=(100, 63)),
+    "causal_offsets": dict(b=2, n=2, lq=300, lk=530, k_lens=(530, 400),
+                           causal=True, offsets=(130, 260)),
+    # keys 0..299 are seen by no query: rows of empty work items are 0
+    "offsets_empty_rows": dict(b=1, n=2, lq=400, lk=400, k_lens=None,
+                               causal=True, offsets=(0, 300)),
+    "lk257": dict(b=2, n=2, lq=513, lk=257, k_lens=None),
+}
+
+
+def _check_forward(c, g, dev, with_lse):
+    """The forward kernel against the plain version: O within 2^-6 of its
+    peak, rows with no valid key exactly 0, and with `with_lse` the LSE
+    within 1e-3 (NEG_INF on those rows) and O bit-equal to the kernel's
+    O without it."""
+    def rnd(length):
+        return torch.randn(c["b"], length, c["n"], c["d"], generator=g,
+                           device=dev).to(torch.bfloat16)
+
+    q, k, v = rnd(c["lq"]), rnd(c["lk"]), rnd(c["lk"])
+    kl = (None if c["k_lens"] is None
+          else torch.tensor(c["k_lens"], dtype=torch.int32, device=dev))
+    kw = dict(k_lens=kl, causal=c.get("causal", False),
+              window_size=c.get("window", (-1, -1)),
+              offsets=c.get("offsets"))
+    got = flash_attention_cuda(q, k, v, return_lse=with_lse, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    out, want_out = (got[0] if with_lse else got), want[0]
+    assert torch.isfinite(out.float()).all(), c
+    tol = 2 ** -6 * want_out.float().abs().max().item()
+    assert (out.float() - want_out.float()).abs().max().item() <= tol, c
+    empty = want[1] == NEG_INF                       # [B, N, Lq]
+    assert (out.float().abs().amax(-1)[empty.transpose(1, 2)] == 0).all()
+    if with_lse:
+        lse = got[1]
+        assert (lse[empty] == NEG_INF).all()
+        assert (lse - want[1]).abs().max().item() <= 1e-3, c
+        assert torch.equal(out, flash_attention_cuda(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", sorted(FWD_TILE_CASES))
+def test_flash_kernel_at_tile_edges(cuda_device, case, d, with_lse):
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    _check_forward(dict(FWD_TILE_CASES[case], d=d), g, cuda_device, with_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_forward_run_to_run(cuda_device, d):
+    """No atomics: two forwards give bit-equal O and LSE (several work
+    items a block, ragged tails, one batch cut by k_lens)."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v = (torch.randn(2, 1500, 3, d, generator=g, device=cuda_device)
+               .to(torch.bfloat16) for _ in range(3))
+    kl = torch.tensor([1500, 701], dtype=torch.int32, device=cuda_device)
+    o1, l1 = flash_attention_cuda(q, k, v, k_lens=kl, return_lse=True)
+    o2, l2 = flash_attention_cuda(q, k, v, k_lens=kl, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
 
 
 def _check_backward(c, g, dev):
@@ -491,3 +572,32 @@ def test_vae_with_kernels_matches_plain_path(cuda_device):
         rel = ((got.float() - want.float()).norm()
                / want.float().norm()).item()
         assert rel <= 2 ** -5, (fn.__name__, rel)
+
+
+@pytest.mark.cuda
+def test_vae_auto_conv_impl_takes_torch_where_kernels_refuse(cuda_device):
+    """conv_impl="auto" on the card: an fp32 VAE and an 8-channel bf16 VAE
+    (TINY_TEST's widths) decode and encode through torch convs, equal to
+    conv_impl="torch" and launching no K3 / K4; "cuda" still raises on
+    both."""
+    tiny = TINY_TEST.vae
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    z = torch.randn((1, tiny.z_dim, 2, 4, 6), generator=g, device=cuda_device)
+    video = torch.randn((1, 3, 5, 32, 48), generator=g, device=cuda_device)
+    for dtype in (torch.float32, torch.bfloat16):
+        vae = vae_mod.build_vae(tiny, cuda_device, dtype, seed=4)
+        for fn, inp in ((vae_mod.vae_decode, z), (vae_mod.vae_encode, video)):
+            inp = inp.to(dtype)
+            before = [kn.launches for kn in vk.KERNELS]
+            got = fn(vae, inp)
+            torch.cuda.synchronize()
+            assert [kn.launches for kn in vk.KERNELS] == before
+            assert torch.equal(got, fn(vae, inp, conv_impl="torch"))
+            with pytest.raises((TypeError, ValueError)):
+                fn(vae, inp, conv_impl="cuda")
+    fp32 = vae_mod.build_vae(VAEConfig(base_dim=16, dim_mult=(1, 2, 4, 4),
+                                       num_res_blocks=1), cuda_device,
+                             torch.float32, seed=3)
+    zf = torch.randn((1, 16, 2, 4, 6), generator=g, device=cuda_device)
+    assert torch.equal(vae_mod.vae_decode(fp32, zf),
+                       vae_mod.vae_decode(fp32, zf, conv_impl="torch"))

@@ -298,6 +298,32 @@ def test_conv_impl_rules(tiny_vae):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("which", ["decoder", "encoder"])
+def test_auto_conv_impl_takes_kernels_only_where_they_fit(which):
+    """conv_impl="auto" picks K3 / K4 ("cuda") only for CUDA tensors, bf16
+    weights and channels every fused conv of the pass meets; else "torch".
+    The VAEs live on the meta device: only their shapes are read."""
+    from omnihuman_tpu_torch.configs.wan import VAEConfig
+
+    def layers(cfg, dtype):
+        with torch.device("meta"):
+            return getattr(vae_mod.WanVAE(cfg).to(dtype), which).layers()
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    bf16, fp32 = torch.bfloat16, torch.float32
+    wan = layers(VAEConfig(), bf16)          # Wan 2.1 widths 96-384
+    assert vae_mod.auto_conv_impl(wan, bf16, cuda) == "cuda"
+    assert vae_mod.auto_conv_impl(wan, bf16, cpu) == "torch"
+    assert vae_mod.auto_conv_impl(layers(VAEConfig(), fp32), fp32,
+                                  cuda) == "torch"
+    tiny = layers(TINY_TEST.vae, bf16)       # 8 channels: Cin % 16 != 0
+    assert vae_mod.auto_conv_impl(tiny, bf16, cuda) == "torch"
+    assert vae_mod.auto_conv_impl(tiny, bf16, cpu) == "torch"
+    # one conv outside the rule sends the whole pass to torch
+    odd = layers(VAEConfig(base_dim=24), bf16)   # 24 -> 24: Cin % 16 != 0
+    assert vae_mod.auto_conv_impl(odd, bf16, cuda) == "torch"
+
+
 def test_cuda_launchers_refuse_cpu_tensors():
     x = torch.zeros((1, 16, 1, 4, 4), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="needs"):
