@@ -69,8 +69,10 @@ Phases (any failure stops the run with a nonzero exit):
      tolerance 2^-6 of the output's peak: kernel / plain / cuDNN-yardstick
      times (F.conv3d on the activated input for K3, F.conv2d on the
      upsampled input for K4) and the bound; K3's pre-pass timed alone
-     beside the whole call, and ptxas's registers, spills and shared
-     memory for K3's kernels;
+     beside the whole call, K4 also alone (`vae_upsample_launch` on a
+     preallocated output), and ptxas's registers, spills and shared
+     memory for K3's kernels, registers, spills and wgmma serialization
+     remarks for K4's;
  13. the full-width VAE at 81 frames, 480x832: vae_decode and vae_encode
      through the kernels ("cuda") and through cuDNN ("torch"), relative L2
      between them, wall times, peak memory, and the launch counts, which
@@ -188,29 +190,36 @@ def phase_build():
                 log(f"[2]   {s}: {line.strip()}")
 
 
+def ptxas_facts(source: str, tag: str, name: str) -> None:
+    """ptxas's report on a kernel's library: registers, spills and any
+    wgmma serialization remark (C7512-C7514, C7517), then their counts."""
+    from omnihuman_tpu_torch.ops import cuda_build
+    spills, warnings = [], []
+    for line in cuda_build.build_log(source).splitlines():
+        if "entry function" in line:
+            log(f"[{tag}] ptxas {line.split(chr(39))[1][:90]}")
+        elif "registers" in line or "spill" in line or "C75" in line:
+            log(f"[{tag}]   {line.strip()[:160]}")
+        if "spill stores" in line and not line.strip().startswith("0 bytes"):
+            spills.append(line.strip())
+        if any(c in line for c in ("C7512", "C7513", "C7514", "C7517")):
+            warnings.append(line.strip())
+    log(f"[{tag}] {name} ptxas: {len(spills)} kernels with spills, "
+        f"{len(warnings)} wgmma serialization warnings")
+
+
 def k1_ptxas_facts():
     """ptxas's report on K1 (registers, spills, wgmma serialization) and
     the dynamic shared memory of its two configurations."""
     import ctypes
     from omnihuman_tpu_torch.ops import cuda_build
     from omnihuman_tpu_torch.ops.flash_attention import FLASH_FWD_LONG_K
-    spills, warnings = [], []
-    for line in cuda_build.build_log(FLASH_FWD_LONG_K.source).splitlines():
-        if "entry function" in line:
-            log(f"[3] ptxas {line.split(chr(39))[1][:90]}")
-        elif "registers" in line or "spill" in line or "C75" in line:
-            log(f"[3]   {line.strip()[:160]}")
-        if "spill stores" in line and not line.strip().startswith("0 bytes"):
-            spills.append(line.strip())
-        if "C7512" in line or "C7513" in line or "C7514" in line:
-            warnings.append(line.strip())
+    ptxas_facts(FLASH_FWD_LONG_K.source, "3", "K1")
     smem = cuda_build.load(FLASH_FWD_LONG_K.source).omni_flash_fwd_smem_bytes
     smem.argtypes = [ctypes.c_int, ctypes.c_int]
     log("[3] K1 shared memory a block: " + ", ".join(
         f"D={d}: {smem(d, 32768)} B (Lk 32,768), {smem(d, 512)} B (Lk 512)"
         for d in (64, 128)))
-    log(f"[3] K1 ptxas: {len(spills)} kernels with spills, "
-        f"{len(warnings)} wgmma serialization warnings")
 
 
 def phase_kernels():
@@ -1161,13 +1170,15 @@ def phase_vae_kernels():
         del x, cache, res, got, cnew, want, cwant, xin
         torch.cuda.empty_cache()
 
+    ptxas_facts(vk.VAE_UPSAMPLE.source, "12", "K4")
     for t, h, w, cin, cout in K4_SHAPES:
         x = rnd(1, cin, t, h, w).to(torch.bfloat16).contiguous(
             memory_format=cl)
         wt = rnd(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
         w4 = vk.pack_upsample_weights(wt.to(torch.bfloat16))
+        wk = vk.upsample_weights_kmajor(w4)    # made once a VAE pass
         bias = rnd(cout, scale=0.05)
-        got = vk.fused_upsample_conv2d_cuda(x, w4, bias)
+        got = vk.fused_upsample_conv2d_cuda(x, w4, bias, wk)
         torch.cuda.synchronize()
         want = vk.fused_upsample_conv2d_plain(x, w4, bias)
         err = (got.float() - want.float()).abs().max().item()
@@ -1179,7 +1190,12 @@ def phase_vae_kernels():
         nbytes = 2.0 * (n_in * cin + 16 * cin * cout + 4 * n_in * cout) \
             + 4.0 * cout
         bound, by = _bound(flops, nbytes)
-        ms = bench_ms(lambda: vk.fused_upsample_conv2d_cuda(x, w4, bias))
+        ms = bench_ms(lambda: vk.fused_upsample_conv2d_cuda(x, w4, bias,
+                                                            wk))
+        # the kernel alone, on a preallocated output
+        out = torch.empty_like(got)
+        kernel_ms = bench_ms(lambda: vk.vae_upsample_launch(x, wk, bias,
+                                                            out))
         plain_ms = bench_ms(lambda: vk.fused_upsample_conv2d_plain(
             x, w4, bias), reps=3, warmup=1)
         # yardstick only: cuDNN's 3x3 conv of the upsampled frames
@@ -1191,13 +1207,15 @@ def phase_vae_kernels():
         bl = bias.to(torch.bfloat16)
         lib_ms = bench_ms(lambda: F.conv2d(xu, wl, bl, padding=1))
         log(f"[12] K4 T={t} {h}x{w} -> {2 * h}x{2 * w} {cin}->{cout}: "
-            f"max_abs_err {err:.3g} (tol {tol:.3g}); kernel {ms:.3f} ms, "
-            f"bound {bound:.3f} ms ({by}, {100 * bound / ms:.1f}%), plain "
-            f"{plain_ms:.3f} ms, cuDNN conv2d {lib_ms:.3f} ms")
+            f"max_abs_err {err:.3g} (tol {tol:.3g}); kernel {ms:.3f} ms "
+            f"({kernel_ms:.3f} alone), bound {bound:.3f} ms ({by}, "
+            f"{100 * bound / kernel_ms:.1f}% alone), plain {plain_ms:.3f} "
+            f"ms, cuDNN conv2d {lib_ms:.3f} ms")
         if (t, h, w, cin, cout) == K4_ROW:
-            rows["k4"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound, bound_by=by, library_ms=lib_ms)
-        del x, got, want, xu
+            rows["k4"] = dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
+                              plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                              library_ms=lib_ms)
+        del x, got, want, xu, out
         torch.cuda.empty_cache()
     return rows
 

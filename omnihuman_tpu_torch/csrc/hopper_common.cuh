@@ -3,8 +3,8 @@
 // and its fences, the async-proxy fence, mbarriers, TMA tile loads and
 // reduce-adds and stores, register reallocation (setmaxnreg), named
 // barriers, and on the host the tensor-map encoder. Used by flash_fwd.cu,
-// flash_bwd.cu and vae_conv.cu; the mma.sync helpers stay in
-// flash_common.cuh.
+// flash_bwd.cu, vae_conv.cu and vae_upsample.cu; ldmatrix and the bf16
+// packing are in flash_common.cuh.
 //
 // Tile layout (what TMA's CU_TENSOR_MAP_SWIZZLE_128B writes): a bf16 tile
 // of R rows x C columns is stored as C / 64 column blocks of R rows x 128

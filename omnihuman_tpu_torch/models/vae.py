@@ -425,10 +425,13 @@ class _Fused:
                     vae_kernels.conv_weights_kmajor(w2)
                     if impl == "cuda" else None)
             else:
+                w4 = vae_kernels.pack_upsample_weights(
+                    conv.weight.permute(2, 3, 1, 0))
                 self.packs[conv] = (
-                    vae_kernels.pack_upsample_weights(
-                        conv.weight.permute(2, 3, 1, 0)),
-                    conv.bias.float().contiguous())
+                    w4, conv.bias.float().contiguous(),
+                    # K4's K-major copy (the plain version reads w4)
+                    vae_kernels.upsample_weights_kmajor(w4)
+                    if impl == "cuda" else None)
 
 
 def _residual_block(p: ResidualBlock, x, io: _CacheIO,
@@ -500,8 +503,9 @@ def _resample(p: Resample, x, io: _CacheIO, first: bool,
     conv = p.resample[1]
     if p.mode.startswith("upsample"):
         if fused is not None:
-            w4, bias = fused.packs[conv]
-            return fused.up(x, w4, bias)
+            w4, bias, wk = fused.packs[conv]
+            kw = {} if wk is None else {"wk": wk}
+            return fused.up(x, w4, bias, **kw)
         x = F.interpolate(x, scale_factor=(1, 2, 2), mode="nearest")
         return _conv2d_frames(x, conv)
     x = _conv2d_frames(x, conv, stride=2, padding="corner")

@@ -10,7 +10,10 @@ activated frames already; the residual is the block input, added in fp32.
 
 K4, `fused_upsample_conv2d` (csrc/vae_upsample.cu; TPU kernel `_up_kernel`):
 nearest-2x upsample + SAME 3x3 conv as four 2x2 parity convs on the
-low-res grid (weights from `pack_upsample_weights`), + bias.
+low-res grid (weights from `pack_upsample_weights`), + bias. The kernel
+reads the weights in the K-major layout [2, 2, 4, Cout, Cin]
+(`upsample_weights_kmajor`, made once per VAE pass beside the packed
+weights, or per call when the caller does not pass it).
 
 Layout: the port's VAE layout, logical [B, C, T, H, W], in
 `torch.channels_last_3d` memory, which is [B, T, H, W, C] in memory: the
@@ -58,6 +61,7 @@ VAE_CONV = CudaKernel(
 VAE_ACT_CACHE = CudaKernel(
     "vae_conv pre-pass (K3)", "vae_conv.cu", "omni_vae_act_cache_bf16",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+# (x, wk, bias, y, B, T, h, w, Cin, Cout, stream)
 VAE_UPSAMPLE = CudaKernel(
     "vae_upsample (K4)", "vae_upsample.cu", "omni_vae_upsample_bf16",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
@@ -99,6 +103,17 @@ def pack_upsample_weights(w: torch.Tensor) -> torch.Tensor:
                 for q, v in _UP_TAPS[b]:
                     out[a, b, p, q] += w[u, v]
     return out.reshape(2, 2, 4 * cin, cout).to(torch.bfloat16).contiguous()
+
+
+def upsample_weights_kmajor(w4: torch.Tensor) -> torch.Tensor:
+    """Parity kernels [2, 2, 4 * Cin, Cout] (`pack_upsample_weights`) ->
+    the layout K4's kernel reads, [2, 2, 4, Cout, Cin] bf16:
+    wk[a, b, tap, co, ci] = w4[a, b, tap * Cin + ci, co] (per parity and
+    tap, each output channel's Cin weights contiguous: the K-major B
+    operand of its wgmma)."""
+    cin, cout = w4.shape[2] // 4, w4.shape[3]
+    return w4.reshape(2, 2, 4, cin, cout).transpose(3, 4).to(
+        torch.bfloat16).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -283,10 +298,13 @@ def fused_act_causal_conv3d_cuda(
 
 
 def fused_upsample_conv2d_cuda(x: torch.Tensor, w4: torch.Tensor,
-                               b: torch.Tensor) -> torch.Tensor:
+                               b: torch.Tensor,
+                               wk: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """Launch csrc/vae_upsample.cu (K4): bf16 x in channels_last_3d
     memory, bf16 w4, fp32 bias; the output is bf16 in the same memory
-    format."""
+    format. `wk` is `upsample_weights_kmajor(w4)` made ahead (made here
+    when None)."""
     bsz, cin, t, h, w = x.shape
     cout = w4.shape[-1]
     dev = x.device
@@ -297,15 +315,32 @@ def fused_upsample_conv2d_cuda(x: torch.Tensor, w4: torch.Tensor,
     if tuple(w4.shape) != (2, 2, 4 * cin, cout) or b.numel() != cout:
         raise ValueError(f"w4 {tuple(w4.shape)} / bias {b.numel()} do not "
                          f"fit {cin} -> {cout}")
+    if wk is None:
+        wk = upsample_weights_kmajor(w4)
+    _check("wk", wk, torch.bfloat16, dev, False)
+    if tuple(wk.shape) != (2, 2, 4, cout, cin):
+        raise ValueError(f"wk {tuple(wk.shape)} != {(2, 2, 4, cout, cin)}: "
+                         "pass upsample_weights_kmajor(w4)")
     y = torch.empty((bsz, cout, t, 2 * h, 2 * w), dtype=torch.bfloat16,
                     device=dev, memory_format=CL3D)
-    if x.numel() == 0:
-        return y
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        VAE_UPSAMPLE.launch(x.data_ptr(), w4.data_ptr(), b.data_ptr(),
-                            y.data_ptr(), bsz, t, h, w, cin, cout, stream)
+    vae_upsample_launch(x, wk, b, y)
     return y
+
+
+def vae_upsample_launch(x: torch.Tensor, wk: torch.Tensor, b: torch.Tensor,
+                        y: torch.Tensor) -> None:
+    """One launch of K4 (csrc/vae_upsample.cu) on inputs that
+    `fused_upsample_conv2d_cuda` has checked: writes y [B, Cout, T, 2h, 2w]
+    (bf16, channels_last_3d) from x [B, Cin, T, h, w], wk
+    (`upsample_weights_kmajor`) and the fp32 bias."""
+    bsz, cin, t, h, w = x.shape
+    cout = wk.shape[3]
+    if x.numel() == 0:
+        return
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        VAE_UPSAMPLE.launch(x.data_ptr(), wk.data_ptr(), b.data_ptr(),
+                            y.data_ptr(), bsz, t, h, w, cin, cout, stream)
 
 
 def fused_act_causal_conv3d(x, cache, gamma, w2, b, residual=None, wk=None):
@@ -319,10 +354,11 @@ def fused_act_causal_conv3d(x, cache, gamma, w2, b, residual=None, wk=None):
     return fused_act_causal_conv3d_plain(x, cache, gamma, w2, b, residual)
 
 
-def fused_upsample_conv2d(x, w4, b):
-    """K4 on CUDA tensors, its plain version on CPU tensors."""
+def fused_upsample_conv2d(x, w4, b, wk=None):
+    """K4 on CUDA tensors, its plain version on CPU tensors (which reads
+    w4; `wk`, the kernel's copy of the same weights, is then unused)."""
     if x.is_cuda:
-        return fused_upsample_conv2d_cuda(x, w4, b)
+        return fused_upsample_conv2d_cuda(x, w4, b, wk)
     if x.device.type != "cpu":
         raise ValueError(f"no K4 path for device {x.device}")
     return fused_upsample_conv2d_plain(x, w4, b)

@@ -20,8 +20,9 @@ the activations, where the pre-SiLU bf16 rounding falls one step apart
 (the fp32 norm sums in another order): at most two ulps of the
 activation. K3's pre-pass (the activated input and the new cache) is held
 to the same two-ulp bound on its own, and two K3 runs give bit-equal
-outputs and caches (no atomics, fixed sum orders). A small bf16 VAE decode / encode with the kernels against the
-plain fused path: 2^-5 relative L2."""
+outputs and caches (no atomics, fixed sum orders); two K4 runs give
+bit-equal outputs too. A small bf16 VAE decode / encode with the kernels
+against the plain fused path: 2^-5 relative L2."""
 
 import pytest
 import torch
@@ -521,6 +522,81 @@ def test_vae_upsample_kernel_matches_plain(cuda_device, seed):
     assert y.shape == (b, cout, t, 2 * h, 2 * w)
     tol = 2 ** -6 * want.float().abs().max().item()
     assert (y.float() - want.float()).abs().max().item() <= tol
+
+
+# K4 at its tile edges: items of 12 low-res rows x 16 columns, so h off
+# 12, h = 1, w off 16, w < 16 and the decode's half tile (w = 104); Cout
+# 96, 192 and the masked N-blocks of 8, 40, 200; Cin 16 and 96 (32-channel
+# K steps), 192 and 384 (64); B = 2; T in {1, 2, 4}
+K4_TILE_CASES = {
+    "h1_w5_16_8_b2": dict(b=2, t=1, h=1, w=5, cin=16, cout=8),
+    "h13_w17_96_96": dict(b=1, t=2, h=13, w=17, cin=96, cout=96),
+    "h12_w16_192_192_b2": dict(b=2, t=4, h=12, w=16, cin=192, cout=192),
+    "h25_w104_384_192": dict(b=1, t=1, h=25, w=104, cin=384, cout=192),
+    "h7_w33_192_40_b2": dict(b=2, t=2, h=7, w=33, cin=192, cout=40),
+    "h30_w9_96_200": dict(b=1, t=4, h=30, w=9, cin=96, cout=200),
+    "h5_w104_384_96_b2": dict(b=2, t=1, h=5, w=104, cin=384, cout=96),
+    "h24_w40_16_192": dict(b=1, t=2, h=24, w=40, cin=16, cout=192),
+    "h1_w104_192_96": dict(b=1, t=4, h=1, w=104, cin=192, cout=96),
+    "h14_w15_384_8": dict(b=1, t=1, h=14, w=15, cin=384, cout=8),
+}
+
+
+def _vae_upsample_inputs(c, dev, seed=11):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, t, h, w, cin, cout = (c[k] for k in ("b", "t", "h", "w", "cin",
+                                            "cout"))
+    x = _cl(torch.randn((b, cin, t, h, w), generator=g, device=dev)
+            .to(torch.bfloat16))
+    w4 = vk.pack_upsample_weights(
+        torch.randn((3, 3, cin, cout), generator=g, device=dev) * cin ** -0.5)
+    bias = torch.randn(cout, generator=g, device=dev) * 0.1
+    return x, w4, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K4_TILE_CASES))
+def test_vae_upsample_kernel_at_tile_edges(cuda_device, case):
+    c = K4_TILE_CASES[case]
+    x, w4, bias = _vae_upsample_inputs(c, cuda_device)
+    before = vk.VAE_UPSAMPLE.launches
+    y = vk.fused_upsample_conv2d_cuda(x, w4, bias)
+    torch.cuda.synchronize()
+    assert vk.VAE_UPSAMPLE.launches == before + 1
+    want = vk.fused_upsample_conv2d_plain(x, w4, bias)
+    assert y.shape == (c["b"], c["cout"], c["t"], 2 * c["h"], 2 * c["w"])
+    assert y.is_contiguous(memory_format=torch.channels_last_3d)
+    assert torch.isfinite(y.float()).all(), c
+    tol = 2 ** -6 * want.float().abs().max().item()
+    assert (y.float() - want.float()).abs().max().item() <= tol, c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cout", [96, 200])
+def test_vae_upsample_run_to_run(cuda_device, cout):
+    """K4 is bitwise deterministic: no atomics, fixed sum orders."""
+    c = dict(b=2, t=2, h=20, w=37, cin=192, cout=cout)
+    x, w4, bias = _vae_upsample_inputs(c, cuda_device)
+    y1 = vk.fused_upsample_conv2d_cuda(x, w4, bias)
+    y2 = vk.fused_upsample_conv2d_cuda(x, w4, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.cuda
+def test_vae_upsample_takes_kmajor_weights_made_ahead(cuda_device):
+    """`wk` made once by upsample_weights_kmajor (as a VAE pass makes it)
+    gives the same bits as the call that makes it itself."""
+    c = dict(b=1, t=4, h=9, w=21, cin=96, cout=192)
+    x, w4, bias = _vae_upsample_inputs(c, cuda_device)
+    wk = vk.upsample_weights_kmajor(w4)
+    assert wk.shape == (2, 2, 4, 192, 96)
+    got = vk.fused_upsample_conv2d_cuda(x, w4, bias, wk)
+    want = vk.fused_upsample_conv2d_cuda(x, w4, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="upsample_weights_kmajor"):
+        vk.fused_upsample_conv2d_cuda(x, w4, bias, w4)
 
 
 @pytest.mark.cuda

@@ -91,6 +91,33 @@ def test_kmajor_weight_copy_matches_packers(dtype):
                 got[tap, :, ci], w2[tap * cin + ci].float().numpy())
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_upsample_kmajor_weight_copy_matches_packers(dtype):
+    """K4's kernel layout [2, 2, 4, Cout, Cin] holds, element for element,
+    the parity rows of the port's and the JAX packer:
+    wk[a, b, tap, co, ci] = w4[a, b, tap * Cin + ci, co]."""
+    rng = np.random.default_rng(6)
+    cin, cout = 32, 24
+    w = rng.normal(size=(3, 3, cin, cout)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(vae_pallas.pack_upsample_weights(
+        jnp.asarray(w, jd)).astype(jnp.float32))
+    w4 = vk.pack_upsample_weights(torch.from_numpy(w).to(td))
+    wk = vk.upsample_weights_kmajor(w4)
+    assert wk.dtype == torch.bfloat16 and wk.is_contiguous()
+    assert wk.shape == (2, 2, 4, cout, cin)
+    got = wk.float().numpy()
+    for a in range(2):
+        for b in range(2):
+            for tap in range(4):
+                for ci in range(cin):
+                    np.testing.assert_array_equal(
+                        got[a, b, tap, :, ci], want[a, b, tap * cin + ci])
+                    np.testing.assert_array_equal(
+                        got[a, b, tap, :, ci],
+                        w4[a, b, tap * cin + ci].float().numpy())
+
+
 @pytest.mark.parametrize("t", [1, 4])
 def test_act_cache_plain_matches_jax_silu_rms(t):
     """K3's pre-pass (a, the activated frames, and the new cache, the last
