@@ -11,17 +11,20 @@ Phases (any failure stops the run with a nonzero exit):
   3. the attention forward K1 (flash_fwd.cu) against its plain PyTorch
      version on the card, in bf16, at the main path's shapes (flagship
      geometry: 480x832, 81 frames, 32,760 tokens padded to 32,768; text
-     context trimmed to 128 / 512; the 257 image tokens of i2v): max abs
+     context trimmed to 128 / 512; the 257 image tokens of i2v; the omni
+     path's packed self-attention at B=1 and 20,480 / 22,528 / 25,600
+     tokens and its audio cross-attention to 13 latent frames): max abs
      error against the stated tolerance, kernel / plain / SDPA-yardstick
      times (CUDA events, warm, median of 7; the kernel also alone, on
      preallocated outputs, without its wrapper) and the bound; the training
      forward with the LSE at B=1 beside the library's forward that also
      returns it; ptxas's registers, spills, shared memory and any wgmma
      serialization warning for K1;
-  4. a small-input reference: the DiT forward and the VAE decode on the
-     card against the same weights on the CPU (the CPU path is the one the
-     test suite holds against the JAX package); the VAE is fp32 at 8
-     channels, which conv_impl "auto" sends to torch convs;
+  4. a small-input reference: the DiT forward, the VAE decode and an omni
+     forward with every condition and motion tokens on the card against
+     the same weights on the CPU (the CPU path is the one the test suite
+     holds against the JAX package); the VAE is fp32 at 8 channels, which
+     conv_impl "auto" sends to torch convs;
   5. the main path: `WanT2V` for t2v-1.3B at full width (dim 1536, 30
      layers, 12 heads, umT5-xxl), random bf16 weights from a seed,
      precision "fast", answers 2 requests through `generate()` at 480x832,
@@ -86,6 +89,25 @@ Phases (any failure stops the run with a nonzero exit):
      the counts the code implies; per-stage seconds;
  15. one-step: `SeaweedWanAPTGenerator` over t2v-1.3B, 2 prompts, 81
      frames, one batched forward and the batched decode through K3 / K4.
+
+ 16. OmniHuman: `cli.omni_inference.run` for t2v-1.3B at full width plus
+     30 audio adapters and the condition encoders (audio_dim 1024, 308
+     keypoints, 13 temporal rows), random bf16 weights from a seed with a
+     random head, adapter `o` and `pose_proj` (zero in the reference init,
+     which would make every condition a no-op), umT5-xxl and the Wan 2.1
+     VAE; a seeded 480x832 reference image, a seeded 16 kHz waveform
+     through the log-mel extractor and seeded keypoints as heatmaps at
+     120x208; 13 latent frames a window, 24 in all (two windows, the
+     second with 2 motion frames), 4 DPM++ steps, precision "fast". Packed
+     lengths 21,840 -> 22,528 (window 1), 24,960 -> 25,600 (window 2),
+     20,280 -> 20,480 (uncond). Launches must be 480 K1 long-K, 720 K1
+     short-K, 692 K3 and 72 K4. Per-stage seconds and peak memory; one
+     cond + uncond step at window 2's geometry, kernels against plain
+     attention (relative L2, tolerance 5e-2); the Wav2Vec2 base extractor
+     timed once on the same waveform;
+ 17. one CFG step of phase 5's model at precision "int8" against "fast"
+     (relative L2, tolerance 1e-1), ms a step each, and the share of the
+     int8 step's kernel time under aten::_int_mm (torch.profiler).
 
 The line before last is a JSON object {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -254,6 +276,17 @@ def phase_kernels():
         ("d k_len=0 row Lq=4096 Lk=512 k_lens=(512,0)", rnd(2, 4096), 512,
          (512, 0), False, None),
         ("e ragged Lq=1000 Lk=777", rnd(2, 1000), 777, None, True, None),
+        # the omni path (phase 16), B=1: packed self-attention of the
+        # uncond pass and of windows 1 and 2, and the audio
+        # cross-attention to a window's 13 latent frames
+        ("g omni self B=1 L=20480 k_len=20280", rnd(1, 20480), 20480,
+         (20280,), True, "omni_self_20480"),
+        ("h omni self B=1 L=22528 k_len=21840", rnd(1, 22528), 22528,
+         (21840,), True, "omni_self_22528"),
+        ("i omni self B=1 L=25600 k_len=24960", rnd(1, 25600), 25600,
+         (24960,), True, "omni_self_25600"),
+        ("j omni audio cross B=1 Lq=25600 Lk=13", rnd(1, 25600), 13, None,
+         True, "omni_audio"),
     ]
     rows = {}
     for name, q, lk, k_lens, lib_ok, row in cases:
@@ -394,6 +427,55 @@ def phase_small_reference():
         fail(f"VAE decode on the card vs the CPU: max abs err {err}")
     log(f"[4] VAE decode (fp32, TF32 off) card vs CPU: max abs err "
         f"{err:.3g} (tol 1e-3)")
+    omni_small_reference()
+
+
+def omni_small_reference():
+    """A small omni forward with every condition (audio, pose, reference,
+    motion) on the card against the same bf16 weights on the CPU: head_dim
+    128, random head, adapter `o` and `pose_proj`. TF32 is off (phase 4
+    turns it off), so the fp32 pose guider is fp32 on both."""
+    import torch
+    from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanModelConfig
+    from omnihuman_tpu_torch.omni.model import (
+        OmniModelConfig, build_omni_model, omni_model_forward)
+
+    cfg = OmniModelConfig(
+        base=WanModelConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2,
+                            freq_dim=32, text_dim=32, text_len=16),
+        audio_dim=20, num_keypoints=8, num_frames=8)
+    model = build_omni_model(cfg, "cpu", torch.bfloat16, seed=3)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for w in (model.base.head.head.weight, model.cond.pose_proj.weight,
+                  *(b.audio_attn.o.weight for b in model.base.blocks)):
+            w.normal_(0.0, 0.05, generator=gen)
+    gen.manual_seed(11)
+    inputs = dict(
+        x=torch.randn((2, 16, 3, 8, 8), generator=gen),
+        t=torch.tensor([900.0, 300.0]),
+        context=torch.randn((2, 16, 32), generator=gen),
+        audio=torch.randn((2, 3, 20), generator=gen),
+        pose=torch.rand((2, 8, 3, 16, 16), generator=gen),
+        ref_latent=torch.randn((2, 16, 1, 8, 8), generator=gen),
+        motion_latent=torch.randn((2, 16, 2, 8, 8), generator=gen),
+        context_lens=torch.tensor([9, 4]))
+    outs = {}
+    for device in ("cpu", "cuda"):
+        m = model.to(device)
+        with torch.inference_mode():
+            outs[device] = omni_model_forward(
+                m, **{k: v.to(device) for k, v in inputs.items()},
+                policy=DTypePolicy(residual=torch.bfloat16)).float().cpu()
+    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    scale = outs["cpu"].abs().max().item()
+    if not torch.isfinite(outs["cuda"]).all() or err > 5e-2 * max(1.0,
+                                                                   scale):
+        fail(f"omni forward on the card vs the CPU: max abs err {err} "
+             f"(output scale {scale})")
+    log(f"[4] omni forward (every condition + motion tokens, head_dim 128, "
+        f"bf16, TF32 off) card vs CPU: max abs err {err:.3g} on outputs up "
+        f"to {scale:.3g} (tol 5e-2 x max(1, scale))")
 
 
 def phase_main_path(kernels):
@@ -535,7 +617,13 @@ def phase_flagship_step(pipe):
         f"(30 layers); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
 
-    # where the step's device time goes, by kernel (torch.profiler/CUPTI)
+    profile_split(step, "6")
+
+
+def profile_split(step, tag: str) -> None:
+    """Where one run of `step` spends its device time, by kernel
+    (torch.profiler / CUPTI): K1, GEMMs, the rest, and the top kernels."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -545,7 +633,7 @@ def phase_flagship_step(pipe):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     if total == 0:
-        log("[6] profiler: no device time recorded")
+        log(f"[{tag}] profiler: no device time recorded")
         return
     groups = {"flash_fwd (port kernel)": 0.0, "GEMM (cuBLAS)": 0.0,
               "other (elementwise, norms, copies)": 0.0}
@@ -559,10 +647,10 @@ def phase_flagship_step(pipe):
             groups["GEMM (cuBLAS)"] += t
         else:
             groups["other (elementwise, norms, copies)"] += t
-    log(f"[6] profiled step: {total:.1f} ms of kernel time: " + ", ".join(
+    log(f"[{tag}] profiled step: {total:.1f} ms of kernel time: " + ", ".join(
         f"{k} {v:.1f} ms ({100 * v / total:.1f}%)" for k, v in groups.items()))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[6]   {e.self_device_time_total / 1e3:9.1f} ms "
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:9.1f} ms "
             f"x{e.count:<5d} {e.key[:90]}")
 
 
@@ -1399,6 +1487,237 @@ def phase_one_step(kernels, flash_kernels):
     return counts
 
 
+# phases 16-17: OmniHuman serving and the int8 precision
+OMNI = dict(argv=["--task", "t2v-1.3B", "--size", "832*480",
+                  "--num_frames", "13", "--total_frames", "24",
+                  "--motion_frames", "2", "--num_inference_steps", "4",
+                  "--precision", "fast", "--seed", "7",
+                  "--prompt", "a woman speaking to the camera, studio light"],
+            size=(832, 480), f_win=13, f_total=24, motion=2, steps=4,
+            audio_s=2.0, sr=16000)
+
+
+def _omni_inputs(rng, h, w, f_total, num_keypoints):
+    """A seeded reference image [h, w, 3] uint8, a 16 kHz waveform (tones
+    under noise) and keypoints -> heatmaps [K, f_total, h/4, w/4]."""
+    import numpy as np
+    from omnihuman_tpu_torch.omni.dataset import generate_heatmaps
+    img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    n = int(OMNI["audio_s"] * OMNI["sr"])
+    tt = np.arange(n) / OMNI["sr"]
+    wav = (0.3 * np.sin(2 * np.pi * 220 * tt) * np.sin(2 * np.pi * 3 * tt)
+           + 0.05 * rng.normal(size=n)).astype(np.float32)
+    kps = rng.uniform(0.0, 1.0, (f_total, num_keypoints, 3)).astype(
+        np.float32)
+    pose = np.stack([generate_heatmaps(k, (h // 4, w // 4)) for k in kps],
+                    axis=1)
+    return img, wav, pose
+
+
+def phase_omni(all_kernels, flash_kernels):
+    """OmniHuman serving at full width through cli.omni_inference.run; then
+    one cond + uncond step at window 2's geometry, kernels against plain
+    attention, and the Wav2Vec2 base extractor timed once."""
+    import numpy as np
+    import torch
+    from unittest import mock
+    from omnihuman_tpu_torch.cli.omni_inference import (
+        build_parser, build_pipeline, run)
+    from omnihuman_tpu_torch.models.vae import vae_encode
+    from omnihuman_tpu_torch.ops import attention
+    from omnihuman_tpu_torch.omni.model import omni_model_forward
+    from omnihuman_tpu_torch.ops.flash_attention import flash_attention_plain
+    from omnihuman_tpu_torch.pipelines.omni import _slice_frames
+
+    args = build_parser().parse_args(OMNI["argv"])
+    args.output = None                      # frames stay on the card
+    t0 = time.perf_counter()
+    pipe = build_pipeline(args)
+    dim = pipe.config.model.dim
+    g = torch.Generator(device="cuda").manual_seed(5)
+    with torch.no_grad():   # the reference zero-inits these: no-ops
+        pipe.model.base.head.head.weight.normal_(0.0, dim ** -0.5,
+                                                 generator=g)
+        for w in (pipe.model.cond.pose_proj.weight,
+                  *(b.audio_attn.o.weight for b in pipe.model.base.blocks)):
+            w.normal_(0.0, 0.1 * dim ** -0.5, generator=g)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in pipe.model.parameters())
+    log(f"[16] OmniHuman(t2v-1.3B) built in {time.perf_counter() - t0:.1f} "
+        f"s: {n_params / 1e9:.3f} B parameters (bf16; 30 audio adapters, "
+        f"pose guider 308->128->256->384, temporal embedding 13 rows)")
+    w_px, h_px = OMNI["size"]
+    t0 = time.perf_counter()
+    img, wav, pose = _omni_inputs(np.random.default_rng(21), h_px, w_px,
+                                  OMNI["f_total"],
+                                  pipe.omni_config.num_keypoints)
+    log(f"[16] inputs: image {img.shape}, {wav.size} audio samples at "
+        f"{OMNI['sr']} Hz, heatmaps {pose.shape} fp32 "
+        f"({pose.nbytes / 2 ** 30:.2f} GiB) made in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero(all_kernels)
+    t0 = time.perf_counter()
+    out = run(args, img, wav, OMNI["sr"], pose=pose, pipe=pipe)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = _count(all_kernels)
+    video, tm = out["video"], out["timings"]
+    vf = video.float()
+    n_px = 1 + 4 * (OMNI["f_total"] - 1)
+    log(f"[16] omni request: video {tuple(video.shape)} in "
+        f"[{vf.min().item():.3f}, {vf.max().item():.3f}], std "
+        f"{vf.std().item():.3f}; total {total:.2f} s: T5 load "
+        f"{tm['t5_load_s']:.2f} s, T5 encode {tm['t5_encode_s']:.2f} s, T5 "
+        f"unload {tm['t5_unload_s']:.2f} s, audio features (log-mel) "
+        f"{tm['audio_features_s']:.3f} s, reference encode "
+        f"{tm['ref_encode_s']:.3f} s, windows "
+        + ", ".join(f"{x:.2f}" for x in tm["windows_s"])
+        + f" s ({OMNI['steps']} steps each), VAE decode "
+        f"{tm['vae_decode_s']:.3f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    if tuple(video.shape) != (3, n_px, h_px, w_px) or \
+            not torch.isfinite(vf).all() or vf.abs().max().item() > 1.0:
+        fail("the omni video has the wrong shape or values")
+    layers, steps = NUM_LAYERS, OMNI["steps"]
+    windows = -(-OMNI["f_total"] // OMNI["f_win"])
+    f_lat = OMNI["f_total"]
+    want = {flash_kernels[0].name: 2 * layers * steps * windows,
+            flash_kernels[1].name: 3 * layers * steps * windows,
+            all_kernels[-2].name: 20 + 28 * f_lat,
+            all_kernels[-1].name: 3 * f_lat}
+    want = {kn.name: want.get(kn.name, 0) for kn in all_kernels}
+    log(f"[16] launches {counts}, expected {want} ({windows} windows x "
+        f"{steps} steps x {layers} layers: cond + uncond self-attention "
+        f"long, cond text + cond audio + uncond text short; K3 20 for the "
+        f"1-frame reference encode + 28 x {f_lat} decode steps, K4 3 x "
+        f"{f_lat})")
+    if counts != want:
+        fail("the omni path did not send every attention through K1 and "
+             "every VAE conv through K3 / K4")
+
+    # one cond + uncond step at window 2's geometry, kernels vs plain
+    dev = pipe.device
+    lat_h, lat_w = h_px // 8, w_px // 8
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn((1, 16, OMNI["f_win"], lat_h, lat_w), generator=gen,
+                    device=dev)
+    motion = torch.randn((1, 16, OMNI["motion"], lat_h, lat_w),
+                         generator=gen, device=dev)
+    ctx2 = torch.randn((2, 128, 4096), generator=gen, device=dev)
+    with torch.inference_mode():
+        ref_lat = vae_encode(pipe.vae, torch.from_numpy(
+            img.astype(np.float32).transpose(2, 0, 1) / 127.5 - 1.0
+        ).to(dev)[None, :, None]).float()
+    aud = torch.randn((1, OMNI["f_win"], 1024), generator=gen, device=dev)
+    pz = _slice_frames(torch.from_numpy(pose).to(dev)[None], 2,
+                       OMNI["f_win"], OMNI["f_win"])    # window 2's pose
+    t = torch.tensor([900.0], device=dev)
+    lens = (torch.tensor([37], device=dev), torch.tensor([12], device=dev))
+
+    def step():
+        with torch.inference_mode():
+            v_c = omni_model_forward(
+                pipe.model, x, t, ctx2[:1], audio=aud, pose=pz,
+                ref_latent=ref_lat, motion_latent=motion,
+                context_lens=lens[0], policy=pipe.policy)
+            v_u = omni_model_forward(pipe.model, x, t, ctx2[1:],
+                                     context_lens=lens[1],
+                                     policy=pipe.policy)
+            return v_u + 7.5 * (v_c - v_u)
+
+    got = step()
+    torch.cuda.synchronize()
+    ms = bench_ms(step, reps=3, warmup=1)
+    with mock.patch.object(attention, "flash_fwd", flash_attention_plain):
+        want_v = step()
+    rel = ((got - want_v).norm() / want_v.norm()).item()
+    log(f"[16] window-2 CFG step (cond 24,960 tokens -> 25,600, uncond "
+        f"20,280 -> 20,480): {ms:.1f} ms; kernel vs plain attention "
+        f"relative L2 {rel:.3g} (tol 5e-2), velocity std "
+        f"{want_v.std().item():.3g}")
+    if not torch.isfinite(got).all() or rel > 5e-2:
+        fail(f"omni step: kernel vs plain relative L2 {rel}")
+    profile_split(step, "16")
+    del pipe, got, want_v, x, pz, video, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the Wav2Vec2 base extractor (random weights) on the same waveform
+    from omnihuman_tpu_torch.omni.wav2vec import Wav2Vec2AudioFeatures
+    ext = Wav2Vec2AudioFeatures(preset="base", dim=1024, device="cuda")
+    feats = ext(wav, OMNI["sr"], OMNI["f_total"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = ext(wav, OMNI["sr"], OMNI["f_total"])
+    torch.cuda.synchronize()
+    log(f"[16] Wav2Vec2 base features {feats.shape} of {wav.size} samples: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms warm (fp32, dense "
+        f"attention); finite {bool(np.isfinite(feats).all())}")
+    if not np.isfinite(feats).all():
+        fail("Wav2Vec2 features not finite")
+    del ext
+    return counts
+
+
+def phase_int8_step():
+    """One CFG step of phase 5's WanT2V (t2v-1.3B, 17 frames at 480x832,
+    random head) at precision int8 against fast, on the same weights."""
+    import torch
+    from omnihuman_tpu_torch.configs import T2V_1_3B
+    from omnihuman_tpu_torch.ops.quant import quantize_wan_model
+    from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+    from omnihuman_tpu_torch.pipelines.text2video import (
+        WanT2V, cfg_model_step)
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe = WanT2V(T2V_1_3B, device="cuda", precision="fast", init_seed=0)
+    with torch.no_grad():
+        pipe.model.head.head.weight.normal_(
+            0.0, T2V_1_3B.model.dim ** -0.5,
+            generator=torch.Generator(device="cuda").manual_seed(5))
+    q_model = quantize_wan_model(copy.deepcopy(pipe.model))
+    lat = pipe.latent_shape(SMOKE["size"], SMOKE["frames"])
+    seq_len = pipe.seq_len_for(lat)
+    grid = tuple(n // p for n, p in zip(lat[1:], pipe.patch_size))
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    x = torch.randn((1,) + lat, generator=gen, device="cuda")
+    ctx2 = torch.randn((2, 128, 4096), generator=gen, device="cuda")
+    lens = torch.tensor([37, 12], dtype=torch.int32, device="cuda")
+    sin, cos = rope_angles_3d(grid, 128, seq_len=seq_len, device="cuda")
+
+    def step(model):
+        with torch.inference_mode():
+            return cfg_model_step(model, x, 900.0, ctx2, sin, cos, lens,
+                                  policy=pipe.policy, seq_len=seq_len,
+                                  guide_scale=5.0).float()
+
+    want, got = step(pipe.model), step(q_model)
+    rel = ((got - want).norm() / want.norm()).item()
+    fast_ms = bench_ms(lambda: step(pipe.model), reps=5, warmup=1)
+    int8_ms = bench_ms(lambda: step(q_model), reps=5, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(q_model)
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    total = sum(e.self_device_time_total for e in ev
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    int_mm = sum(e.device_time_total for e in ev
+                 if e.key == "aten::_int_mm") / 1e3
+    share = f"{100 * int_mm / total:.1f}%" if total else "not measured"
+    log(f"[17] CFG step at {seq_len} tokens (fused batch 2), int8 vs fast: "
+        f"relative L2 {rel:.3g} (tol 1e-1), fast {fast_ms:.1f} ms, int8 "
+        f"{int8_ms:.1f} ms; profiled int8 step {total:.1f} ms of kernel "
+        f"time, {int_mm:.1f} ms ({share}) under aten::_int_mm")
+    if not torch.isfinite(got).all() or rel > 1e-1:
+        fail(f"int8 step vs fast: relative L2 {rel}")
+    del pipe, q_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def run_training_phases(all_kernels, paths):
     """Phases 8-11 (the attention kernels K1 / K2 only); their models and
     states are dropped on return."""
@@ -1450,6 +1769,8 @@ def main() -> None:
     paths.update(phase_vae_full((VAE_CONV, VAE_UPSAMPLE)))
     paths["i2v"] = phase_i2v(all_kernels, kernels)
     paths["one_step"] = phase_one_step(all_kernels, kernels)
+    paths["omni"] = phase_omni(all_kernels, kernels)
+    phase_int8_step()
     log(f"smoke wall time {time.perf_counter() - t_start:.0f} s")
 
     def by_path(kn):

@@ -54,8 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", default="fast",
                    choices=("fast", "reference", "int8"),
                    help="'fast' = bf16 residual stream (serving default); "
-                        "'reference' = fp32 residual; 'int8' comes in a "
-                        "later slice")
+                        "'reference' = fp32 residual; 'int8' = fast with "
+                        "W8A8 int8 DiT block GEMMs (ops/quant.py)")
     p.add_argument("--cfg_mode", default="fused",
                    choices=("fused", "sequential"),
                    help="'sequential' lowers the activation peak, for a "
@@ -85,9 +85,6 @@ def main(argv=None):
             sys.exit(f"{flag} is not ported yet: it comes with "
                      f"{LATER_FLAGS[flag]}")
     args = build_parser().parse_args(argv)
-    if args.precision == "int8":
-        sys.exit("--precision int8 is not ported yet: it comes with the "
-                 "serving-precision work (ROADMAP queue A, slice 2)")
 
     from omnihuman_tpu_torch.configs import (
         SIZE_CONFIGS, SUPPORTED_SIZES, WAN_CONFIGS)
@@ -160,13 +157,17 @@ def _one_step(args, cfg, size, frame_num: int, out: str):
 
     import torch
 
+    from omnihuman_tpu_torch.ops.quant import quantize_wan_model
     from omnihuman_tpu_torch.pipelines.text2video import WanT2V
     from omnihuman_tpu_torch.pipelines.wan_inference import (
         SeaweedWanAPTGenerator)
     from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
     from omnihuman_tpu_torch.utils.media import cache_video
 
-    pipe = WanT2V(cfg, precision=args.precision, device=args.device)
+    # int8 quantizes after the checkpoint's weights are in
+    int8 = args.precision == "int8"
+    pipe = WanT2V(cfg, precision="fast" if int8 else args.precision,
+                  device=args.device)
     if args.generator_ckpt:
         state = CheckpointManager(args.generator_ckpt).restore()
         if state is None:
@@ -181,6 +182,9 @@ def _one_step(args, cfg, size, frame_num: int, out: str):
                          f"match the {cfg.name} DiT")
             for name, p in params.items():
                 p.copy_(ema[name])
+    if int8:
+        quantize_wan_model(pipe.model)
+        pipe.precision = "int8"
     gen = SeaweedWanAPTGenerator(pipe)
     if args.prompts_file:
         with open(args.prompts_file, encoding="utf-8") as f:

@@ -551,8 +551,14 @@ def _resolve(conv_impl: str, streaming: bool, x: torch.Tensor, layers,
 
 def _stream(spec, layers, x, fused, chunk: int):
     """First frame, then `chunk` frames per step, caches carried over."""
-    if fused is not None:
-        x = x.contiguous(memory_format=torch.channels_last_3d)
+    b, c, t, h, w = x.shape
+    if fused is not None and x.stride() != (c * t * h * w, 1, h * w * c,
+                                            w * c, c):
+        # fresh channels-last storage: .contiguous() keeps the stride of a
+        # size-1 dim (an HWC image viewed as [1, 3, 1, H, W]), which later
+        # ops read as contiguous, and the kernels then refuse the layout
+        x = torch.empty_like(x, memory_format=torch.channels_last_3d
+                             ).copy_(x)
     io = _CacheIO([])
     outs = [_run_stack(spec, layers, x[:, :, :1], io, True, fused)]
     for i in range(1, x.shape[2], chunk):

@@ -33,11 +33,19 @@ as the reference does: the JAX package adds `clip_tokens` to it
 (wan_dit.py:467-468) and so leaves every text mask 257 keys too long
 (ROADMAP queue C); the port does not copy that.
 
-Left for later slices: audio_ctx and token sharding.
+OmniHuman (omni/model.py): `WanModel(cfg, audio_adapters=True)` gives
+every block an `audio_attn` adapter (AudioAdapter: LayerNorm, a t2v-style
+cross-attention to the audio tokens with no lengths, a scalar gate), run
+after the text cross-attention when `body` is given `audio_ctx` (JAX
+`_block_forward`, wan_dit.py:291-303). `_linear` takes the int8 serving
+weights of ops/quant.py (`Int8Linear`) as well as nn.Linear.
+
+Left for later slices: token sharding.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional, Sequence
 
@@ -49,6 +57,7 @@ from torch import nn
 from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanModelConfig
 from omnihuman_tpu_torch.ops.attention import flash_attention
 from omnihuman_tpu_torch.ops.norms import layer_norm, rms_norm
+from omnihuman_tpu_torch.ops.quant import Int8Linear, int8_linear
 from omnihuman_tpu_torch.ops.rope import apply_rope
 
 
@@ -63,7 +72,12 @@ def padded_seq_len(n_tokens: int) -> int:
 def _linear(lin: nn.Linear, x: torch.Tensor,
             compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x @ W^T + b in `compute_dtype`, or else in the promoted dtype of x
-    and W (what `x @ w + b` does in JAX)."""
+    and W (what `x @ w + b` does in JAX). An Int8Linear runs the W8A8
+    product and returns the dtype of x (after the cast to
+    `compute_dtype`), as the JAX `_linear` does on int8 weights."""
+    if isinstance(lin, Int8Linear):
+        return int8_linear(lin, x if compute_dtype is None
+                           else x.to(compute_dtype))
     dt = (compute_dtype if compute_dtype is not None
           else torch.promote_types(x.dtype, lin.weight.dtype))
     b = None if lin.bias is None else lin.bias.to(dt)
@@ -105,8 +119,21 @@ class WanAttention(nn.Module):
             self.norm_k_img = WanRMSNorm(dim)
 
 
+class AudioAdapter(WanAttention):
+    """OmniHuman's audio injection in one block (JAX omni/model.py:102):
+    `norm` (affine LayerNorm), the q / k / v / o projections with the
+    `norm_q` / `norm_k` RMS weights, and a scalar `gate`. The reference
+    init zeroes `o` and sets the gate to 1, so the adapter starts as a
+    no-op."""
+
+    def __init__(self, dim: int, eps: float):
+        super().__init__(dim)
+        self.norm = nn.LayerNorm(dim, eps=eps, elementwise_affine=True)
+        self.gate = nn.Parameter(torch.ones(()))
+
+
 class WanAttentionBlock(nn.Module):
-    def __init__(self, cfg: WanModelConfig):
+    def __init__(self, cfg: WanModelConfig, audio_adapter: bool = False):
         super().__init__()
         dim = cfg.dim
         self.self_attn = WanAttention(dim)
@@ -118,6 +145,8 @@ class WanAttentionBlock(nn.Module):
                                  nn.GELU(approximate="tanh"),
                                  nn.Linear(cfg.ffn_dim, dim))
         self.modulation = nn.Parameter(torch.zeros(1, 6, dim))
+        if audio_adapter:
+            self.audio_attn = AudioAdapter(dim, cfg.eps)
 
 
 class MLPProj(nn.Module):
@@ -184,9 +213,11 @@ def _cross_attention(p: WanAttention, x, context, context_lens,
 
 def _block_forward(blk: WanAttentionBlock, x, e0, context, context_lens,
                    rope_sin, rope_cos, seq_lens, cfg: WanModelConfig,
-                   policy: DTypePolicy):
+                   policy: DTypePolicy, audio_ctx=None):
     """One transformer block (reference model.py:279-330); x in
-    policy.residual, e0 [B, 6, dim] fp32."""
+    policy.residual, e0 [B, 6, dim] fp32. With `audio_ctx` [B, La, dim]
+    and an adapter in the block, the gated audio cross-attention follows
+    the text cross-attention (JAX wan_dit.py:291-303)."""
     rd, cd, f32 = policy.residual, policy.compute, torch.float32
     e = blk.modulation.to(f32) + e0                          # [B, 6, dim]
     sa_shift, sa_scale, sa_gate, ff_shift, ff_scale, ff_gate = (
@@ -207,6 +238,16 @@ def _block_forward(blk: WanAttentionBlock, x, e0, context, context_lens,
                          policy)
     x = x + y.to(rd)
 
+    ap = getattr(blk, "audio_attn", None)
+    if audio_ctx is not None and ap is not None:
+        h = layer_norm(x, ap.norm.weight, ap.norm.bias, eps=cfg.eps,
+                       out_dtype=f32)
+        # the t2v branch even on an i2v base: no image tokens in audio
+        y = _cross_attention(ap, h, audio_ctx, None,
+                             dataclasses.replace(cfg, model_type="t2v"),
+                             policy)
+        x = (x.to(f32) + y.to(f32) * ap.gate.to(f32)).to(rd)
+
     h = layer_norm(x, eps=cfg.eps, out_dtype=f32)
     h = h * (1.0 + ff_scale) + ff_shift
     h = _linear(blk.ffn[0], h.to(cd))
@@ -219,7 +260,7 @@ class WanModel(nn.Module):
     """The t2v / i2v DiT with the reference module tree
     (model.py:377-489)."""
 
-    def __init__(self, cfg: WanModelConfig):
+    def __init__(self, cfg: WanModelConfig, audio_adapters: bool = False):
         super().__init__()
         if cfg.model_type not in ("t2v", "i2v"):
             raise ValueError(f"unknown model_type {cfg.model_type!r}")
@@ -236,7 +277,8 @@ class WanModel(nn.Module):
         self.time_projection = nn.Sequential(nn.SiLU(),
                                              nn.Linear(dim, dim * 6))
         self.blocks = nn.ModuleList(
-            [WanAttentionBlock(cfg) for _ in range(cfg.num_layers)])
+            [WanAttentionBlock(cfg, audio_adapter=audio_adapters)
+             for _ in range(cfg.num_layers)])
         self.head = Head(cfg)
         if cfg.model_type == "i2v":
             self.img_emb = MLPProj(cfg.clip_embed_dim, dim)
@@ -303,10 +345,11 @@ class WanModel(nn.Module):
     def body(self, tokens, t, context, *, seq_len: int, rope_sin, rope_cos,
              n_tokens: int, context_lens=None, clip_fea=None,
              policy: DTypePolicy = DTypePolicy(), remat=False,
-             collect_layers: Optional[Sequence[int]] = None):
+             collect_layers: Optional[Sequence[int]] = None,
+             audio_ctx=None):
         """The DiT trunk on built tokens (JAX dit_body): pad to seq_len,
-        time / text (and, with clip_fea, image) embeddings, blocks,
-        modulated head.
+        time / text (and, with clip_fea, image) embeddings, blocks (with
+        `audio_ctx` [B, La, dim], the audio adapters), modulated head.
         Returns (out [B, seq_len, prod(patch)*out_dim], taps), taps being
         {layer: [B, seq_len, dim] in policy.residual} for collect_layers."""
         cfg, f32 = self.cfg, torch.float32
@@ -346,7 +389,8 @@ class WanModel(nn.Module):
             ctx = torch.cat([ci, ctx], dim=1)
 
         x, taps = self._blocks(x, (e0, ctx, context_lens, rope_sin,
-                                   rope_cos, seq_lens, cfg, policy),
+                                   rope_cos, seq_lens, cfg, policy,
+                                   audio_ctx),
                                remat, collect_layers)
 
         # head: fp32, two-chunk modulation (model.py:332-359)

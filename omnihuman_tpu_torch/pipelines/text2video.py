@@ -28,6 +28,7 @@ from omnihuman_tpu_torch.models.tokenizers import HuggingfaceTokenizer
 from omnihuman_tpu_torch.models.vae import build_vae, vae_decode
 from omnihuman_tpu_torch.models.wan_dit import (
     WanModel, build_wan_model, padded_seq_len)
+from omnihuman_tpu_torch.ops.quant import quantize_wan_model
 from omnihuman_tpu_torch.ops.rope import rope_angles_3d
 from omnihuman_tpu_torch.samplers.fm_solvers import get_solver
 
@@ -65,27 +66,25 @@ class WanT2V:
         precision: str = "reference",
         device=None,
     ):
-        if precision == "int8":
-            raise NotImplementedError(
-                "precision 'int8' (W8A8 DiT GEMMs) comes in a later slice "
-                "of the port (ROADMAP queue A, slice 2)")
-        if precision not in ("reference", "fast"):
+        if precision not in ("reference", "fast", "int8"):
             raise ValueError(f"unknown precision {precision!r}; "
-                             "supported: 'reference', 'fast'")
+                             "supported: 'reference', 'fast', 'int8'")
         self.device = resolve_device(device)
         self.config = config
         self.param_dtype = param_dtype
         self.precision = precision
         # "fast": bf16 residual stream; "reference": the fp32 residual the
-        # torch reference keeps (model.py:287-296)
+        # torch reference keeps (model.py:287-296); "int8": "fast" with the
+        # DiT's block GEMMs in W8A8 (ops/quant.py), serving only
         self.policy = (config.policy if precision == "reference"
                        else dataclasses.replace(config.policy,
                                                 residual=torch.bfloat16))
         self.vae_stride = config.vae_stride
         self.patch_size = config.model.patch_size
         self._init_seed = init_seed
-        self.model: WanModel = build_wan_model(
-            config.model, self.device, param_dtype, seed=init_seed)
+        self.model = self._build_model()
+        if precision == "int8":     # after the weights are final
+            quantize_wan_model(self.model)
         self.vae = build_vae(config.vae, self.device, param_dtype,
                                      seed=init_seed + 1)
         # umT5 is built lazily on first encode and moved to host memory
@@ -94,6 +93,12 @@ class WanT2V:
         self._t5 = None
         self.tokenizer = tokenizer
         self.timings: dict = {}
+
+    def _build_model(self) -> WanModel:
+        """The denoiser, random from the init seed (a subclass builds
+        another)."""
+        return build_wan_model(self.config.model, self.device,
+                               self.param_dtype, seed=self._init_seed)
 
     # -- text encoding ------------------------------------------------------
 

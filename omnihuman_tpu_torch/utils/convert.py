@@ -4,7 +4,8 @@ Each `*_from_jax` function is the inverse of a converter of the JAX package
 (omnihuman_tpu/utils/convert.py): `convert_wan_dit` (t2v and i2v),
 `convert_vae`, `convert_t5` and the visual tower of `convert_clip`; the APT
 discriminator's probes and head come from the JAX params of
-`apt/model.py:init_apt_discriminator`.
+`apt/model.py:init_apt_discriminator`, the OmniHuman model's from those of
+`omni/model.py:init_omni_model`.
 Input is the JAX package's params PyTree as nested dicts / lists of numpy
 arrays; output is a {name: torch.Tensor} dict for `load_state_dict`.
 `load_wan_dit_checkpoint` reads a reference checkpoint directory's DiT.
@@ -95,6 +96,34 @@ def wan_dit_state_dict_from_jax(params: Mapping[str, Any],
         _put_linear(sd, "img_emb.proj.1", ie["fc1"])
         _put_linear(sd, "img_emb.proj.3", ie["fc2"])
         _put_norm(sd, "img_emb.proj.4", ie["ln2"])
+    return sd
+
+
+def omni_state_dict_from_jax(params: Mapping[str, Any],
+                             cfg) -> StateDict:
+    """JAX omni params ({"base": DiT params with stacked
+    `blocks.audio_attn`, "cond": the condition encoders}) -> OmniModel
+    state dict (`base.*`, `base.blocks.{i}.audio_attn.*`, `cond.*`);
+    `cfg` is the port's OmniModelConfig."""
+    sd: StateDict = {f"base.{k}": v for k, v in
+                     wan_dit_state_dict_from_jax(params["base"],
+                                                 cfg.base).items()}
+    ad = params["base"]["blocks"]["audio_attn"]
+    for i in range(cfg.base.num_layers):
+        base = f"base.blocks.{i}.audio_attn"
+        for proj in ("q", "k", "v", "o"):
+            _put_linear(sd, f"{base}.{proj}", ad[proj], i)
+        sd[f"{base}.norm.weight"] = _t(np.asarray(ad["norm"]["w"])[i])
+        sd[f"{base}.norm.bias"] = _t(np.asarray(ad["norm"]["b"])[i])
+        sd[f"{base}.norm_q.weight"] = _t(np.asarray(ad["norm_q"]["w"])[i])
+        sd[f"{base}.norm_k.weight"] = _t(np.asarray(ad["norm_k"]["w"])[i])
+        sd[f"{base}.gate"] = _t(np.asarray(ad["gate"])[i])
+    cond = params["cond"]
+    for name in ("audio_fc1", "audio_fc2", "audio_merge", "pose_proj"):
+        _put_linear(sd, f"cond.{name}", cond[name])
+    for name in ("pose_conv1", "pose_conv2", "pose_conv3"):
+        _put_conv3d(sd, f"cond.{name}", cond[name])
+    sd["cond.temporal_embed"] = _t(cond["temporal_embed"])
     return sd
 
 

@@ -677,3 +677,119 @@ def test_vae_auto_conv_impl_takes_torch_where_kernels_refuse(cuda_device):
     zf = torch.randn((1, 16, 2, 4, 6), generator=g, device=cuda_device)
     assert torch.equal(vae_mod.vae_decode(fp32, zf),
                        vae_mod.vae_decode(fp32, zf, conv_impl="torch"))
+
+
+# ---------------------------------------------------------------------------
+# OmniHuman serving: the audio cross-attention's short keys, the omni
+# forward on the card, the int8 GEMM
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq", [700, 25600])
+@pytest.mark.parametrize("lk", [13, 21])
+def test_flash_kernel_audio_cross_attention(cuda_device, lk, lq):
+    """The omni audio cross-attention: B=1, 12 heads, D=128, Lk = the
+    window's latent frames (below one 16-key MMA step and odd) with no
+    lengths, Lq up to window 2's packed 25,600 tokens: keys lk..127 of the
+    one K/V tile are the TMA box's zero fill and must weigh nothing."""
+    g = torch.Generator(device=cuda_device).manual_seed(lk * 1000 + lq)
+
+    def rnd(length):
+        return torch.randn(1, length, 12, 128, generator=g,
+                           device=cuda_device).to(torch.bfloat16)
+
+    q, k, v = rnd(lq), rnd(lk), rnd(lk)
+    got = flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v)
+    assert torch.isfinite(got.float()).all()
+    tol = 2 ** -6 * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _omni_card_cfg():
+    from omnihuman_tpu_torch.configs.wan import WanModelConfig
+    from omnihuman_tpu_torch.omni.model import OmniModelConfig
+    base = WanModelConfig(dim=128, ffn_dim=256, num_heads=2, num_layers=2,
+                          freq_dim=16, text_dim=24, text_len=8)
+    return OmniModelConfig(base=base, audio_dim=20, num_keypoints=8,
+                           num_frames=8)
+
+
+@pytest.mark.cuda
+def test_omni_forward_on_card_matches_cpu(cuda_device):
+    """The small omni config at head_dim 64 (the kernel's), bf16 weights
+    with a random head, adapter `o` and `pose_proj`, every condition and
+    motion tokens: the card (K1, cuBLAS, cuDNN's TF32 pose convs) against
+    the CPU (the plain attention the CPU tests hold against JAX), within
+    5e-2 of max(1, the velocities' peak), the tolerance of the smoke's
+    DiT check."""
+    from omnihuman_tpu_torch.configs.wan import DTypePolicy
+    from omnihuman_tpu_torch.omni.model import (
+        build_omni_model, omni_model_forward)
+    cfg = _omni_card_cfg()
+    model = build_omni_model(cfg, "cpu", torch.bfloat16, seed=3)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in (model.base.head.head.weight, model.cond.pose_proj.weight,
+                  *(b.audio_attn.o.weight for b in model.base.blocks)):
+            p.normal_(0.0, 0.05, generator=gen)
+    gen.manual_seed(6)
+    inputs = dict(
+        x=torch.randn((1, 16, 3, 8, 8), generator=gen),
+        t=torch.tensor([700.0]),
+        context=torch.randn((1, 8, 24), generator=gen),
+        audio=torch.randn((1, 3, 20), generator=gen),
+        pose=torch.rand((1, 8, 3, 16, 16), generator=gen),
+        ref_latent=torch.randn((1, 16, 1, 8, 8), generator=gen),
+        motion_latent=torch.randn((1, 16, 2, 8, 8), generator=gen),
+        context_lens=torch.tensor([5]))
+    pol = DTypePolicy(residual=torch.bfloat16)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        m = model.to(dev)
+        with torch.inference_mode():
+            outs[str(dev)] = omni_model_forward(
+                m, **{k: v.to(dev) for k, v in inputs.items()},
+                policy=pol).float().cpu()
+    got, want = outs[str(cuda_device)], outs["cpu"]
+    assert torch.isfinite(got).all()
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 5e-2 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 16, 17, 4096])
+def test_int8_gemm_on_card_bit_equal_to_cpu(cuda_device, rows):
+    """torch._int_mm on the card (M <= 16 padded with zero rows) gives the
+    CPU path's int32 products bit for bit, and int8_linear the CPU's
+    output to fp32 rounding."""
+    from omnihuman_tpu_torch.ops import quant
+    g = torch.Generator().manual_seed(rows)
+    x_q = torch.randint(-127, 128, (rows, 1536), generator=g,
+                        dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (8960, 1536), generator=g,
+                        dtype=torch.int8)
+    got = quant._int_mm(x_q.to(cuda_device), w_q.to(cuda_device))
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), quant._int_mm(x_q, w_q))
+    lin = torch.nn.Linear(1536, 8960)
+    x = torch.randn((rows, 1536), generator=g)
+    q = quant.Int8Linear.from_linear(lin)
+    want = quant.int8_linear(q, x)
+    out = quant.int8_linear(q.to(cuda_device), x.to(cuda_device)).cpu()
+    assert (out - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_quantize_keeps_audio_adapters_on_card(cuda_device):
+    from omnihuman_tpu_torch.omni.model import build_omni_model
+    from omnihuman_tpu_torch.ops import quant
+    model = build_omni_model(_omni_card_cfg(), cuda_device, torch.bfloat16,
+                             seed=0)
+    quant.quantize_wan_model(model)
+    for blk in model.base.blocks:
+        assert isinstance(blk.self_attn.q, quant.Int8Linear)
+        assert isinstance(blk.ffn[0], quant.Int8Linear)
+        assert blk.self_attn.q.w_q.is_cuda
+        for name in ("q", "k", "v", "o"):
+            assert type(getattr(blk.audio_attn, name)) is torch.nn.Linear

@@ -165,7 +165,7 @@ def test_cli_writes_video_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv", [["--ckpt_dir", "ckpt"],
                                   ["--sp_size", "2"],
-                                  ["--precision", "int8"],
+                                  ["--fsdp_size", "2"],
                                   ["--use_prompt_extend"]])
 def test_cli_refuses_paths_of_later_slices(argv):
     from omnihuman_tpu_torch.cli.generate import main
