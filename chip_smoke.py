@@ -109,6 +109,43 @@ Phases (any failure stops the run with a nonzero exit):
      (relative L2, tolerance 1e-1), ms a step each, and the share of the
      int8 step's kernel time under aten::_int_mm (torch.profiler).
 
+ 18. OmniHuman training at full width: t2v-1.3B, 30 layers plus 30 audio
+     adapters and the condition encoders (audio_dim 1024, 308 keypoints,
+     13 temporal rows; fp32 parameters and AdamW moments, random from a
+     seed with a random head, adapter `o` and `pose_proj`), umT5-xxl and
+     the Wan 2.1 VAE (bf16, its encode through K3).
+     (a) `cli.train_omni.run` on synthetic samples (seeded frames [3, 49,
+     256, 256], log-mel audio [49, 1024], heatmaps [308, 49, 64, 64]) at
+     configs/omni_config.yaml's geometry (256x256, 13 latent frames,
+     3,328 video + 256 reference tokens = 3,584, batch 1, per-block remat)
+     with two stages, text_reference_audio (1 step) and all_conditions (1
+     step, audio and pose at 1.0), saving only at each stage's end; then
+     `--resume` with the last stage at 2 steps, which must restore step 2
+     bit-equal to what run 1 saved (params, AdamW mu, nu, count, step) and
+     take exactly one step. Launch counts are zeroed before each run and
+     read after it; a step must launch K1 long-K 60 times (30 self-
+     attentions, forward + remat recompute), K1 short-K 120 (30 text + 30
+     audio cross-attentions, forward + recompute), K2 90 (one backward a
+     attention) and K3 280 (20 fused convs a chunk of the 13-chunk frame
+     encode and the 1-frame reference encode), K4 0: run 1 twice that,
+     the resumed run once. Each save's GB and seconds and the free disk
+     are printed;
+     (b) at (a)'s geometry, one loss + gradient with attention through the
+     kernels and through the plain versions: loss and gradients within 5e-2
+     relative (L2 for the gradients); then one timed step there (after a
+     warm-up) and its profiled twin's kernel time;
+     (c) one timed step at 480x832 (latents [1, 16, 13, 60, 104]: 20,280 +
+     1,560 tokens -> 22,528; 49 audio keys) after one warm-up: seconds,
+     peak memory, and a torch.profiler split (K1, K2, cuBLAS, the rest of
+     the forward / backward, the optimizer); then K1 with the LSE and K2
+     at the omni training shapes (self-attention 3,584 and 22,528 tokens,
+     text cross-attention Lc 512 and audio cross-attention Lk 49 at Lq
+     22,528, audio at Lq 3,584) against their plain versions, with SDPA's
+     forward and backward on the unmasked shapes as yardsticks;
+     (d) `cli.omni_inference.run --checkpoint` on (a)'s output (256x256,
+     one window, 2 steps): a finite video that differs from the same run
+     without `--checkpoint`.
+
 The line before last is a JSON object {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -620,33 +657,41 @@ def phase_flagship_step(pipe):
     profile_split(step, "6")
 
 
-def profile_split(step, tag: str) -> None:
-    """Where one run of `step` spends its device time, by kernel
-    (torch.profiler / CUPTI): K1, GEMMs, the rest, and the top kernels."""
+def kernel_split(fn):
+    """(groups {name: ms}, total ms, kernel events) of the device kernels
+    one run of `fn` launches (torch.profiler / CUPTI): K1, K2, cuBLAS and
+    the rest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step()
+        fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    groups = {"K1 flash_fwd": 0.0, "K2 flash_bwd": 0.0, "cuBLAS GEMM": 0.0,
+              "rest (elementwise, norms, optimizer, copies)": 0.0}
+    for e in kernels:
+        t, name = e.self_device_time_total / 1e3, e.key.lower()
+        if "flash_fwd" in name:
+            groups["K1 flash_fwd"] += t
+        elif "flash_bwd" in name:
+            groups["K2 flash_bwd"] += t
+        elif any(x in name for x in ("gemm", "xmma", "cutlass", "cublas",
+                                     "nvjet")):
+            groups["cuBLAS GEMM"] += t
+        else:
+            groups["rest (elementwise, norms, optimizer, copies)"] += t
+    return groups, sum(groups.values()), kernels
+
+
+def profile_split(step, tag: str) -> None:
+    """Where one run of `step` spends its device time, by kernel group,
+    and the top kernels."""
+    groups, total, kernels = kernel_split(step)
     if total == 0:
         log(f"[{tag}] profiler: no device time recorded")
         return
-    groups = {"flash_fwd (port kernel)": 0.0, "GEMM (cuBLAS)": 0.0,
-              "other (elementwise, norms, copies)": 0.0}
-    for e in kernels:
-        t = e.self_device_time_total / 1e3
-        name = e.key.lower()
-        if "flash_fwd" in name:
-            groups["flash_fwd (port kernel)"] += t
-        elif any(s in name for s in ("gemm", "xmma", "cutlass", "cublas",
-                                     "nvjet")):
-            groups["GEMM (cuBLAS)"] += t
-        else:
-            groups["other (elementwise, norms, copies)"] += t
     log(f"[{tag}] profiled step: {total:.1f} ms of kernel time: " + ", ".join(
         f"{k} {v:.1f} ms ({100 * v / total:.1f}%)" for k, v in groups.items()))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
@@ -683,8 +728,13 @@ def visible_pairs(b, lq, lk, k_lens, mkw, dev):
     return pairs
 
 
-def phase_backward_kernels():
-    """Returns the measurement of K2's JSON row (case a)."""
+def backward_case(tag, name, b, lq, lk, k_lens, mkw, lib_ok, gen,
+                  n=12, d=128):
+    """K2 (and K1 with the LSE that feeds it) at one shape against the
+    plain versions, then timed: the forward with the LSE (and the
+    library's, unmasked), K2 alone on preallocated outputs and with its
+    wrapper, the plain backward, SDPA's backward on the unmasked shape
+    where `lib_ok`, and the five-product bound. Returns the row."""
     import torch
     import torch.nn.functional as F
     from omnihuman_tpu_torch.ops.flash_attention import (
@@ -692,14 +742,103 @@ def phase_backward_kernels():
         flash_bwd_cuda, flash_bwd_launch, flash_bwd_plain)
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(4321)
-    n, d = 12, 128
-    L = FLAGSHIP["seq_len"]
 
-    def rnd(b, l):
-        return torch.randn((b, l, n, d), generator=gen, device=dev
+    def rnd(rows):
+        return torch.randn((b, rows, n, d), generator=gen, device=dev
                            ).to(torch.bfloat16)
 
+    q, k, v, dout = rnd(lq), rnd(lk), rnd(lk), rnd(lq)
+    kl = (None if k_lens is None else
+          torch.tensor(k_lens, dtype=torch.int32, device=dev))
+    out, lse = flash_attention_cuda(q, k, v, k_lens=kl, return_lse=True,
+                                    **mkw)
+    torch.cuda.synchronize()
+    want_out, want_lse = flash_attention_plain(q, k, v, k_lens=kl,
+                                               return_lse=True, **mkw)
+    if not torch.equal(out, flash_attention_cuda(q, k, v, k_lens=kl,
+                                                 **mkw)):
+        fail(f"forward with and without the LSE differ in {name}")
+    lse_err = (lse - want_lse).abs().max().item()
+    if lse_err > 1e-3:
+        fail(f"LSE kernel vs plain: {lse_err} > 1e-3 in {name}")
+    got = flash_bwd_cuda(q, k, v, out, lse, dout, k_lens=kl, **mkw)
+    torch.cuda.synchronize()
+    want = flash_bwd_plain(q, k, v, out, lse, dout, k_lens=kl, **mkw)
+    errs = []
+    for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+        if not torch.isfinite(a.float()).all():
+            fail(f"{gname} not finite in {name}")
+        err = (a.float() - w.float()).abs().max().item()
+        tol = 2 ** -6 * w.float().abs().max().item()
+        if err > tol:
+            fail(f"{gname} kernel vs plain: {err} > {tol} in {name}")
+        errs.append((gname, err, tol))
+    if k_lens is not None:
+        for i, kv in enumerate(k_lens):
+            if kv == 0 and any(x[i].abs().max().item() != 0.0
+                               for x in got):
+                fail("a row with k_len=0 has a nonzero gradient")
+            if kv < lk and (got[1][i, kv:].abs().max().item() != 0.0
+                            or got[2][i, kv:].abs().max().item() != 0.0):
+                fail(f"keys past k_len have nonzero dK / dV in {name}")
+    # the kernel alone on preallocated outputs, then the whole wrapper
+    klc = _clamped_lens(kl, b, lk, dev)
+    delta = bwd_delta(out, dout)
+    mask = dict(softmax_scale=None, **mkw)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    dk_buf, dv_buf = torch.empty_like(k), torch.empty_like(v)
+    kernel_ms = bench_ms(lambda: flash_bwd_launch(
+        q, k, v, dout, lse, delta, klc, dq_acc, dk_buf, dv_buf, **mask))
+    bwd_ms = bench_ms(lambda: flash_bwd_cuda(
+        q, k, v, out, lse, dout, k_lens=kl, **mkw))
+    fwd_lse_ms = bench_ms(lambda: flash_attention_cuda(
+        q, k, v, k_lens=kl, return_lse=True, **mkw))
+    plain_ms = bench_ms(lambda: flash_bwd_plain(
+        q, k, v, out, lse, dout, k_lens=kl, **mkw), reps=1, warmup=0)
+    lib_ms = lse_lib_ms = None
+    if lib_ok:   # yardstick only: the port never calls SDPA
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        # the library's forward that also returns the LSE (unmasked); a
+        # yardstick only, so a missing private op is logged, not fatal
+        try:
+            lse_lib_ms = bench_ms(
+                lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                    qt.detach(), kt.detach(), vt.detach()))
+        except (RuntimeError, AttributeError) as e:
+            log(f"[{tag}] library forward with LSE not measured: {e}")
+        ot = F.scaled_dot_product_attention(qt, kt, vt)
+        dt = dout.transpose(1, 2)
+        lib_ms = bench_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dt, retain_graph=True))
+        del qt, kt, vt, ot
+    pairs = visible_pairs(b, lq, lk, k_lens, mkw, dev)
+    bound, by = backward_bound(b * lq, b * lk, pairs, n, d)
+    fwd_bound = ("n/a (masked)" if mkw else "%.3f ms, %s" % attention_bound(
+        b, lq, n, d, [lk] * b if k_lens is None else
+        [min(x, lk) for x in k_lens]))
+    log(f"[{tag}] {name}: " + ", ".join(
+        f"{g} err {e:.3g} (tol {t:.3g})" for g, e, t in errs)
+        + f", LSE err {lse_err:.3g}; forward with LSE {fwd_lse_ms:.3f} "
+        f"ms (bound {fwd_bound}; library forward with LSE "
+        f"{lse_lib_ms if lse_lib_ms is None else round(lse_lib_ms, 3)} "
+        f"ms); K2 kernel {kernel_ms:.3f} ms, with its wrapper "
+        f"{bwd_ms:.3f} ms (bound {bound:.3f}, {by}), plain backward "
+        f"{plain_ms:.1f} ms, SDPA backward "
+        f"{lib_ms if lib_ms is None else round(lib_ms, 3)} ms")
+    del q, k, v, dout, out, lse, got, want, want_out, want_lse, delta
+    del dq_acc, dk_buf, dv_buf
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(e for _, e, _ in errs), ms=bwd_ms,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms)
+
+
+def phase_backward_kernels():
+    """Returns the measurement of K2's JSON row (case a)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    L = FLAGSHIP["seq_len"]
     cases = [
         # name, B, Lq, Lk, k_lens, mask kwargs, SDPA yardstick
         ("a self-attention L=32768 k_len=32760", 1, L, L, (32760,), {}, True),
@@ -719,92 +858,29 @@ def phase_backward_kernels():
          True),
     ]
     rows = {}
-    for name, b, lq, lk, k_lens, mkw, lib_ok in cases:
-        q, k, v, dout = rnd(b, lq), rnd(b, lk), rnd(b, lk), rnd(b, lq)
-        kl = (None if k_lens is None else
-              torch.tensor(k_lens, dtype=torch.int32, device=dev))
-        out, lse = flash_attention_cuda(q, k, v, k_lens=kl, return_lse=True,
-                                        **mkw)
-        torch.cuda.synchronize()
-        want_out, want_lse = flash_attention_plain(q, k, v, k_lens=kl,
-                                                   return_lse=True, **mkw)
-        if not torch.equal(out, flash_attention_cuda(q, k, v, k_lens=kl,
-                                                     **mkw)):
-            fail(f"forward with and without the LSE differ in {name}")
-        lse_err = (lse - want_lse).abs().max().item()
-        if lse_err > 1e-3:
-            fail(f"LSE kernel vs plain: {lse_err} > 1e-3 in {name}")
-        got = flash_bwd_cuda(q, k, v, out, lse, dout, k_lens=kl, **mkw)
-        torch.cuda.synchronize()
-        want = flash_bwd_plain(q, k, v, out, lse, dout, k_lens=kl, **mkw)
-        errs = []
-        for gname, a, w in zip(("dq", "dk", "dv"), got, want):
-            if not torch.isfinite(a.float()).all():
-                fail(f"{gname} not finite in {name}")
-            err = (a.float() - w.float()).abs().max().item()
-            tol = 2 ** -6 * w.float().abs().max().item()
-            if err > tol:
-                fail(f"{gname} kernel vs plain: {err} > {tol} in {name}")
-            errs.append((gname, err, tol))
-        if k_lens is not None:
-            for i, kv in enumerate(k_lens):
-                if kv == 0 and any(x[i].abs().max().item() != 0.0
-                                   for x in got):
-                    fail("a row with k_len=0 has a nonzero gradient")
-                if kv < lk and (got[1][i, kv:].abs().max().item() != 0.0
-                                or got[2][i, kv:].abs().max().item() != 0.0):
-                    fail(f"keys past k_len have nonzero dK / dV in {name}")
-        # the kernel alone on preallocated outputs, then the whole wrapper
-        klc = _clamped_lens(kl, b, lk, dev)
-        delta = bwd_delta(out, dout)
-        mask = dict(softmax_scale=None, **mkw)
-        dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=dev)
-        dk_buf, dv_buf = torch.empty_like(k), torch.empty_like(v)
-        kernel_ms = bench_ms(lambda: flash_bwd_launch(
-            q, k, v, dout, lse, delta, klc, dq_acc, dk_buf, dv_buf, **mask))
-        bwd_ms = bench_ms(lambda: flash_bwd_cuda(
-            q, k, v, out, lse, dout, k_lens=kl, **mkw))
-        fwd_lse_ms = bench_ms(lambda: flash_attention_cuda(
-            q, k, v, k_lens=kl, return_lse=True, **mkw))
-        plain_ms = bench_ms(lambda: flash_bwd_plain(
-            q, k, v, out, lse, dout, k_lens=kl, **mkw), reps=1, warmup=0)
-        lib_ms = lse_lib_ms = None
-        if lib_ok:   # yardstick only: the port never calls SDPA
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
-                          for x in (q, k, v))
-            # the library's forward that also returns the LSE (unmasked);
-            # a yardstick only, so a missing private op is logged, not fatal
-            try:
-                lse_lib_ms = bench_ms(
-                    lambda: torch.ops.aten._scaled_dot_product_flash_attention(
-                        qt.detach(), kt.detach(), vt.detach()))
-            except (RuntimeError, AttributeError) as e:
-                log(f"[7] library forward with LSE not measured: {e}")
-            ot = F.scaled_dot_product_attention(qt, kt, vt)
-            dt = dout.transpose(1, 2)
-            lib_ms = bench_ms(lambda: torch.autograd.grad(
-                ot, (qt, kt, vt), dt, retain_graph=True))
-            del qt, kt, vt, ot
-        pairs = visible_pairs(b, lq, lk, k_lens, mkw, dev)
-        bound, by = backward_bound(b * lq, b * lk, pairs, n, d)
-        log(f"[7] {name}: " + ", ".join(
-            f"{g} err {e:.3g} (tol {t:.3g})" for g, e, t in errs)
-            + f", LSE err {lse_err:.3g}; forward with LSE {fwd_lse_ms:.3f} "
-            f"ms (library forward with LSE "
-            f"{lse_lib_ms if lse_lib_ms is None else round(lse_lib_ms, 3)} "
-            f"ms); K2 kernel {kernel_ms:.3f} ms, with its wrapper "
-            f"{bwd_ms:.3f} ms (bound {bound:.3f}, {by}), plain backward "
-            f"{plain_ms:.1f} ms, SDPA backward "
-            f"{lib_ms if lib_ms is None else round(lib_ms, 3)} ms")
-        if name.startswith("a "):
-            rows["k2"] = dict(max_abs_err=max(e for _, e, _ in errs),
-                              ms=bwd_ms, kernel_ms=kernel_ms,
-                              plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                              library_ms=lib_ms)
-        del q, k, v, dout, out, lse, got, want, want_out, want_lse, delta
-        del dq_acc, dk_buf, dv_buf
-        torch.cuda.empty_cache()
+    for case in cases:
+        row = backward_case("7", *case, gen)
+        if case[0].startswith("a "):
+            rows["k2"] = row
     return rows
+
+
+def same_tree(a, b, where: str) -> int:
+    """Fail unless two state trees (dicts of tensors and values) are
+    bit-equal, each tensor compared on a's device; returns the bytes of
+    the tensors compared."""
+    import torch
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            fail(f"restored keys differ at {where}")
+        return sum(same_tree(a[k], b[k], f"{where}/{k}") for k in a)
+    if isinstance(a, torch.Tensor):
+        if a.dtype != b.dtype or not torch.equal(a, b.to(a.device)):
+            fail(f"restored tensor differs at {where}")
+        return a.numel() * a.element_size()
+    if a != b:
+        fail(f"restored value differs at {where}: {a} != {b}")
+    return 0
 
 
 def _count(kernels):
@@ -896,23 +972,7 @@ def phase_training_main_path(kernels):
         fail(f"checkpoint steps {mgr.all_steps()} / metadata unexpected")
     restored = mgr.restore()
     live = state.state_dict()
-    n_bytes = 0
-
-    def same(a, b, where):
-        nonlocal n_bytes
-        if isinstance(a, dict):
-            if set(a) != set(b):
-                fail(f"restored keys differ at {where}")
-            for key in a:
-                same(a[key], b[key], f"{where}/{key}")
-        elif isinstance(a, torch.Tensor):
-            n_bytes += a.numel() * a.element_size()
-            if a.dtype != b.dtype or not torch.equal(a, b.cpu()):
-                fail(f"restored tensor differs at {where}")
-        elif a != b:
-            fail(f"restored value differs at {where}: {a} != {b}")
-
-    same(restored, live, "state")
+    n_bytes = same_tree(restored, live, "state")
     log(f"[8] checkpoint of step 2 ({n_bytes / 2 ** 30:.2f} GiB: bf16 "
         f"parameters, EMA, AdamW mu and nu) restored bit-equal in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1056,37 +1116,7 @@ def phase_flagship_distill_step(state, opt):
         f"batch 1): {sec:.2f} s, loss {loss:.6g}, peak device memory "
         f"{peak:.1f} GiB")
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in kernels) / 1e3
-    if total == 0:
-        log("[10] profiler: no device time recorded")
-        return sec
-    groups = {"flash_fwd (K1)": 0.0, "flash_bwd (K2)": 0.0,
-              "GEMM (cuBLAS)": 0.0,
-              "other (elementwise, norms, optimizer, copies)": 0.0}
-    for e in kernels:
-        t = e.self_device_time_total / 1e3
-        name = e.key.lower()
-        if "flash_fwd" in name:
-            groups["flash_fwd (K1)"] += t
-        elif "flash_bwd" in name:
-            groups["flash_bwd (K2)"] += t
-        elif any(x in name for x in ("gemm", "xmma", "cutlass", "cublas",
-                                     "nvjet")):
-            groups["GEMM (cuBLAS)"] += t
-        else:
-            groups["other (elementwise, norms, optimizer, copies)"] += t
-    log(f"[10] profiled step: {total:.1f} ms of kernel time: " + ", ".join(
-        f"{k} {v:.1f} ms ({100 * v / total:.1f}%)" for k, v in groups.items()))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[10]   {e.self_device_time_total / 1e3:9.1f} ms "
-            f"x{e.count:<5d} {e.key[:90]}")
+    profile_split(step, "10")
     return sec
 
 
@@ -1718,6 +1748,411 @@ def phase_int8_step():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 18: OmniHuman training
+
+OMNI_TRAIN = dict(task="t2v-1.3B", size=(256, 256), pixel_frames=49,
+                  f_lat=13, heatmap=(64, 64), sr=16000,
+                  big_lat=(1, 16, 13, 60, 104),
+                  caption="a man talking to the camera, studio light")
+
+
+def _omni_train_config(path, out_dir, last_steps):
+    """configs/omni_config.yaml with two stages: the repo's
+    text_reference_audio (1 step) and all_conditions (`last_steps`) with
+    its audio and pose ratios at 1.0; checkpoint_interval stays 1000, so
+    only the stage-final saves happen."""
+    from omnihuman_tpu_torch.utils.config_io import load_yaml, save_snapshot
+    cfg = load_yaml(os.path.join(HERE, "configs", "omni_config.yaml"))
+    stages = {s["name"]: s for s in cfg["stages"]}
+    last = dict(stages["all_conditions"], num_steps=last_steps)
+    last["condition_ratios"] = dict(last["condition_ratios"], audio=1.0,
+                                    pose=1.0)
+    cfg["stages"] = [dict(stages["text_reference_audio"], num_steps=1), last]
+    cfg["training"]["output_dir"] = out_dir
+    cfg["training"]["log_interval"] = 1
+    if cfg["training"]["checkpoint_interval"] <= last_steps:
+        fail("the smoke's stages would save mid-stage")
+    save_snapshot(cfg, os.path.dirname(path), os.path.basename(path))
+    return path
+
+
+def _omni_train_samples(stages, num_keypoints, audio_dim):
+    """factory(stage) -> an endless iterator of one-sample batches, as
+    OmniHumanDataset gives them for a 256x256 video with audio and
+    keypoints: seeded frames [3, 49, 256, 256] in [-1, 1], the first frame
+    as the reference, a seeded 16 kHz waveform through the log-mel
+    extractor ([49, 1024], one row a pixel frame) when the stage's audio
+    ratio is above 0, seeded keypoints as heatmaps [308, 49, 64, 64] when
+    its pose ratio is."""
+    import numpy as np
+    from omnihuman_tpu_torch.omni.dataset import (
+        AudioFeatureExtractor, generate_heatmaps)
+    rng = np.random.default_rng(18)
+    t_px, (h, w) = OMNI_TRAIN["pixel_frames"], OMNI_TRAIN["size"]
+    n = int(t_px / 16.0 * OMNI_TRAIN["sr"])
+    tt = np.arange(n) / OMNI_TRAIN["sr"]
+    wav = (0.3 * np.sin(2 * np.pi * 180 * tt) * np.sin(2 * np.pi * 2 * tt)
+           + 0.05 * rng.normal(size=n)).astype(np.float32)
+    audio = AudioFeatureExtractor(dim=audio_dim)(wav, OMNI_TRAIN["sr"],
+                                                 t_px)
+    kps = rng.uniform(0.0, 1.0, (t_px, num_keypoints, 3)).astype(np.float32)
+    pose = np.stack([generate_heatmaps(k, OMNI_TRAIN["heatmap"])
+                     for k in kps], axis=1)
+
+    def factory(stage_idx):
+        ratios = stages[stage_idx].condition_ratios
+        while True:
+            frames = rng.uniform(-1.0, 1.0, (3, t_px, h, w)).astype(
+                np.float32)
+            cond = {"text": OMNI_TRAIN["caption"], "reference": frames[:, :1]}
+            if ratios.get("audio", 0) > 0:
+                cond["audio"] = audio
+            if ratios.get("pose", 0) > 0:
+                cond["pose"] = pose
+            yield [{"frames": frames, "conditions": cond,
+                    "metadata": {"start": 0}}]
+    return factory, audio.shape, pose.shape
+
+
+def _omni_step_launches(stage, layers):
+    """K1 long-K / short-K and K2 launches of one omni training step with
+    per-block remat: every attention runs K1 twice (forward, recompute)
+    and K2 once; self-attention is long-K, the text (512 keys) and audio
+    (49 keys, only when the batch carries audio) cross-attentions
+    short-K."""
+    n_cross = 1 + (stage.condition_ratios.get("audio", 0) > 0)
+    return (2 * layers, 2 * layers * n_cross, layers * (1 + n_cross))
+
+
+def _disk_free(path):
+    return shutil.disk_usage(path).free / 1e9
+
+
+def _gib_in_use():
+    import torch
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def phase_omni_train(all_kernels, flash_kernels):
+    """Phase 18 (a)-(d); returns the launches of (a)'s first run."""
+    import numpy as np
+    import torch
+    from unittest import mock
+    from omnihuman_tpu_torch.cli import omni_inference, train_omni
+    from omnihuman_tpu_torch.omni.trainer import (
+        draw_step_inputs, omni_flow_matching_loss, omni_train_step)
+    from omnihuman_tpu_torch.ops import flash_attention as fa
+
+    work = os.path.join(WORK, "omni_train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = os.path.join(work, "ckpt")
+    base_argv = ["--task", OMNI_TRAIN["task"]]
+
+    # (a) cli.train_omni.run: 2 stages x 1 step, then --resume
+    args = train_omni.build_parser().parse_args(
+        ["--config", _omni_train_config(os.path.join(work, "run1.yaml"),
+                                        out, 1)] + base_argv)
+    t0 = time.perf_counter()
+    setup = train_omni.load_setup(args)
+    model = setup.trainer.state.model
+    dim = model.cfg.dim
+    g = torch.Generator(device="cuda").manual_seed(5)
+    with torch.no_grad():   # the reference zero-inits these: no-ops
+        model.base.head.head.weight.normal_(0.0, dim ** -0.5, generator=g)
+        for w in (model.cond.pose_proj.weight,
+                  *(b.audio_attn.o.weight for b in model.base.blocks)):
+            w.normal_(0.0, 0.1 * dim ** -0.5, generator=g)
+    torch.cuda.synchronize()
+    params = setup.trainer.state.params()
+    n_params = sum(p.numel() for p in params.values())
+    layers = model.cfg.base.num_layers
+    log(f"[18] train setup (OmniModel t2v-1.3B, {layers} layers + audio "
+        f"adapters, fp32 parameters and AdamW moments: {n_params / 1e9:.3f} "
+        f"B parameters; umT5-xxl bf16; Wan 2.1 VAE bf16, conv_impl auto) "
+        f"in {time.perf_counter() - t0:.1f} s; "
+        f"{_disk_free(work):.0f} GB free on the disk")
+    factory, a_shape, p_shape = _omni_train_samples(
+        setup.stages, setup.ocfg.num_keypoints, setup.ocfg.audio_dim)
+    log(f"[18] samples: frames (3, {OMNI_TRAIN['pixel_frames']}, 256, 256),"
+        f" audio features {a_shape}, heatmaps {p_shape}; stages "
+        + ", ".join(f"{s.name} x {s.num_steps} {s.condition_ratios}"
+                    for s in setup.stages))
+
+    def expected(stage_steps):
+        want = {kn.name: 0 for kn in all_kernels}
+        for stage, steps in stage_steps:
+            for kn, n in zip(flash_kernels,
+                             _omni_step_launches(stage, layers)):
+                want[kn.name] += n * steps
+            # K3: the 49-frame encode (13 chunks) and the reference, 20
+            # fused convs a chunk; no decode, so no K4
+            want[all_kernels[-2].name] += 20 * (OMNI_TRAIN["f_lat"] + 1) \
+                * steps
+        return want
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero(all_kernels)
+    t0 = time.perf_counter()
+    train_omni.run(args, factory, setup)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = _count(all_kernels)
+    want = expected([(s, s.num_steps) for s in setup.stages])
+    saves = setup.trainer.saves
+    log(f"[18] run 1: {setup.trainer.state.step} steps in {total:.1f} s "
+        f"with {len(saves)} saves ("
+        + ", ".join(f"step {r['step']}: {r['bytes'] / 1e9:.2f} GB in "
+                    f"{r['seconds']:.1f} s" for r in saves)
+        + f"); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; "
+        f"{_disk_free(work):.0f} GB free; launches {counts}, expected {want}"
+        f" (a step: {layers} layers x self + text + audio attention, K1 "
+        f"forward + remat recompute, one K2 each; K3 20 x 14 encode "
+        f"chunks)")
+    if counts != want:
+        fail("the omni training path did not send every attention "
+             "forward, recompute and backward through K1 / K2 and every "
+             "encoder conv through K3")
+    from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
+    mgr = CheckpointManager(out)
+    if mgr.all_steps() != [1, 2] or mgr.restore_metadata(2) != {
+            "stage": 1, "final": True}:
+        fail(f"omni checkpoints {mgr.all_steps()} / metadata "
+             f"{mgr.restore_metadata(2)} unexpected")
+    ref_state = setup.trainer.state        # what step 2 saved, on the card
+    del setup, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(out, "step_00000001"))   # no longer needed
+    log(f"[18] {_gib_in_use():.1f} GiB in use with run 1's state kept")
+
+    args2 = train_omni.build_parser().parse_args(
+        ["--config", _omni_train_config(os.path.join(work, "run2.yaml"),
+                                        out, 2), "--resume"] + base_argv)
+    t0 = time.perf_counter()
+    setup = train_omni.load_setup(args2)
+    checked = []
+
+    def resumed_factory(stage_idx):
+        # train() calls this right after restoring step 2
+        if not checked:
+            t1 = time.perf_counter()
+            checked.append(same_tree(setup.trainer.state.state_dict(),
+                                     ref_state.state_dict(), "state"))
+            log(f"[18] restored state of step 2 bit-equal to what was "
+                f"saved: {checked[0] / 1e9:.2f} GB of params, mu and nu, "
+                f"count and step ({time.perf_counter() - t1:.1f} s)")
+        return factory(stage_idx)
+
+    _zero(all_kernels)
+    train_omni.run(args2, resumed_factory, setup)
+    torch.cuda.synchronize()
+    counts2 = _count(all_kernels)
+    want2 = expected([(setup.stages[-1], 1)])
+    saves = setup.trainer.saves
+    log(f"[18] run 2 (--resume, last stage at 2 steps): to step "
+        f"{setup.trainer.state.step} in {time.perf_counter() - t0:.1f} s "
+        f"(setup, restore, one step, "
+        + ", ".join(f"save of step {r['step']}: {r['bytes'] / 1e9:.2f} GB "
+                    f"in {r['seconds']:.1f} s" for r in saves)
+        + f"); launches {counts2}, expected {want2}")
+    if not checked or setup.trainer.state.step != 3 or len(saves) != 1 \
+            or counts2 != want2:
+        fail("the resumed run did not restore step 2 and take exactly "
+             "one step")
+    del ref_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[18] {_gib_in_use():.1f} GiB in use after run 2")
+
+    # (b) one step at (a)'s geometry, kernels against plain attention
+    sample = next(factory(len(setup.stages) - 1))
+    batch = train_omni.assemble_batch(sample, setup)
+    setup.text_encoder = None         # umT5 is not needed past here
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, opt = setup.trainer.state, setup.trainer.optimizer
+    all_on = {"audio": 1.0, "pose": 1.0, "reference": 1.0}
+    gen = torch.Generator(device="cuda").manual_seed(180)
+    masks, t, noise = draw_step_inputs(gen, batch["frames"].shape, all_on,
+                                       "cuda")
+    plist = list(state.params().values())
+
+    def grads_of(b, nz):
+        loss = omni_flow_matching_loss(state.model, b, masks, t, nz,
+                                       policy=setup.policy, remat=True)
+        return loss.detach(), torch.autograd.grad(
+            loss, plist, allow_unused=True, materialize_grads=True)
+
+    _zero(all_kernels)
+    loss_k, grads_k = grads_of(batch, noise)
+    if not all(_count(flash_kernels).values()):
+        fail(f"the kernel pass missed a kernel: {_count(flash_kernels)}")
+    _zero(all_kernels)
+    with mock.patch.object(fa, "flash_fwd", fa.flash_attention_plain), \
+            mock.patch.object(fa, "flash_bwd", fa.flash_bwd_plain):
+        loss_p, grads_p = grads_of(batch, noise)
+    torch.cuda.synchronize()
+    if any(_count(flash_kernels).values()):
+        fail(f"the plain pass launched kernels: {_count(flash_kernels)}")
+    num = sum((a.float() - b.float()).square().sum() for a, b in
+              zip(grads_k, grads_p))
+    den = sum(b.float().square().sum() for b in grads_p)
+    rel_g = (num / den).sqrt().item()
+    rel_l = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    log(f"[18] omni loss + gradients (3,584 packed tokens, Lc 512, 49 audio"
+        f" keys, every condition on), kernels vs plain attention: loss "
+        f"{loss_k.item():.6g} vs {loss_p.item():.6g} (relative error "
+        f"{rel_l:.3g}, tol 5e-2), gradients relative L2 {rel_g:.3g} (tol "
+        f"5e-2), gradient norm {den.sqrt().item():.4g}")
+    if not (rel_l <= 5e-2 and rel_g <= 5e-2):
+        fail("omni step: kernels disagree with plain attention")
+    del grads_k, grads_p, plist
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def small_step():
+        omni_train_step(state, batch, masks, t, noise, optimizer=opt,
+                        policy=setup.policy, remat=True)
+
+    small_step()                                      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    small_step()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    split, busy, _ = kernel_split(small_step)
+    log(f"[18] one omni training step at (a)'s geometry (3,584 tokens, "
+        f"batch assembled ahead): {sec:.3f} s; its profiled twin holds "
+        f"{busy:.1f} ms of kernel time ({100 * busy / (sec * 1e3):.1f}% of "
+        f"the unprofiled step; the rest is the host issuing work): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()))
+    del batch
+
+    # (c) one timed step at 480x832: 20,280 + 1,560 tokens -> 22,528
+    lat = OMNI_TRAIN["big_lat"]
+    _, c, f, h, w = lat
+    big = {"frames": torch.randn(lat, generator=gen, device="cuda"),
+           "context": torch.randn((1, 512, 4096), generator=gen,
+                                  device="cuda"),
+           "audio": torch.randn((1, OMNI_TRAIN["pixel_frames"], 1024),
+                                generator=gen, device="cuda"),
+           "pose": torch.rand((1, 308, f, 2 * h, 2 * w), generator=gen,
+                              device="cuda").to(torch.bfloat16),
+           "reference": torch.randn((1, c, 1, h, w), generator=gen,
+                                    device="cuda")}
+    masks, t, noise = draw_step_inputs(gen, lat, all_on, "cuda")
+
+    def step():
+        _, m = omni_train_step(state, big, masks, t, noise, optimizer=opt,
+                               policy=setup.policy, remat=True)
+        return float(m["loss"])
+
+    step()                                            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(all_kernels)
+    t0 = time.perf_counter()
+    loss = step()
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    big_counts = _count(flash_kernels)
+    want_big = dict(zip(big_counts, _omni_step_launches(setup.stages[-1],
+                                                        layers)))
+    if loss != loss or big_counts != want_big:
+        fail(f"480x832 omni step: loss {loss}, launches {big_counts}, "
+             f"expected {want_big}")
+    holder = {}
+
+    def fwd_bwd():
+        params = state.params()
+        loss = omni_flow_matching_loss(state.model, big, masks, t, noise,
+                                       policy=setup.policy, remat=True)
+        holder["grads"] = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()), allow_unused=True,
+            materialize_grads=True)))
+
+    fb, fb_total, _ = kernel_split(fwd_bwd)
+    _, opt_total, _ = kernel_split(lambda: opt.step(
+        state.params(), holder.pop("grads"), state.opt_state))
+    total_ms = fb_total + opt_total
+    fb["rest (elementwise, norms, copies)"] = fb.pop(
+        "rest (elementwise, norms, optimizer, copies)")
+    split = dict(fb, optimizer=opt_total)
+    log(f"[18] omni training step at 480x832 (latents {lat}, 21,840 packed "
+        f"tokens -> 22,528, Lc 512, 49 audio keys, heatmaps 308 x 13 x 240 "
+        f"x 416 bf16, {layers} layers, per-block remat, batch 1): "
+        f"{sec:.3f} s, loss {loss:.6g}, peak device memory {peak:.1f} GiB; "
+        f"launches {big_counts}; profiled: " + (
+            f"{total_ms:.1f} ms of kernel time: " + ", ".join(
+                f"{k} {v:.1f} ms ({100 * v / total_ms:.1f}%)"
+                for k, v in split.items()) if total_ms else
+            "no device time recorded"))
+    del big, state, opt, holder, noise
+    setup.trainer = None
+    del setup
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K1 with the LSE and K2 alone at the omni training shapes
+    kgen = torch.Generator(device="cuda").manual_seed(1818)
+    rows = {}
+    for key, case in (
+            ("self_3584", ("self-attention Lq=Lk=3584", 1, 3584, 3584, None,
+                           {}, True)),
+            ("self_22528", ("self-attention Lq=Lk=22528 k_len=21840", 1,
+                            22528, 22528, (21840,), {}, True)),
+            ("text_22528", ("text cross-attention Lq=22528 Lc=512", 1,
+                            22528, 512, None, {}, True)),
+            ("audio_22528", ("audio cross-attention Lq=22528 Lk=49", 1,
+                             22528, 49, None, {}, True)),
+            ("audio_3584", ("audio cross-attention Lq=3584 Lk=49", 1, 3584,
+                            49, None, {}, True))):
+        rows[key] = backward_case("18", *case, kgen)
+
+    # (d) cli.omni_inference.run with --checkpoint on (a)'s final state
+    rng = np.random.default_rng(19)
+    img = rng.integers(0, 256, (256, 256, 3), dtype=np.uint8)
+    n = int(1.0 * OMNI_TRAIN["sr"])
+    wav = (0.3 * np.sin(2 * np.pi * 200 * np.arange(n) / OMNI_TRAIN["sr"])
+           + 0.05 * rng.normal(size=n)).astype(np.float32)
+    inf_argv = ["--task", OMNI_TRAIN["task"], "--size", "256*256",
+                "--num_frames", "13", "--total_frames", "13",
+                "--num_inference_steps", "2", "--seed", "7"]
+    videos = {}
+    for name, extra in (("trained", ["--checkpoint", out]), ("random", [])):
+        a = omni_inference.build_parser().parse_args(inf_argv + extra)
+        a.output = None
+        t0 = time.perf_counter()
+        pipe = omni_inference.build_pipeline(a)
+        build_s = time.perf_counter() - t0
+        _zero(all_kernels)
+        t0 = time.perf_counter()
+        res = omni_inference.run(a, img, wav, OMNI_TRAIN["sr"], pipe=pipe)
+        torch.cuda.synchronize()
+        v = res["video"].float()
+        log(f"[18] omni_inference {name} ({' '.join(extra) or 'random init'}"
+            f"): pipeline built in {build_s:.1f} s, request "
+            f"{time.perf_counter() - t0:.1f} s, video {tuple(v.shape)} in "
+            f"[{v.min().item():.3f}, {v.max().item():.3f}]; launches "
+            f"{_count(all_kernels)}")
+        if tuple(v.shape) != (3, 49, 256, 256) or not torch.isfinite(v).all():
+            fail(f"omni_inference {name}: wrong shape or non-finite video")
+        videos[name] = v.cpu()
+        del pipe, res, v
+        gc.collect()
+        torch.cuda.empty_cache()
+    diff = (videos["trained"] - videos["random"]).abs().max().item()
+    log(f"[18] --checkpoint video vs random-init video: max abs difference "
+        f"{diff:.4g}")
+    if diff == 0.0:
+        fail("--checkpoint did not change the omni output")
+    shutil.rmtree(work, ignore_errors=True)
+    return counts, rows
+
+
 def run_training_phases(all_kernels, paths):
     """Phases 8-11 (the attention kernels K1 / K2 only); their models and
     states are dropped on return."""
@@ -1771,6 +2206,10 @@ def main() -> None:
     paths["one_step"] = phase_one_step(all_kernels, kernels)
     paths["omni"] = phase_omni(all_kernels, kernels)
     phase_int8_step()
+    try:
+        paths["omni_train"], _ = phase_omni_train(all_kernels, flash_kernels)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
     log(f"smoke wall time {time.perf_counter() - t_start:.0f} s")
 
     def by_path(kn):

@@ -24,7 +24,7 @@ state (tensors and Python ints, so `torch.save` stores it), and
 
 from __future__ import annotations
 
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Union
 
 import numpy as np
 import torch
@@ -56,10 +56,14 @@ class Optimizer:
 
 class AdamW(Optimizer):
     """optax.chain(clip_by_global_norm(grad_clip), adamw(lr, b1, b2, eps,
-    weight_decay))."""
+    weight_decay)). `lr` is a number or a schedule, a function of the
+    count of updates made before this one (0 on the first step), which is
+    where optax's `scale_by_schedule` evaluates it; the bias corrections
+    use that count + 1."""
 
-    def __init__(self, lr: float, b1: float, b2: float, eps: float,
-                 weight_decay: float, grad_clip: float):
+    def __init__(self, lr: Union[float, Callable[[int], float]], b1: float,
+                 b2: float, eps: float, weight_decay: float,
+                 grad_clip: float):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.weight_decay, self.grad_clip = weight_decay, grad_clip
 
@@ -73,6 +77,7 @@ class AdamW(Optimizer):
         g_norm = global_norm(grads.values())
         scale = torch.where(g_norm < self.grad_clip, torch.ones_like(g_norm),
                             self.grad_clip / g_norm)
+        lr = self.lr(state["count"]) if callable(self.lr) else self.lr
         count = state["count"] + 1
         state["count"] = count
         bc1 = _bias_correction(self.b1, count)
@@ -86,7 +91,7 @@ class AdamW(Optimizer):
             nu.copy_(nu_f)
             u = (mu_f / bc1) / ((nu_f / bc2).sqrt() + self.eps)
             u = u + self.weight_decay * p.float()
-            p.copy_(p.float() - self.lr * u)
+            p.copy_(p.float() - lr * u)
 
 
 class RMSprop(Optimizer):

@@ -11,7 +11,9 @@ bucket), the VAE encodes the reference image, audio features come from
 the wav (log-mel, or Wav2Vec2 with --audio_backbone wav2vec), the omni
 DiT samples window after window with CFG annealing, and the VAE decodes.
 Runs on the GPU unless `--device cpu` is given; weights are random, made
-from a fixed init seed (0); --seed seeds the noise.
+from a fixed init seed (0), unless `--ckpt_dir` (a Wan checkpoint
+directory) or `--checkpoint` (what `cli.train_omni` wrote) gives them;
+--seed seeds the noise.
 
 `main(argv)` parses the flags and reads the files (PIL for the image,
 stdlib `wave` for the audio); `run(args, reference_image, waveform,
@@ -33,9 +35,6 @@ import numpy as np
 LATER_FLAGS = {
     "--pose_video": "pose heatmaps from a driving video through Sapiens "
                     "and cv2 (ROADMAP queue A, item 16)",
-    "--checkpoint": "the omni train state (ROADMAP queue A, item 15's "
-                    "training half)",
-    "--ckpt_dir": "checkpoint directories (ROADMAP queue A, item 8b)",
 }
 
 
@@ -58,8 +57,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prompt", default="a person talking")
     p.add_argument("--neg_prompt", default=None,
                    help="negative prompt (default: the registry's)")
-    p.add_argument("--ckpt_dir", default=None, help="not ported yet")
-    p.add_argument("--checkpoint", default=None, help="not ported yet")
+    p.add_argument("--ckpt_dir", default=None,
+                   help="Wan checkpoint dir: DiT *.safetensors into the omni "
+                        "base, Wan2.1_VAE.pth and the umT5 .pth where present")
+    p.add_argument("--checkpoint", default=None,
+                   help="output dir of cli.train_omni: the latest step's omni "
+                        "parameters (train state or bare params)")
     p.add_argument("--size", default="256*256",
                    help="pixel W*H of the output")
     p.add_argument("--num_frames", type=int, default=13,
@@ -105,12 +108,13 @@ def check_flags(args) -> None:
 
 
 def build_pipeline(args):
-    """The OmniHuman pipeline the flags ask for (random weights, init
-    seed 0)."""
+    """The OmniHuman pipeline the flags ask for (random weights from init
+    seed 0 where --ckpt_dir / --checkpoint give none)."""
     from omnihuman_tpu_torch.configs import WAN_CONFIGS
     from omnihuman_tpu_torch.pipelines.omni import OmniHuman
     return OmniHuman(WAN_CONFIGS[args.task], num_frames=args.num_frames,
-                     precision=args.precision, device=args.device)
+                     precision=args.precision, device=args.device,
+                     ckpt_dir=args.ckpt_dir, checkpoint=args.checkpoint)
 
 
 def run(args, reference_image: np.ndarray, waveform=None,

@@ -198,3 +198,71 @@ def build_t5_encoder(cfg: T5Config, device, dtype: torch.dtype,
     if seed is not None:
         enc.init_weights(torch.Generator(device=device).manual_seed(seed))
     return enc.eval().requires_grad_(False)
+
+
+T5_CHECKPOINT = "models_t5_umt5-xxl-enc-bf16.pth"
+
+
+def load_t5_encoder(cfg: T5Config, ckpt_dir: Optional[str], device,
+                    dtype: torch.dtype, seed: int = 0) -> T5Encoder:
+    """The encoder of `ckpt_dir`'s umT5 file (reference names, loaded
+    strictly) when the directory has one, else a random one from `seed`
+    (JAX `T5TextEncoder`'s rule, models/t5.py:199-212)."""
+    import os
+    path = os.path.join(ckpt_dir, T5_CHECKPOINT) if ckpt_dir else None
+    if path and os.path.exists(path):
+        from omnihuman_tpu_torch.utils.convert import load_torch_state_dict
+        enc = build_t5_encoder(cfg, device, dtype, seed=None)
+        enc.load_state_dict(load_torch_state_dict(path), strict=True)
+        return enc
+    return build_t5_encoder(cfg, device, dtype, seed=seed)
+
+
+class T5TextEncoder:
+    """Tokenizer + umT5 (bf16) with a prompt cache (JAX `models/t5.py:
+    T5TextEncoder`), for callers that need text contexts without a
+    generation pipeline (the omni trainer). Weights from `ckpt_dir`'s umT5
+    file or random from seed 0 (`load_t5_encoder`); captions that recur
+    hit the host cache instead of the encoder."""
+
+    CACHE_SIZE = 4096     # prompts kept on the host
+
+    def __init__(self, cfg: T5Config, text_len: int,
+                 tokenizer_name: str = "google/umt5-xxl",
+                 ckpt_dir: Optional[str] = None, device="cpu"):
+        from omnihuman_tpu_torch.models.tokenizers import HuggingfaceTokenizer
+        self.device = torch.device(device)
+        self.tokenizer = HuggingfaceTokenizer(
+            name=tokenizer_name, seq_len=text_len, clean="whitespace")
+        self.encoder = load_t5_encoder(cfg, ckpt_dir, self.device,
+                                       torch.bfloat16, seed=0)
+        self._cache: dict = {}
+
+    def __call__(self, prompts) -> torch.Tensor:
+        """[str, ...] -> [B, text_len, dim] fp32 context on the device."""
+        return self.encode(prompts)[0]
+
+    @torch.no_grad()
+    def encode(self, prompts):
+        """[str, ...] -> (context [B, text_len, dim] fp32, lens [B] int32,
+        the true token counts), both on the device. The cache is on the
+        host, as JAX keeps it."""
+        missing = [p for p in dict.fromkeys(prompts) if p not in self._cache]
+        if missing:
+            ids, mask = self.tokenizer(missing, return_mask=True)
+            ctx = self.encoder(torch.from_numpy(ids).to(self.device),
+                               torch.from_numpy(mask).to(self.device))
+            lens = mask.sum(axis=1).astype(np.int32)
+            for p, c, n in zip(missing, ctx.cpu(), lens):
+                self._cache[p] = (c, int(n))
+            if len(self._cache) > self.CACHE_SIZE:
+                keep = set(prompts)
+                for p in [p for p in self._cache if p not in keep]:
+                    del self._cache[p]
+                    if len(self._cache) <= self.CACHE_SIZE:
+                        break
+        ctx = torch.stack([self._cache[p][0] for p in prompts]).to(
+            self.device)
+        lens = torch.tensor([self._cache[p][1] for p in prompts],
+                            dtype=torch.int32, device=self.device)
+        return ctx, lens

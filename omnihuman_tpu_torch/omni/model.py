@@ -114,16 +114,32 @@ class OmniModel(nn.Module):
 
 
 def build_omni_model(cfg: OmniModelConfig, device, dtype: torch.dtype,
-                     seed: Optional[int] = 0) -> OmniModel:
+                     seed: Optional[int] = 0,
+                     trainable: bool = False) -> OmniModel:
     """Allocate the omni model straight on `device` in `dtype` and, when
     `seed` is given, fill it by the JAX init from a generator seeded with
-    it. Frozen for serving."""
+    it. Frozen for serving unless `trainable`."""
     with torch.device("meta"):
         model = OmniModel(cfg)
     model = model.to(dtype).to_empty(device=device)
     if seed is not None:
         model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    if trainable:
+        return model.train().requires_grad_(True)
     return model.eval().requires_grad_(False)
+
+
+def load_base_dit(model: OmniModel, dit_state_dict) -> None:
+    """Load a Wan DiT state dict (reference names) into the omni model's
+    base (JAX `init_omni_model(base_params=...)`): every DiT key must
+    match, and only the audio adapters, which a DiT checkpoint lacks, keep
+    their init."""
+    missing, unexpected = model.base.load_state_dict(dit_state_dict,
+                                                     strict=False)
+    stray = [k for k in missing if ".audio_attn." not in k]
+    if unexpected or stray:
+        raise ValueError(f"DiT state dict does not fit the omni base: "
+                         f"missing {stray[:5]}, unexpected {unexpected[:5]}")
 
 
 # ---------------------------------------------------------------------------
@@ -185,10 +201,13 @@ def omni_model_forward(
     cond_mask: Optional[Dict[str, torch.Tensor]] = None,
     context_lens: Optional[torch.Tensor] = None,
     policy: DTypePolicy = DTypePolicy(),
+    remat=True,
 ) -> torch.Tensor:
     """Velocity [B, out_dim, F, H, W] fp32 with the omni conditions
     (JAX `omni_model_forward`). `cond_mask`: {"audio" / "pose" /
-    "reference": [B] in {0, 1}}."""
+    "reference": [B] in {0, 1}}. `remat`: False, True (per block, the JAX
+    default) or an int group size, as `WanModel.body` takes it; it acts
+    only while autograd records."""
     cfg = model.cfg
     base_cfg = cfg.base
     base, cond = model.base, model.cond
@@ -257,5 +276,5 @@ def omni_model_forward(
     out, _ = base.body(tokens, t, context, seq_len=padded_seq_len(n_packed),
                        rope_sin=rope_sin, rope_cos=rope_cos,
                        n_tokens=n_packed, context_lens=context_lens,
-                       policy=policy, audio_ctx=audio_ctx)
+                       policy=policy, remat=remat, audio_ctx=audio_ctx)
     return base.unpatchify(out[:, :n_video], grid).to(torch.float32)

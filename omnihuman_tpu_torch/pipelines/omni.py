@@ -31,11 +31,16 @@ import numpy as np
 import torch
 
 from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanConfig
+from omnihuman_tpu_torch.models.t5 import load_t5_encoder
 from omnihuman_tpu_torch.models.vae import vae_decode, vae_encode
 from omnihuman_tpu_torch.omni.model import (
-    OmniModel, OmniModelConfig, build_omni_model, omni_model_forward)
-from omnihuman_tpu_torch.pipelines.text2video import WanT2V, _sync
+    OmniModel, OmniModelConfig, build_omni_model, load_base_dit,
+    omni_model_forward)
+from omnihuman_tpu_torch.pipelines.text2video import (
+    WanT2V, _sync, resolve_device)
 from omnihuman_tpu_torch.samplers.fm_solvers import get_solver
+from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
+from omnihuman_tpu_torch.utils.convert import load_wan_checkpoint_dir
 
 
 def window_noise(seed: int, window: int, shape, device) -> torch.Tensor:
@@ -83,9 +88,10 @@ def omni_generate(
         v_c = omni_model_forward(
             model, x, tb, context, audio=audio, pose=pose,
             ref_latent=ref_latent, motion_latent=motion_latent,
-            context_lens=context_lens, policy=policy)
+            context_lens=context_lens, policy=policy, remat=False)
         v_u = omni_model_forward(model, x, tb, context_null,
-                                 context_lens=null_lens, policy=policy)
+                                 context_lens=null_lens, policy=policy,
+                                 remat=False)
         v = v_u + float(cfg_t) * (v_c - v_u)
         x, state = sol.step(state, v, x, i)
     return x
@@ -158,21 +164,54 @@ class OmniHuman(WanT2V):
     """The OmniHuman serving pipeline: WanT2V's umT5 (on the card only
     while encoding), VAE and text handling around the omni DiT, random
     weights from `init_seed`. `num_frames`: latent frames a window (the
-    temporal embedding's rows)."""
+    temporal embedding's rows).
+
+    `ckpt_dir`: a Wan checkpoint directory (`utils/convert.py:
+    load_wan_checkpoint_dir`): its DiT goes into the omni base (the
+    adapters and condition encoders stay random), its VAE and umT5 files
+    replace the random ones where present. `checkpoint`: a directory that
+    `omni/trainer.py` wrote (`CheckpointManager` steps): the latest step's
+    parameters, of a train state or a bare parameter dict, replace the
+    omni model's, after `ckpt_dir` and before any int8 quantisation."""
 
     def __init__(self, config: WanConfig, num_frames: int = 13,
                  init_seed: int = 0,
                  param_dtype: torch.dtype = torch.bfloat16, tokenizer=None,
-                 precision: str = "fast", device=None):
+                 precision: str = "fast", device=None,
+                 ckpt_dir: Optional[str] = None,
+                 checkpoint: Optional[str] = None):
         self.omni_config = OmniModelConfig(base=config.model,
                                            num_frames=num_frames)
+        self._ckpt_dir, self._checkpoint = ckpt_dir, checkpoint
+        self._dit_sd = vae = None
+        if ckpt_dir is not None:
+            self._dit_sd, vae = load_wan_checkpoint_dir(
+                ckpt_dir, config.model, config.vae, vae_seed=init_seed + 1,
+                device=resolve_device(device), dtype=param_dtype)
         super().__init__(config, init_seed=init_seed,
                          param_dtype=param_dtype, tokenizer=tokenizer,
                          precision=precision, device=device)
+        if vae is not None:
+            self.vae = vae
 
     def _build_model(self) -> OmniModel:
-        return build_omni_model(self.omni_config, self.device,
-                                self.param_dtype, seed=self._init_seed)
+        model = build_omni_model(self.omni_config, self.device,
+                                 self.param_dtype, seed=self._init_seed)
+        if self._dit_sd is not None:
+            load_base_dit(model, self._dit_sd)
+            self._dit_sd = None
+        if self._checkpoint is not None:
+            restored = CheckpointManager(self._checkpoint).restore()
+            if restored is None:
+                raise FileNotFoundError(
+                    f"no checkpoint step in {self._checkpoint}")
+            params = restored.get("params", restored)
+            model.load_state_dict(params, strict=True)
+        return model
+
+    def _build_t5(self):
+        return load_t5_encoder(self.config.t5, self._ckpt_dir, self.device,
+                               self.param_dtype, seed=self._init_seed + 1000)
 
     @torch.inference_mode()
     def generate(

@@ -100,6 +100,12 @@ class WanT2V:
         return build_wan_model(self.config.model, self.device,
                                self.param_dtype, seed=self._init_seed)
 
+    def _build_t5(self):
+        """The umT5 encoder, random from the init seed (a subclass may load
+        one)."""
+        return build_t5_encoder(self.config.t5, self.device, self.param_dtype,
+                                seed=self._init_seed + 1000)
+
     # -- text encoding ------------------------------------------------------
 
     @property
@@ -107,9 +113,7 @@ class WanT2V:
         """The umT5 encoder on the pipeline's device: built from the seed on
         first use, brought back from host memory after `unload_t5`."""
         if self._t5 is None:
-            self._t5 = build_t5_encoder(self.config.t5, self.device,
-                                        self.param_dtype,
-                                        seed=self._init_seed + 1000)
+            self._t5 = self._build_t5()
         elif next(self._t5.parameters()).device != self.device:
             self._t5.to(self.device)
         return self._t5

@@ -68,8 +68,10 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
+        # mmap: tensors are read as they are used, so a caller that takes
+        # part of a large state (the parameters alone) reads only that
         sd = torch.load(os.path.join(self._path(step), "state.pt"),
-                        map_location="cpu", weights_only=True)
+                        map_location="cpu", weights_only=True, mmap=True)
         if target is not None:
             target.load_state_dict(sd)
             return target

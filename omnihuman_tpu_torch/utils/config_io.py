@@ -5,14 +5,17 @@ the part the training CLIs use).
   - `merge_args(cfg, args)` -> YAML fills argparse fields left at None
     (the reference's precedence, distilled_trainer.py:376-382: a flag set
     on the command line wins)
+  - `save_snapshot(cfg, run_dir)` -> the resolved config as YAML in the
+    run directory
 
-`yaml` is imported only inside `load_yaml`, so the CLIs need it only when
-`--config` is given.
+`yaml` is imported only inside `load_yaml` and `save_snapshot`, so the
+CLIs need it only when they read or write a YAML.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import re
 from typing import Any, Dict
 
@@ -82,3 +85,23 @@ def merge_args(cfg: Dict[str, Any],
         if v is None and k in cfg:
             setattr(args, k, cfg[k])
     return args
+
+
+def save_snapshot(cfg: Dict[str, Any], run_dir: str,
+                  name: str = "config_snapshot.yaml") -> str:
+    """Write `cfg` (interpolated) to `run_dir/name`; returns the path."""
+    import yaml
+    os.makedirs(run_dir, exist_ok=True)
+    path = os.path.join(run_dir, name)
+
+    def plain(o):
+        if isinstance(o, dict):
+            return {k: plain(v) for k, v in o.items()}
+        if isinstance(o, list):
+            return [plain(v) for v in o]
+        return o
+
+    with open(path, "w") as f:
+        yaml.safe_dump(plain(dict(cfg)), f, sort_keys=False,
+                       allow_unicode=True)
+    return path

@@ -278,14 +278,95 @@ def load_wan_dit_checkpoint(model, checkpoint_dir: str) -> None:
     """Load the DiT weights of a reference checkpoint directory (every
     `*.safetensors` file in it, reference parameter names, as the JAX
     WanT2V._load_checkpoint reads it) into `model`, cast to its dtype."""
+    sd, _ = load_wan_checkpoint_dir(checkpoint_dir, model.cfg)
+    if sd is None:
+        raise FileNotFoundError(f"no *.safetensors in {checkpoint_dir}")
+    model.load_state_dict(sd, strict=True)
+
+
+def omni_train_state_from_jax(state, cfg) -> Dict[str, Any]:
+    """A JAX OmniTrainState (params, optax opt_state, step; numpy or jax
+    arrays) -> the state dict `omni/trainer.py:OmniTrainState` loads:
+    {"params", "opt_state": {"count", "mu", "nu"}, "step"}. AdamW's moments
+    sit in optax's ScaleByAdamState (found by its fields inside the chain's
+    nested state) and have the parameters' layout, so they go through the
+    same carrier as the parameters."""
+    adam = _find_adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState (mu, nu, count) in the "
+                         "optimizer state")
+    return {"params": omni_state_dict_from_jax(state.params, cfg),
+            "opt_state": {"count": int(np.asarray(adam.count)),
+                          "mu": omni_state_dict_from_jax(adam.mu, cfg),
+                          "nu": omni_state_dict_from_jax(adam.nu, cfg)},
+            "step": int(np.asarray(state.step))}
+
+
+def _find_adam_state(node):
+    if all(hasattr(node, f) for f in ("mu", "nu", "count")):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find_adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def load_torch_state_dict(path: str) -> StateDict:
+    """A `.safetensors` or `torch.save` file -> {name: tensor} on the host
+    (a `{"state_dict": ...}` wrapper is unwrapped)."""
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+        return dict(load_file(path))
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return dict(sd)
+
+
+def load_wan_checkpoint_dir(ckpt_dir: str, model_cfg: WanModelConfig,
+                            vae_cfg: VAEConfig = None, vae_seed: int = 1,
+                            device="cpu", dtype: torch.dtype = torch.float32):
+    """A Wan checkpoint directory in the reference layout (JAX
+    `utils/convert.py:load_wan_checkpoint_dir`):
+
+      *.safetensors shards -> the DiT's state dict (None when there are
+                              none), checked against `model_cfg`'s names
+                              and shapes
+      Wan2.1_VAE.pth       -> a WanVAE on `device` in `dtype` loaded
+                              strictly; without the file, a random one
+                              from `vae_seed` (None when `vae_cfg` is None)
+
+    Returns (dit_state_dict | None, vae | None). The umT5 file is read by
+    `models/t5.py:load_t5_encoder`."""
     import os
 
-    from safetensors.torch import load_file
-    files = sorted(f for f in os.listdir(checkpoint_dir)
-                   if f.endswith(".safetensors"))
-    if not files:
-        raise FileNotFoundError(f"no *.safetensors in {checkpoint_dir}")
-    sd: StateDict = {}
-    for f in files:
-        sd.update(load_file(os.path.join(checkpoint_dir, f)))
-    model.load_state_dict(sd, strict=True)
+    from omnihuman_tpu_torch.models.vae import build_vae
+    from omnihuman_tpu_torch.models.wan_dit import WanModel
+
+    dit_sd: StateDict = {}
+    for fn in sorted(os.listdir(ckpt_dir)):
+        if fn.endswith(".safetensors"):
+            dit_sd.update(load_torch_state_dict(os.path.join(ckpt_dir, fn)))
+    if dit_sd:
+        with torch.device("meta"):
+            want = WanModel(model_cfg).state_dict()
+        missing, extra = set(want) - set(dit_sd), set(dit_sd) - set(want)
+        if missing or extra:
+            raise ValueError(f"{ckpt_dir}: DiT keys missing "
+                             f"{sorted(missing)[:5]}, unexpected "
+                             f"{sorted(extra)[:5]}")
+        for k, v in want.items():
+            if dit_sd[k].shape != v.shape:
+                raise ValueError(f"{ckpt_dir}: {k} {tuple(dit_sd[k].shape)} "
+                                 f"!= {tuple(v.shape)}")
+    vae = None
+    if vae_cfg is not None:
+        vae_path = os.path.join(ckpt_dir, "Wan2.1_VAE.pth")
+        if os.path.exists(vae_path):
+            vae = build_vae(vae_cfg, device, dtype, seed=None)
+            vae.load_state_dict(load_torch_state_dict(vae_path), strict=True)
+        else:
+            vae = build_vae(vae_cfg, device, dtype, seed=vae_seed)
+    return (dit_sd or None), vae

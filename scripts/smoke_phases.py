@@ -1,0 +1,57 @@
+#!/usr/bin/env python3
+"""Run some phases of a checkout's chip_smoke.py alone, on one GPU.
+
+    python3 scripts/smoke_phases.py [--root DIR] PHASE [PHASE ...]
+
+Builds the kernels (phase 2) of the checkout at DIR (default: this one),
+then runs the named phases in order, each with fresh launch counts:
+14 (i2v-14B request), 15 (one-step batch), 16 (OmniHuman request), 18
+(OmniHuman training). To compare two commits on one card, unpack the
+other one (`git archive <commit> | tar -x -C DIR`) and run both in one
+call, in turns (parent, change, change, parent). Exits nonzero where a
+phase fails, as the smoke does.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser()
+    p.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    p.add_argument("phases", nargs="+", type=int, choices=(14, 15, 16, 18))
+    args = p.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    if os.path.dirname(os.path.abspath(cs.__file__)) != root:
+        sys.exit(f"imported {cs.__file__}, not the smoke of {root}")
+    cs.phase_card_facts()
+    cs.phase_build()
+    from omnihuman_tpu_torch.ops.flash_attention import (
+        FLASH_BWD, FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K)
+    from omnihuman_tpu_torch.ops.vae_kernels import VAE_CONV, VAE_UPSAMPLE
+    fwd = (FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K)
+    flash = fwd + (FLASH_BWD,)
+    every = flash + (VAE_CONV, VAE_UPSAMPLE)
+    run = {14: lambda: cs.phase_i2v(every, fwd),
+           15: lambda: cs.phase_one_step(every, fwd),
+           16: lambda: cs.phase_omni(every, fwd),
+           18: lambda: cs.phase_omni_train(every, flash)}
+    for phase in args.phases:
+        t0 = time.perf_counter()
+        try:
+            run[phase]()
+        finally:
+            import shutil
+            shutil.rmtree(cs.WORK, ignore_errors=True)
+        cs.log(f"phase {phase} of {root}: {time.perf_counter() - t0:.0f} s")
+
+
+if __name__ == "__main__":
+    main()

@@ -706,6 +706,19 @@ def test_flash_kernel_audio_cross_attention(cuda_device, lk, lq):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq", [3584, 22528])
+@pytest.mark.parametrize("lk", [13, 49])
+def test_flash_backward_audio_cross_attention(cuda_device, lk, lq):
+    """K2 at the omni audio cross-attention: B=1, 12 heads, D=128, Lk the
+    audio frames (49 pixel frames in training, 13 latent frames at
+    inference), one key block of 128 with the rest zero fill, every
+    64-query tile streamed through it up to the 22,528-token step."""
+    g = torch.Generator(device=cuda_device).manual_seed(lk * 7 + lq)
+    _check_backward(dict(b=1, n=12, d=128, lq=lq, lk=lk, k_lens=None), g,
+                    cuda_device)
+
+
 def _omni_card_cfg():
     from omnihuman_tpu_torch.configs.wan import WanModelConfig
     from omnihuman_tpu_torch.omni.model import OmniModelConfig
@@ -755,6 +768,75 @@ def test_omni_forward_on_card_matches_cpu(cuda_device):
     assert torch.isfinite(got).all()
     scale = max(1.0, want.abs().max().item())
     assert (got - want).abs().max().item() <= 5e-2 * scale
+
+
+@pytest.mark.cuda
+def test_omni_train_step_on_card_matches_cpu(cuda_device):
+    """One omni training step at the small config (head_dim 64), fp32
+    parameters with a random head, adapter `o` and `pose_proj`, every
+    condition, the same draws: on the card (K1 forward and remat
+    recompute, K2 backward) against the CPU (plain attention), the loss,
+    the grad norm and every gradient within 5e-2 of max(1, its peak); the
+    card step launches K1 twice and K2 once per attention."""
+    from omnihuman_tpu_torch.configs.wan import DTypePolicy
+    from omnihuman_tpu_torch.omni.model import build_omni_model
+    from omnihuman_tpu_torch.omni.trainer import (
+        init_omni_train_state, make_lr_schedule, make_omni_optimizer,
+        omni_flow_matching_loss, omni_train_step)
+    cfg = _omni_card_cfg()
+    model = build_omni_model(cfg, "cpu", torch.float32, seed=3,
+                             trainable=True)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in (model.base.head.head.weight, model.cond.pose_proj.weight,
+                  *(b.audio_attn.o.weight for b in model.base.blocks)):
+            p.normal_(0.0, 0.05, generator=gen)
+    gen.manual_seed(6)
+    batch = dict(frames=torch.randn((1, 16, 3, 8, 8), generator=gen),
+                 context=torch.randn((1, 8, 24), generator=gen),
+                 audio=torch.randn((1, 9, 20), generator=gen),
+                 pose=torch.rand((1, 8, 3, 16, 16), generator=gen),
+                 reference=torch.randn((1, 16, 1, 8, 8), generator=gen))
+    masks = {k: torch.ones(1) for k in ("audio", "pose", "reference")}
+    t, noise = torch.tensor([0.3]), torch.randn((1, 16, 3, 8, 8),
+                                                generator=gen)
+    pol = DTypePolicy()
+    res = {}
+    for dev in ("cpu", cuda_device):
+        m = model.to(dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        mk = {k: v.to(dev) for k, v in masks.items()}
+        params = dict(m.named_parameters())
+        loss = omni_flow_matching_loss(m, b, mk, t.to(dev), noise.to(dev),
+                                       policy=pol)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        res[str(dev)] = (loss.item(), [x.float().cpu() for x in grads])
+    for kn in KERNELS:
+        kn.launches = 0
+    opt = make_omni_optimizer(make_lr_schedule("constant", 1e-4, 1))
+    state = init_omni_train_state(model, opt)
+    state, metrics = omni_train_step(
+        state, {k: v.to(cuda_device) for k, v in batch.items()},
+        {k: v.to(cuda_device) for k, v in masks.items()}, t.to(cuda_device),
+        noise.to(cuda_device), optimizer=opt, policy=pol)
+    torch.cuda.synchronize()
+    layers = cfg.base.num_layers
+    assert [kn.launches for kn in KERNELS] == [0, 6 * layers, 3 * layers]
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = res["cpu"], res[str(cuda_device)]
+    assert abs(l_gpu - l_cpu) <= 5e-2 * max(1.0, abs(l_cpu))
+    assert abs(float(metrics["loss"]) - l_cpu) <= 5e-2 * max(1.0, abs(l_cpu))
+    norm_cpu = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(x) for x in g_cpu])).item()
+    assert (abs(float(metrics["grad_norm"]) - norm_cpu)
+            <= 5e-2 * max(1.0, norm_cpu))
+    for a, b in zip(g_gpu, g_cpu):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= 5e-2 * max(
+            1.0, b.abs().max().item())
+    assert state.step == 1 and all(
+        torch.isfinite(p).all() for p in state.params().values())
 
 
 @pytest.mark.cuda
