@@ -146,7 +146,36 @@ Phases (any failure stops the run with a nonzero exit):
      one window, 2 steps): a finite video that differs from the same run
      without `--checkpoint`.
 
-The line before last is a JSON object {"kernels": [...]}; the last line is
+Then, on phase 8's files (its dit/ directory, teacher npz and distill
+output), after phase 11:
+ 19. `cli.generate --ckpt_dir` at t2v-1.3B: a random bf16 VAE written as
+     Wan2.1_VAE.pth beside phase 8's DiT; a t2v request (17 frames at
+     480x832, 4 steps) and a `--one_step` request with the distill EMA as
+     `--generator_ckpt`: the loaded DiT bit-equal to the file / the EMA,
+     the VAE to its file, a finite video, and the launches (120 / 120 K1,
+     140 K3, 15 K4 a request; 30 / 30 K1 one-step);
+ 20. `cli.train_f_distill` at full width on phase 8's npz (batch 1, one
+     epoch, a save a step): 120 / 120 K1 and 60 K2 a step (the teacher's
+     cond and uncond as one batch-2 forward, the detached and the graded
+     student forward and its recompute), finite losses, the density ratio
+     in [0.01, 100], each save's GB and seconds; a resume from step 1;
+     one step's loss and student gradients with the kernels against plain
+     attention (relative, tolerance 5e-2); one timed step at 81 frames
+     (32,760 tokens), its peak memory and a torch.profiler split;
+ 21. `cli.train_apt` at full width: the generator booted from the distill
+     EMA, 2 image updates on phase 8's npz (1,560 tokens) and 2 video
+     updates on a 2-sample 81-frame npz made with the teacher's CFG
+     (32,760 tokens); seconds per D / G update, peak memory, the saves,
+     checkpoints [2, 4] with their exact metadata, 237 / 237 K1 and 114
+     K2 an update; then a resume after the video final is deleted, which
+     reruns the video phase;
+ 22. `cli.eval_ema` on phase 8's directory with the distill EMA, 2
+     samples: finite PSNR / SSIM, two images written, 30 / 30 K1, 56 K3
+     and 6 K4 (two 1-latent-frame decodes), the pass's seconds.
+
+The line before last is a JSON object {"kernels": [...]}; its
+`launches_by_path` holds each path's launches (phase 19's t2v request,
+20's and 21's first CLI runs, 22's pass among them); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -2153,17 +2182,512 @@ def phase_omni_train(all_kernels, flash_kernels):
     return counts, rows
 
 
-def run_training_phases(all_kernels, paths):
-    """Phases 8-11 (the attention kernels K1 / K2 only); their models and
-    states are dropped on return."""
+# ---------------------------------------------------------------------------
+# phases 19-22: checkpoint directories in the CLI, f-distill, the APT CLI,
+# EMA evaluation (on phase 8's dit/, teacher npz and distill output)
+
+APT_VIDEO = dict(samples=2, latent=(16, 21, 60, 104), seed=21)
+FD_BIG = dict(latent=(1, 16, 21, 60, 104), seed=81)
+
+
+def _recording(cls, built):
+    """`cls` that keeps each instance it builds in `built`."""
+    class Recording(cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            built.append(self)
+    return Recording
+
+
+class _SaveTimes:
+    """Context that times every CheckpointManager.save: [(step, s, GB)]."""
+
+    def __enter__(self):
+        from unittest import mock
+        from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
+        real, self.saves = CheckpointManager.save, []
+
+        def timed(mgr, step, state, metadata=None):
+            t0 = time.perf_counter()
+            real(mgr, step, state, metadata=metadata)
+            self.saves.append((step, time.perf_counter() - t0, os.path.getsize(
+                os.path.join(mgr._path(step), "state.pt")) / 1e9))
+        self._patch = mock.patch.object(CheckpointManager, "save", timed)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+    def text(self) -> str:
+        return ", ".join(f"step {s}: {gb:.2f} GB in {sec:.1f} s"
+                         for s, sec, gb in self.saves)
+
+
+def _want(kernels, long_k=0, short_k=0, bwd=0, k3=0, k4=0):
+    """{kernel name: launches} in the order K1 long-K, K1 short-K, K2, K3,
+    K4 (the names of `kernels`, all five)."""
+    return dict(zip([kn.name for kn in kernels],
+                    (long_k, short_k, bwd, k3, k4)))
+
+
+def phase_ckpt_dir(kernels):
+    """[19] `cli.generate --ckpt_dir` on phase 8's directory with a random
+    bf16 VAE file beside the DiT: a t2v request, then --one_step with the
+    distill EMA as the generator."""
+    import torch
+    from unittest import mock
+    from omnihuman_tpu_torch.cli import generate
+    from omnihuman_tpu_torch.configs import T2V_1_3B
+    from omnihuman_tpu_torch.models.vae import build_vae
+    from omnihuman_tpu_torch.pipelines import text2video as t2v
+    # imported before WanT2V is patched: a module first imported under the
+    # patch would bind the recording class, and with it the pipelines it
+    # holds, for the rest of the run
+    from omnihuman_tpu_torch.pipelines import wan_inference  # noqa: F401
+    from omnihuman_tpu_torch.utils import media
+    from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
+    from omnihuman_tpu_torch.utils.convert import load_torch_state_dict
+
+    dit_dir, distill = os.path.join(WORK, "dit"), os.path.join(WORK, "distill")
+    vae = build_vae(T2V_1_3B.vae, "cuda", torch.bfloat16, seed=1)
+    torch.save({k: v.cpu() for k, v in vae.state_dict().items()},
+               os.path.join(dit_dir, "Wan2.1_VAE.pth"))
+    vae_file = {k: v.cpu() for k, v in vae.state_dict().items()}
+    del vae
+    w, h = SMOKE["size"]
+    frames, steps = SMOKE["frames"], SMOKE["steps"]
+    f_lat = (frames - 1) // 4 + 1
+    base = ["--task", "t2v-1.3B", "--ckpt_dir", dit_dir, "--size",
+            f"{h}*{w}", "--frame_num", str(frames), "--base_seed", "3"]
+    runs = (
+        ("t2v", ["--sample_steps", str(steps), "--save_file",
+                 os.path.join(WORK, "ckpt_t2v.mp4")],
+         load_torch_state_dict(os.path.join(
+             dit_dir, "diffusion_pytorch_model.safetensors")),
+         _want(kernels, NUM_LAYERS * steps, NUM_LAYERS * steps, 0,
+               28 * f_lat, 3 * f_lat)),
+        ("one-step", ["--one_step", "--generator_ckpt", distill,
+                      "--save_file", os.path.join(WORK, "ckpt_one.mp4")],
+         CheckpointManager(distill).restore()["ema_params"],
+         _want(kernels, NUM_LAYERS, NUM_LAYERS, 0, 28 * f_lat, 3 * f_lat)))
+    counts = None
+    for name, extra, want_dit, want in runs:
+        built, videos = [], []
+        real_cache = media.cache_video
+
+        def keep(video, *a, **k):
+            videos.append(video)
+            return real_cache(video, *a, **k)
+        _zero(kernels)
+        t0 = time.perf_counter()
+        with mock.patch.object(t2v, "WanT2V", _recording(t2v.WanT2V, built)), \
+                mock.patch.object(media, "cache_video", keep):
+            path = generate.main(base + extra)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = _count(kernels)
+        counts = counts or got
+        pipe, = built
+        video = videos[0].float()
+        n_bytes = same_tree(want_dit, dict(pipe.model.state_dict()), "dit")
+        same_tree(vae_file, pipe.vae.state_dict(), "vae")
+        log(f"[19] cli.generate --ckpt_dir ({name}): {sec:.1f} s with the "
+            f"pipeline build; DiT {n_bytes / 1e9:.2f} GB bit-equal to "
+            f"{'the file' if name == 't2v' else 'the distill EMA'}, VAE to "
+            f"Wan2.1_VAE.pth; video {tuple(video.shape)} in "
+            f"[{video.min().item():.3f}, {video.max().item():.3f}] -> "
+            f"{os.path.basename(path)}; stage times {pipe.timings or ''}"
+            f"; launches {got}, expected {want}")
+        if tuple(video.shape) != (3, frames, h, w) or \
+                not torch.isfinite(video).all():
+            fail(f"--ckpt_dir {name}: wrong video shape or values")
+        if got != want:
+            fail(f"--ckpt_dir {name}: launches {got} != {want}")
+        built.clear()
+        del pipe, videos, video
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
+
+
+class _GradsOnly:
+    """An optimizer that keeps the gradients and changes nothing."""
+
+    def step(self, params, grads, state):
+        self.grads = grads
+
+
+def _f_distill_grads(state, teacher, batch, d_snapshot, kw):
+    """(loss, student gradients) of one f-distill step from the
+    discriminator in `d_snapshot`; the student is left as it is."""
+    import copy as _copy
+    from omnihuman_tpu_torch.apt import f_distill as fd
+    state.disc.load_state_dict(d_snapshot[0])
+    state.d_opt_state = _copy.deepcopy(d_snapshot[1])
+    cap = _GradsOnly()
+    _, m = fd.f_distill_train_step(state, teacher, batch, optimizer=cap,
+                                   d_optimizer=fd.make_d_optimizer(1e-5), **kw)
+    return m["loss"].item(), list(cap.grads.values())
+
+
+def phase_f_distill(npz, kernels):
+    """[20] cli.train_f_distill at t2v-1.3B full width on phase 8's npz,
+    a resume, kernels against plain attention, an 81-frame step."""
+    import copy as _copy
+    import torch
+    from unittest import mock
+    from omnihuman_tpu_torch.apt import f_distill as fd
+    from omnihuman_tpu_torch.apt.generate import (
+        create_dataloader, load_teacher_data)
+    from omnihuman_tpu_torch.cli import train_f_distill
+    from omnihuman_tpu_torch.configs import T2V_1_3B
+    from omnihuman_tpu_torch.models.wan_dit import build_wan_model
+    from omnihuman_tpu_torch.ops import attention
+    from omnihuman_tpu_torch.ops import flash_attention as fa
+    from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+    from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
+    from omnihuman_tpu_torch.utils.convert import load_wan_dit_checkpoint
+
+    dit_dir, out = os.path.join(WORK, "dit"), os.path.join(WORK, "f_distill")
+    argv = ["--task", "t2v-1.3B", "--checkpoint_dir", dit_dir, "--data_path",
+            npz, "--output_dir", out, "--num_epochs", "1", "--batch_size",
+            "1", "--save_interval", "1"]
+    # a step: the batch-2 teacher CFG forward, the detached student
+    # forward, the graded forward and its recompute; one K2 an attention
+    per_step = (4 * NUM_LAYERS, 4 * NUM_LAYERS, 2 * NUM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    t0 = time.perf_counter()
+    with _SaveTimes() as saves:
+        state, history = train_f_distill.main(argv)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = _count(kernels)
+    want = _want(kernels, *(2 * n for n in per_step))
+    for h in history:
+        log(f"[20] f-distill step {h['step']}: loss {h['loss']:.6g}, f_div "
+            f"{h['f_div_loss']:.6g}, g {h['g_loss']:.6g}, d "
+            f"{h['d_loss']:.6g}, density ratio "
+            f"{h['density_ratio_mean']:.4g}, weight "
+            f"{h['weight_mean']:.4g}, {h['seconds']:.3f} s")
+        if not (h["loss"] > 0 and h["f_div_loss"] > 0 and h["d_loss"] > 0
+                and 0.01 <= h["density_ratio_mean"] <= 100.0):
+            fail("an f-distill step has a zero, non-finite or out-of-range "
+                 "metric")
+    log(f"[20] cli.train_f_distill: {len(history)} steps at 1,560 tokens in "
+        f"{total:.1f} s (with model build and saves), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; saves "
+        f"{saves.text()}; launches {counts}, expected {want}")
+    mgr = CheckpointManager(out)
+    if mgr.all_steps() != [1, 2] or mgr.restore_metadata(2) != {"epoch": 0}:
+        fail(f"f-distill checkpoints {mgr.all_steps()} / metadata unexpected")
+    if counts != want:
+        fail("the f-distill path did not send every attention through K1 "
+             "and K2")
+    shutil.rmtree(os.path.join(out, "step_00000002"))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zero(kernels)
+    state, resumed = train_f_distill.main(argv + ["--resume"])
+    got = _count(kernels)
+    if [h["step"] for h in resumed] != [2] or got != _want(kernels,
+                                                           *per_step):
+        fail(f"f-distill resume from step 1: steps "
+             f"{[h['step'] for h in resumed]}, launches {got}")
+    rel = abs(resumed[0]["loss"] - history[1]["loss"]) / history[1]["loss"]
+    log(f"[20] --resume from step 1: step 2 again, loss "
+        f"{resumed[0]['loss']:.6g} against {history[1]['loss']:.6g} "
+        f"uninterrupted (relative {rel:.3g}; dQ's sum order varies run to "
+        f"run); launches {got}")
+
+    teacher = build_wan_model(T2V_1_3B.model, "cuda", torch.bfloat16,
+                              seed=None)
+    load_wan_dit_checkpoint(teacher, dit_dir)
+    data = load_teacher_data(npz)
+    batch = next(create_dataloader(data, batch_size=1, shuffle=False,
+                                   device="cuda")())
+    batch = {"noise": batch["noise"], "context": batch["context"],
+             "context_null": torch.from_numpy(
+                 data["negative_context"])[None].cuda()}
+    sin, cos = rope_angles_3d((1, 30, 52), 128, seq_len=1560, device="cuda")
+    kw = dict(seq_len=1560, rope_sin=sin, rope_cos=cos,
+              policy=T2V_1_3B.policy, f_divergence="jensen-shannon",
+              beta=0.9, alpha=0.1)
+    snap = (_copy.deepcopy(state.disc.state_dict()),
+            _copy.deepcopy(state.d_opt_state))
+    _zero(kernels)
+    loss_k, grads_k = _f_distill_grads(state, teacher, batch, snap, kw)
+    if not all(list(_count(kernels).values())[:3]):
+        fail(f"the kernel pass missed a kernel: {_count(kernels)}")
+    _zero(kernels)
+    # the graded forwards go through fa's autograd Function, the no-grad
+    # ones (the teacher, the detached student) through ops.attention
+    with mock.patch.object(fa, "flash_fwd", fa.flash_attention_plain), \
+            mock.patch.object(fa, "flash_bwd", fa.flash_bwd_plain), \
+            mock.patch.object(attention, "flash_fwd",
+                              fa.flash_attention_plain):
+        loss_p, grads_p = _f_distill_grads(state, teacher, batch, snap, kw)
+    torch.cuda.synchronize()
+    if any(_count(kernels).values()):
+        fail(f"the plain pass launched kernels: {_count(kernels)}")
+    num = sum((a.float() - b.float()).square().sum() for a, b in
+              zip(grads_k, grads_p))
+    den = sum(b.float().square().sum() for b in grads_p)
+    rel_g = (num / den).sqrt().item()
+    rel_l = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"[20] f-distill loss + gradients (1,560 tokens, bf16), kernels vs "
+        f"plain attention: loss {loss_k:.6g} vs {loss_p:.6g} (relative "
+        f"{rel_l:.3g}, tol 5e-2), gradients relative L2 {rel_g:.3g} (tol "
+        f"5e-2), gradient norm {den.sqrt().item():.4g}")
+    if not (rel_l <= 5e-2 and rel_g <= 5e-2):
+        fail("f-distill step: kernels disagree with plain attention")
+    del grads_k, grads_p
+    state.disc.load_state_dict(snap[0])
+    state.d_opt_state = snap[1]
+
+    gen = torch.Generator(device="cuda").manual_seed(FD_BIG["seed"])
+    big = {"noise": torch.randn(FD_BIG["latent"], generator=gen,
+                                device="cuda"),
+           "context": torch.randn((1, 512, 4096), generator=gen,
+                                  device="cuda"),
+           "context_null": torch.randn((1, 512, 4096), generator=gen,
+                                       device="cuda")}
+    sin, cos = rope_angles_3d((21, 30, 52), 128,
+                              seq_len=FLAGSHIP["seq_len"], device="cuda")
+    kw.update(seq_len=FLAGSHIP["seq_len"], rope_sin=sin, rope_cos=cos)
+    opt, d_opt = fd.make_student_optimizer(1e-5), fd.make_d_optimizer(1e-5)
+
+    def step():
+        _, m = fd.f_distill_train_step(state, teacher, big, optimizer=opt,
+                                       d_optimizer=d_opt, **kw)
+        return float(m["loss"])
+
+    step()                                            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    t0 = time.perf_counter()
+    loss = step()
+    sec = time.perf_counter() - t0
+    big_counts = _count(kernels)
+    if not loss > 0 or big_counts != _want(kernels, *per_step):
+        fail(f"81-frame f-distill step: loss {loss}, launches {big_counts}")
+    log(f"[20] f-distill step at 81 frames (latents [1,16,21,60,104], "
+        f"{FLAGSHIP['tokens']} tokens, per-block remat, batch 1, teacher CFG "
+        f"as one batch-2 forward): {sec:.2f} s, loss {loss:.6g}, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; "
+        f"launches {big_counts}")
+    profile_split(step, "20")
+    del state, teacher, opt, d_opt
+    shutil.rmtree(out, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _write_video_npz(npz, path):
+    """Phase 21's video-phase data: 2 samples at 81 frames ([16, 21, 60,
+    104], 32,760 tokens), v_teacher from the checkpoint's DiT with CFG 7.5
+    at t = 999 and phase 8's contexts."""
+    import numpy as np
+    import torch
+    from omnihuman_tpu_torch.apt.generate import (
+        load_teacher_data, teacher_cfg_velocity)
+    from omnihuman_tpu_torch.configs import T2V_1_3B
+    from omnihuman_tpu_torch.models.wan_dit import build_wan_model
+    from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+    from omnihuman_tpu_torch.utils.convert import load_wan_dit_checkpoint
+
+    teacher = build_wan_model(T2V_1_3B.model, "cuda", torch.bfloat16,
+                              seed=None)
+    load_wan_dit_checkpoint(teacher, os.path.join(WORK, "dit"))
+    data = load_teacher_data(npz)
+    n = APT_VIDEO["samples"]
+    gen = torch.Generator(device="cuda").manual_seed(APT_VIDEO["seed"])
+    noise = torch.randn((n,) + APT_VIDEO["latent"], generator=gen,
+                        device="cuda")
+    ctx = torch.from_numpy(data["positive_contexts"][:n]).cuda()
+    neg = torch.from_numpy(data["negative_context"]).cuda()
+    sin, cos = rope_angles_3d((21, 30, 52), 128,
+                              seq_len=FLAGSHIP["seq_len"], device="cuda")
+    v = torch.cat([teacher_cfg_velocity(
+        teacher, noise[i:i + 1], ctx[i:i + 1], neg[None],
+        seq_len=FLAGSHIP["seq_len"], rope_sin=sin, rope_cos=cos,
+        policy=T2V_1_3B.policy, t_value=999.0, cfg_scale=7.5)
+        for i in range(n)])
+    noise_np = noise.cpu().numpy()
+    np.savez(path, dummy_data=noise_np, noise=noise_np,
+             dummy_prompts=data["dummy_prompts"][:n],
+             positive_contexts=data["positive_contexts"][:n],
+             negative_context=data["negative_context"],
+             v_teacher=v.cpu().numpy())
+    del teacher
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_apt(npz, kernels):
+    """[21] cli.train_apt at t2v-1.3B full width: 2 image updates on phase
+    8's npz (1,560 tokens), 2 video updates on an 81-frame npz (32,760
+    tokens), the generator booted from the distill EMA; then a resume
+    after the video final is lost."""
+    import numpy as np
+    import torch
+    from omnihuman_tpu_torch.cli import train_apt
+    from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
+
+    video_npz = os.path.join(WORK, "video_81f.npz")
+    t0 = time.perf_counter()
+    _write_video_npz(npz, video_npz)
+    log(f"[21] 81-frame video npz ({APT_VIDEO['samples']} samples, "
+        f"v_teacher by the batch-2 teacher CFG) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = os.path.join(WORK, "apt")
+    argv = ["--task", "t2v-1.3B", "--checkpoint_dir",
+            os.path.join(WORK, "dit"), "--consistency_path",
+            os.path.join(WORK, "distill"), "--data_path", npz,
+            "--video_data_path", video_npz, "--output_dir", out,
+            "--image_updates", "2", "--video_updates", "2",
+            "--save_interval", "2"]
+    # an update: D (the generator and 3 discriminator forwards, features
+    # cut) and G (generator forward + recompute, discriminator forward and
+    # the recompute of blocks 0..26 that its taps (11, 19, 26) reach)
+    per_update = (237, 237, 114)
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    t0 = time.perf_counter()
+    with _SaveTimes() as saves:
+        _, history = train_apt.main(argv)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = _count(kernels)
+    want = _want(kernels, *(4 * n for n in per_update))
+    for h in history:
+        tokens = 32760 if h["phase"] else 1560
+        log(f"[21] APT {'video' if h['phase'] else 'image'} update "
+            f"{h['update']} ({tokens} tokens): D {h['d_seconds']:.2f} s "
+            f"(d_loss {h['d_loss']:.5g}, r1 {h['r1_loss']:.5g}), G "
+            f"{h['g_seconds']:.2f} s (g_loss {h['g_loss']:.5g})")
+        if not all(np.isfinite(h[k]) for k in ("d_loss", "r1_loss",
+                                               "g_loss")):
+            fail("an APT loss is not finite")
+    log(f"[21] cli.train_apt: 2 image + 2 video updates in {total:.1f} s "
+        f"(with model builds and saves), peak device memory {peak:.1f} GiB; "
+        f"saves {saves.text()}; launches {counts}, expected {want}")
+    mgr = CheckpointManager(out)
+    metas = {s: mgr.restore_metadata(s) for s in mgr.all_steps()}
+    if metas != {2: {"phase": "image", "update": 2, "final": True},
+                 4: {"phase": "video", "update": 2, "final": True}}:
+        fail(f"APT checkpoints / metadata unexpected: {metas}")
+    if counts != want:
+        fail("the APT path did not send every attention through K1 and K2")
+    shutil.rmtree(os.path.join(out, "step_00000004"))
+    _zero(kernels)
+    _, resumed = train_apt.main(argv + ["--resume"])
+    got = _count(kernels)
+    log(f"[21] --resume after the video final was lost: updates "
+        f"{[(h['phase'], h['update']) for h in resumed]}, steps "
+        f"{mgr.all_steps()}, launches {got}")
+    if [(h["phase"], h["update"]) for h in resumed] != [(1.0, 1), (1.0, 2)] \
+            or mgr.all_steps() != [2, 4] or got != _want(
+                kernels, *(2 * n for n in per_update)):
+        fail("the APT resume did not rerun the video phase from the image "
+             "final")
+    shutil.rmtree(out, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_eval_ema(npz, kernels):
+    """[22] cli.eval_ema on phase 8's directory (DiT + the VAE file of
+    phase 19) with the distill EMA, 2 samples of phase 8's npz."""
+    import numpy as np
+    import torch
+    from unittest import mock
+    from omnihuman_tpu_torch.apt import eval_ema as ee
+    from omnihuman_tpu_torch.cli import eval_ema
+
+    out = os.path.join(WORK, "eval")
+    run, pass_s = ee.evaluate_ema, []
+
+    def timed(*a, **k):              # the pass alone, without the build
+        t0 = time.perf_counter()
+        metrics = run(*a, **k)
+        torch.cuda.synchronize()
+        pass_s.append(time.perf_counter() - t0)
+        return metrics
+    _zero(kernels)
+    t0 = time.perf_counter()
+    with mock.patch.object(ee, "evaluate_ema", timed):
+        metrics = eval_ema.main([
+            "--task", "t2v-1.3B", "--checkpoint_dir",
+            os.path.join(WORK, "dit"), "--ema_checkpoint",
+            os.path.join(WORK, "distill"), "--data_path", npz,
+            "--num_samples", "2", "--out_dir", out])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = _count(kernels)
+    # one batch-2 forward; two 1-latent-frame decodes (28 K3 + 3 K4 each)
+    want = _want(kernels, NUM_LAYERS, NUM_LAYERS, 0, 56, 6)
+    files = sorted(os.listdir(out))
+    log(f"[22] cli.eval_ema (2 samples, 1,560 tokens): {sec:.1f} s with the "
+        f"pipeline build, the pass (one-step forward, two decodes, metrics, "
+        f"images) {pass_s[0]:.2f} s; {metrics}; images {files}; launches "
+        f"{counts}, "
+        f"expected {want}")
+    if not (np.isfinite(metrics["psnr_vs_teacher"])
+            and np.isfinite(metrics["ssim_vs_teacher"])
+            and [os.path.splitext(f)[0] for f in files]
+            == ["eval_image_0", "eval_image_1"]):
+        fail("eval_ema: non-finite metrics or missing images")
+    if counts != want:
+        fail("eval_ema did not run through K1 and K3 / K4")
+    return counts
+
+
+def run_training_phases(flash_kernels, all_kernels, paths):
+    """Phases 8-11 (the attention kernels K1 / K2 only), then 19-22 on
+    phase 8's files (all five kernels); their models and states are
+    dropped on return."""
+    import torch
     try:
-        counts, npz = phase_training_main_path(all_kernels)
+        counts, npz = phase_training_main_path(flash_kernels)
         paths.update(counts)
-        state, opt = phase_distill_vs_plain(npz, all_kernels)
+        state, opt = phase_distill_vs_plain(npz, flash_kernels)
         phase_flagship_distill_step(state, opt)
-        phase_apt_steps(state, npz, all_kernels)
+        phase_apt_steps(state, npz, flash_kernels)
+        del state, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_slice_10_phases(npz, all_kernels, paths)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+
+
+def run_slice_10_phases(npz, all_kernels, paths, phases=(19, 20, 21, 22)):
+    """Phases 19-22 (after phase 8), each timed; each must give back the
+    device memory it took, or the later phases' peaks would read high."""
+    import torch
+    run = {19: ("generate_ckpt", lambda: phase_ckpt_dir(all_kernels)),
+           20: ("f_distill", lambda: phase_f_distill(npz, all_kernels)),
+           21: ("train_apt", lambda: phase_train_apt(npz, all_kernels)),
+           22: ("eval_ema", lambda: phase_eval_ema(npz, all_kernels))}
+    base = _gib_in_use()
+    for phase in phases:
+        t0 = time.perf_counter()
+        path, fn = run[phase]
+        paths[path] = fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = _gib_in_use()
+        log(f"[{phase}] phase wall time {time.perf_counter() - t0:.1f} s; "
+            f"{left:.2f} GiB in use after it")
+        if left > base + 1.0:
+            fail(f"phase {phase} left {left - base:.1f} GiB on the card")
 
 
 
@@ -2198,7 +2722,7 @@ def main() -> None:
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    run_training_phases(flash_kernels, paths)
+    run_training_phases(flash_kernels, all_kernels, paths)
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(phase_vae_full((VAE_CONV, VAE_UPSAMPLE)))

@@ -29,11 +29,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from omnihuman_tpu_torch.apt.distill import trainable_params
+from omnihuman_tpu_torch.apt.distill import (
+    copy_params, to_device, trainable_params)
 from omnihuman_tpu_torch.apt.model import (
     APTDiscriminator, apt_discriminator_forward, apt_generator_forward,
     ema_update, timestep_shift)
-from omnihuman_tpu_torch.apt.optim import Masked, Optimizer, RMSprop
+from omnihuman_tpu_torch.apt.optim import Masked, MultiSteps, Optimizer, RMSprop
 from omnihuman_tpu_torch.configs.wan import DTypePolicy
 from omnihuman_tpu_torch.models.wan_dit import WanModel
 
@@ -49,6 +50,8 @@ class SeaweedAPTConfig:
     d_lr_image: float = 5e-6
     g_lr_video: float = 3e-6
     d_lr_video: float = 3e-6
+    image_updates: int = 350
+    video_updates: int = 300
     ema_decay: float = 0.995
     lambda_r1: float = 100.0
     r1_sigma_image: float = 0.01
@@ -69,10 +72,38 @@ class APTState:
     ema_params: Tensors
     step: int
 
+    def state_dict(self) -> Dict:
+        """What a checkpoint holds: the generator, the discriminator's
+        trainables (the frozen backbone is the teacher, rebuilt from the
+        Wan weights), both optimizer states, the EMA and the step."""
+        return {"g_params": {n: p.detach() for n, p in
+                             trainable_params(self.g_model).items()},
+                "d_params": {n: p.detach() for n, p in
+                             d_trainable_params(self.disc).items()},
+                "g_opt": self.g_opt, "d_opt": self.d_opt,
+                "ema_params": self.ema_params, "step": self.step}
 
-def make_rmsprop(lr: float) -> Optimizer:
-    """RMSprop(alpha 0.9) as optax.rmsprop(lr, decay=0.9, eps=1e-8)."""
-    return RMSprop(lr, decay=0.9, eps=1e-8)
+    def load_state_dict(self, sd: Dict) -> None:
+        copy_params(trainable_params(self.g_model), sd["g_params"],
+                    "generator parameters")
+        copy_params(d_trainable_params(self.disc), sd["d_params"],
+                    "discriminator parameters")
+        dev = next(self.g_model.parameters()).device
+        self.g_opt = to_device(sd["g_opt"], dev)
+        self.d_opt = to_device(sd["d_opt"], dev)
+        self.ema_params = to_device(sd["ema_params"], dev)
+        self.step = int(sd["step"])
+
+
+def make_rmsprop(lr: float, accumulation_steps: int = 1) -> Optimizer:
+    """RMSprop(alpha 0.9) as optax.rmsprop(lr, decay=0.9, eps=1e-8); with
+    accumulation_steps > 1, the mean of that many gradients makes one
+    update (optax.MultiSteps), so the effective batch can approach the
+    paper's 9062-image / 2048-video recipe."""
+    opt: Optimizer = RMSprop(lr, decay=0.9, eps=1e-8)
+    if accumulation_steps > 1:
+        opt = MultiSteps(opt, accumulation_steps)
+    return opt
 
 
 def d_trainable_mask(disc: APTDiscriminator) -> Dict[str, bool]:
@@ -82,9 +113,12 @@ def d_trainable_mask(disc: APTDiscriminator) -> Dict[str, bool]:
             for n, _ in disc.named_parameters()}
 
 
-def make_d_optimizer(lr: float, disc: APTDiscriminator) -> Optimizer:
-    """RMSprop masked to the trainables."""
-    return Masked(make_rmsprop(lr), d_trainable_mask(disc))
+def make_d_optimizer(lr: float, disc: APTDiscriminator,
+                     accumulation_steps: int = 1) -> Optimizer:
+    """RMSprop masked to the trainables, the mask outside the accumulation
+    (no accumulator for the frozen backbone)."""
+    return Masked(make_rmsprop(lr, accumulation_steps),
+                  d_trainable_mask(disc))
 
 
 def d_trainable_params(disc: APTDiscriminator) -> Tensors:
@@ -93,11 +127,12 @@ def d_trainable_params(disc: APTDiscriminator) -> Tensors:
 
 
 def init_apt_state(g_model: WanModel, disc: APTDiscriminator, g_lr: float,
-                   d_lr: float) -> APTState:
+                   d_lr: float, accumulation_steps: int = 1) -> APTState:
     g_params = trainable_params(g_model)
     return APTState(
-        g_model=g_model, disc=disc, g_opt=make_rmsprop(g_lr).init(g_params),
-        d_opt=make_d_optimizer(d_lr, disc).init(
+        g_model=g_model, disc=disc,
+        g_opt=make_rmsprop(g_lr, accumulation_steps).init(g_params),
+        d_opt=make_d_optimizer(d_lr, disc, accumulation_steps).init(
             dict(disc.named_parameters())),
         ema_params={n: p.detach().clone() for n, p in g_params.items()},
         step=0)
@@ -202,11 +237,12 @@ def apt_g_step(state: APTState, batch: Tensors,
 
 @torch.no_grad()
 def start_video_phase(state: APTState, fresh_disc: APTDiscriminator,
-                      apt_cfg: SeaweedAPTConfig) -> APTState:
+                      apt_cfg: SeaweedAPTConfig,
+                      accumulation_steps: int = 1) -> APTState:
     """Phase 2: the generator restarts from the image-phase EMA, with a
     fresh discriminator and fresh optimizers at the video learning rates
     (apt_trainer.py:202-232)."""
     for n, p in trainable_params(state.g_model).items():
         p.copy_(state.ema_params[n])
     return init_apt_state(state.g_model, fresh_disc, apt_cfg.g_lr_video,
-                          apt_cfg.d_lr_video)
+                          apt_cfg.d_lr_video, accumulation_steps)

@@ -52,24 +52,31 @@ class DistillState:
                 "ema_params": self.ema_params,
                 "step": self.step}
 
-    @torch.no_grad()
     def load_state_dict(self, sd: Dict) -> None:
         params = trainable_params(self.model)
-        if set(sd["params"]) != set(params):
-            raise ValueError("checkpoint parameters do not match the model")
-        for n, p in params.items():
-            p.copy_(sd["params"][n])
+        copy_params(params, sd["params"], "parameters")
         dev = next(iter(params.values())).device
-        self.opt_state = _to_device(sd["opt_state"], dev)
-        self.ema_params = _to_device(sd["ema_params"], dev)
+        self.opt_state = to_device(sd["opt_state"], dev)
+        self.ema_params = to_device(sd["ema_params"], dev)
         self.step = int(sd["step"])
 
 
-def _to_device(tree, device):
+@torch.no_grad()
+def copy_params(params: Tensors, saved: Tensors, what: str) -> None:
+    """Copy a checkpoint's tensors into the live parameters of the same
+    names (cast to their dtype and device)."""
+    if set(saved) != set(params):
+        raise ValueError(f"checkpoint {what} do not match the model")
+    for n, p in params.items():
+        p.copy_(saved[n])
+
+
+def to_device(tree, device):
+    """A checkpoint's state tree (dicts of tensors and values) on `device`."""
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
+        return {k: to_device(v, device) for k, v in tree.items()}
     return tree
 
 

@@ -22,8 +22,9 @@ from typing import Dict, Iterator, List
 import numpy as np
 import torch
 
-from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanConfig
-from omnihuman_tpu_torch.models.wan_dit import WanModel
+from omnihuman_tpu_torch.configs.wan import (
+    DTypePolicy, WanConfig, WanModelConfig)
+from omnihuman_tpu_torch.models.wan_dit import WanModel, padded_seq_len
 from omnihuman_tpu_torch.ops.rope import rope_angles_3d
 
 # the JAX package's 100 procedural prompts (subjects x actions)
@@ -41,6 +42,19 @@ _ACTIONS = [
 ]
 RANDOM_PROMPTS: List[str] = [f"{s} {a}" for s in _SUBJECTS for a in _ACTIONS]
 TEACHER_BATCH = 8   # samples in one teacher forward (cond + uncond: 2x)
+
+
+def latent_rope(cfg: WanModelConfig, latent_shape, device) -> Dict:
+    """{"seq_len", "rope_sin", "rope_cos"} for the DiT on latents of shape
+    [..., F, H, W]: the padded token length (`wan_dit.padded_seq_len`)
+    and its RoPE tables, as the training steps take them."""
+    f, h, w = latent_shape[-3:]
+    pt, ph, pw = cfg.patch_size
+    grid = (f // pt, h // ph, w // pw)
+    seq_len = padded_seq_len(grid[0] * grid[1] * grid[2])
+    sin, cos = rope_angles_3d(grid, cfg.head_dim, seq_len=seq_len,
+                              device=device)
+    return dict(seq_len=seq_len, rope_sin=sin, rope_cos=cos)
 
 
 @torch.no_grad()

@@ -24,7 +24,7 @@ state (tensors and Python ints, so `torch.save` stores it), and
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Union
+from typing import Callable, Dict, Iterable, Optional, Union
 
 import numpy as np
 import torch
@@ -56,14 +56,15 @@ class Optimizer:
 
 class AdamW(Optimizer):
     """optax.chain(clip_by_global_norm(grad_clip), adamw(lr, b1, b2, eps,
-    weight_decay)). `lr` is a number or a schedule, a function of the
+    weight_decay)), or optax.adamw alone with grad_clip None (optax.adam
+    with weight_decay 0). `lr` is a number or a schedule, a function of the
     count of updates made before this one (0 on the first step), which is
     where optax's `scale_by_schedule` evaluates it; the bias corrections
     use that count + 1."""
 
     def __init__(self, lr: Union[float, Callable[[int], float]], b1: float,
                  b2: float, eps: float, weight_decay: float,
-                 grad_clip: float):
+                 grad_clip: Optional[float]):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.weight_decay, self.grad_clip = weight_decay, grad_clip
 
@@ -74,9 +75,12 @@ class AdamW(Optimizer):
 
     @torch.no_grad()
     def step(self, params: Tensors, grads: Tensors, state: Dict) -> None:
-        g_norm = global_norm(grads.values())
-        scale = torch.where(g_norm < self.grad_clip, torch.ones_like(g_norm),
-                            self.grad_clip / g_norm)
+        scale = 1.0
+        if self.grad_clip is not None:
+            g_norm = global_norm(grads.values())
+            scale = torch.where(g_norm < self.grad_clip,
+                                torch.ones_like(g_norm),
+                                self.grad_clip / g_norm)
         lr = self.lr(state["count"]) if callable(self.lr) else self.lr
         count = state["count"] + 1
         state["count"] = count

@@ -8,10 +8,13 @@ image-to-video and the one-step APT generator.
     python -m omnihuman_tpu_torch.cli.generate --task t2v-1.3B --one_step \\
         --prompts_file prompts.txt --generator_ckpt distill_out/
 
-Runs on the GPU unless `--device cpu` is given. Weights are random, made
-from a fixed init seed (0); --base_seed seeds the noise. The flags of the
-JAX CLI that belong to paths not ported yet are refused with the slice
-that brings them.
+Runs on the GPU unless `--device cpu` is given. `--ckpt_dir` names a Wan
+checkpoint directory in the reference layout (`*.safetensors` DiT shards,
+`Wan2.1_VAE.pth`, and `models_t5_umt5-xxl-enc-bf16.pth` where present);
+without it the weights are random, made from a fixed init seed (0).
+--base_seed seeds the noise. With `--one_step`, `--generator_ckpt` names
+a training checkpoint whose EMA stream replaces the DiT. The flags of the JAX CLI that belong to
+paths not ported yet are refused with the slice that brings them.
 """
 
 from __future__ import annotations
@@ -21,7 +24,6 @@ import sys
 
 # flags of omnihuman_tpu.cli.generate that later slices of the port bring
 LATER_FLAGS = {
-    "--ckpt_dir": "checkpoint loading in the CLI (ROADMAP queue A, slice 2)",
     "--sp_size": "sequence parallelism (ROADMAP queue A, slice 5)",
     "--fsdp_size": "multi-GPU sharding (ROADMAP queue A, slice 5)",
     "--export_step": "serving-step export (ROADMAP queue A, slice 5)",
@@ -44,6 +46,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--frame_num", type=int, default=None)
     p.add_argument("--prompt", default="a cat walking in the rain")
     p.add_argument("--image", default=None, help="reference image (i2v)")
+    p.add_argument("--ckpt_dir", default=None, metavar="DIR",
+                   help="Wan checkpoint directory in the reference layout: "
+                        "*.safetensors (the DiT), Wan2.1_VAE.pth, and "
+                        "models_t5_umt5-xxl-enc-bf16.pth when present "
+                        "(default: random weights from seed 0)")
     p.add_argument("--n_prompt", default="")
     p.add_argument("--sample_solver", default="unipc",
                    choices=("unipc", "dpm++"))
@@ -132,7 +139,8 @@ def main(argv=None):
         from PIL import Image
 
         from omnihuman_tpu_torch.pipelines.image2video import WanI2V
-        pipe = WanI2V(cfg, precision=args.precision, device=args.device)
+        pipe = WanI2V(cfg, precision=args.precision, device=args.device,
+                      checkpoint_dir=args.ckpt_dir)
         img = np.asarray(Image.open(args.image).convert("RGB"),
                          np.float32).transpose(2, 0, 1) / 127.5 - 1.0
         video = pipe.generate(args.prompt, img, max_area=h * w,
@@ -141,7 +149,8 @@ def main(argv=None):
     elif args.one_step:
         return _one_step(args, cfg, (w, h), frame_num, out)
     else:
-        pipe = WanT2V(cfg, precision=args.precision, device=args.device)
+        pipe = WanT2V(cfg, precision=args.precision, device=args.device,
+                      checkpoint_dir=args.ckpt_dir)
         video = pipe.generate(args.prompt, size=(w, h), frame_num=frame_num,
                               **sampling)
         timings = pipe.timings
@@ -151,37 +160,24 @@ def main(argv=None):
 
 
 def _one_step(args, cfg, size, frame_num: int, out: str):
-    """--one_step: the pipeline's DiT, or the EMA stream of the training
-    checkpoint in --generator_ckpt, one forward per batch of prompts."""
+    """--one_step: the pipeline's DiT (from --ckpt_dir or random), or the
+    EMA stream of the training checkpoint in --generator_ckpt, one forward
+    per batch of prompts."""
     import os
-
-    import torch
 
     from omnihuman_tpu_torch.ops.quant import quantize_wan_model
     from omnihuman_tpu_torch.pipelines.text2video import WanT2V
     from omnihuman_tpu_torch.pipelines.wan_inference import (
         SeaweedWanAPTGenerator)
-    from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
+    from omnihuman_tpu_torch.utils.checkpoint import restore_ema_into
     from omnihuman_tpu_torch.utils.media import cache_video
 
     # int8 quantizes after the checkpoint's weights are in
     int8 = args.precision == "int8"
     pipe = WanT2V(cfg, precision="fast" if int8 else args.precision,
-                  device=args.device)
+                  device=args.device, checkpoint_dir=args.ckpt_dir)
     if args.generator_ckpt:
-        state = CheckpointManager(args.generator_ckpt).restore()
-        if state is None:
-            sys.exit(f"no checkpoint found in {args.generator_ckpt}")
-        # distill / APT states carry the generator as `ema_params`; a bare
-        # {name: tensor} dict is taken as it is
-        ema = state.get("ema_params", state)
-        with torch.no_grad():
-            params = dict(pipe.model.named_parameters())
-            if set(ema) != set(params):
-                sys.exit(f"{args.generator_ckpt}: the EMA parameters do not "
-                         f"match the {cfg.name} DiT")
-            for name, p in params.items():
-                p.copy_(ema[name])
+        restore_ema_into(pipe.model, args.generator_ckpt)
     if int8:
         quantize_wan_model(pipe.model)
         pipe.precision = "int8"

@@ -54,11 +54,9 @@ def main(argv=None):
     from omnihuman_tpu_torch.apt.distill import (
         distill_train_step, init_distill_state, make_optimizer)
     from omnihuman_tpu_torch.apt.generate import (
-        create_dataloader, load_teacher_data)
+        create_dataloader, latent_rope, load_teacher_data)
     from omnihuman_tpu_torch.configs import WAN_CONFIGS
-    from omnihuman_tpu_torch.models.wan_dit import (
-        build_wan_model, padded_seq_len)
-    from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+    from omnihuman_tpu_torch.models.wan_dit import build_wan_model
     from omnihuman_tpu_torch.parallel.train_mesh import (
         check_single_device, resolve_remat)
     from omnihuman_tpu_torch.pipelines.text2video import resolve_device
@@ -76,12 +74,7 @@ def main(argv=None):
     data = load_teacher_data(args.data_path)
     dl = create_dataloader(data, batch_size=bsz, device=device)
 
-    c, f, h, w = data["noise"].shape[1:]
-    grid = (f // cfg.model.patch_size[0], h // cfg.model.patch_size[1],
-            w // cfg.model.patch_size[2])
-    seq_len = padded_seq_len(grid[0] * grid[1] * grid[2])
-    sin, cos = rope_angles_3d(grid, cfg.model.head_dim, seq_len=seq_len,
-                              device=device)
+    geometry = latent_rope(cfg.model, data["noise"].shape, device)
 
     opt = make_optimizer(lr=lr)
     state = init_distill_state(model, opt)
@@ -99,9 +92,8 @@ def main(argv=None):
         for batch in dl():
             t0 = time.perf_counter()
             state, m = distill_train_step(
-                state, batch, optimizer=opt, seq_len=seq_len, rope_sin=sin,
-                rope_cos=cos, policy=cfg.policy, ema_decay=ema_decay,
-                remat=remat)
+                state, batch, optimizer=opt, policy=cfg.policy,
+                ema_decay=ema_decay, remat=remat, **geometry)
             loss, g_norm = float(m["loss"]), float(m["grad_norm"])
             step += 1
             history.append(dict(step=step, epoch=epoch, loss=loss,

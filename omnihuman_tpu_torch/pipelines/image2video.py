@@ -29,17 +29,19 @@ from omnihuman_tpu_torch.pipelines.text2video import WanT2V, _sync, sample
 
 class WanI2V(WanT2V):
     """WanT2V with the CLIP image encoder and the mask + reference-latent
-    conditioning; weights random from `init_seed` (CLIP from
-    init_seed + 2)."""
+    conditioning; `checkpoint_dir` as WanT2V reads it (the i2v DiT, the
+    VAE, umT5); CLIP stays random from init_seed + 2, as JAX's WanI2V
+    reads no CLIP file."""
 
     def __init__(self, config: WanConfig, init_seed: int = 0,
                  param_dtype: torch.dtype = torch.bfloat16, tokenizer=None,
-                 precision: str = "reference", device=None):
+                 precision: str = "reference", device=None,
+                 checkpoint_dir: Optional[str] = None):
         if config.clip is None:
             raise ValueError(f"{config.name}: i2v needs a CLIP config")
         super().__init__(config, init_seed=init_seed, param_dtype=param_dtype,
                          tokenizer=tokenizer, precision=precision,
-                         device=device)
+                         device=device, checkpoint_dir=checkpoint_dir)
         self.clip = CLIPModel(config.clip, self.device, seed=init_seed + 2)
 
     def latent_size_for(self, img_hw: Tuple[int, int],

@@ -31,16 +31,13 @@ import numpy as np
 import torch
 
 from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanConfig
-from omnihuman_tpu_torch.models.t5 import load_t5_encoder
 from omnihuman_tpu_torch.models.vae import vae_decode, vae_encode
 from omnihuman_tpu_torch.omni.model import (
     OmniModel, OmniModelConfig, build_omni_model, load_base_dit,
     omni_model_forward)
-from omnihuman_tpu_torch.pipelines.text2video import (
-    WanT2V, _sync, resolve_device)
+from omnihuman_tpu_torch.pipelines.text2video import WanT2V, _sync
 from omnihuman_tpu_torch.samplers.fm_solvers import get_solver
 from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
-from omnihuman_tpu_torch.utils.convert import load_wan_checkpoint_dir
 
 
 def window_noise(seed: int, window: int, shape, device) -> torch.Tensor:
@@ -174,6 +171,9 @@ class OmniHuman(WanT2V):
     parameters, of a train state or a bare parameter dict, replace the
     omni model's, after `ckpt_dir` and before any int8 quantisation."""
 
+    # a Wan directory without the VAE file gets a random VAE (JAX omni CLIs)
+    vae_file_required = False
+
     def __init__(self, config: WanConfig, num_frames: int = 13,
                  init_seed: int = 0,
                  param_dtype: torch.dtype = torch.bfloat16, tokenizer=None,
@@ -182,17 +182,11 @@ class OmniHuman(WanT2V):
                  checkpoint: Optional[str] = None):
         self.omni_config = OmniModelConfig(base=config.model,
                                            num_frames=num_frames)
-        self._ckpt_dir, self._checkpoint = ckpt_dir, checkpoint
-        self._dit_sd = vae = None
-        if ckpt_dir is not None:
-            self._dit_sd, vae = load_wan_checkpoint_dir(
-                ckpt_dir, config.model, config.vae, vae_seed=init_seed + 1,
-                device=resolve_device(device), dtype=param_dtype)
+        self._checkpoint = checkpoint
         super().__init__(config, init_seed=init_seed,
                          param_dtype=param_dtype, tokenizer=tokenizer,
-                         precision=precision, device=device)
-        if vae is not None:
-            self.vae = vae
+                         precision=precision, device=device,
+                         checkpoint_dir=ckpt_dir)
 
     def _build_model(self) -> OmniModel:
         model = build_omni_model(self.omni_config, self.device,
@@ -208,10 +202,6 @@ class OmniHuman(WanT2V):
             params = restored.get("params", restored)
             model.load_state_dict(params, strict=True)
         return model
-
-    def _build_t5(self):
-        return load_t5_encoder(self.config.t5, self._ckpt_dir, self.device,
-                               self.param_dtype, seed=self._init_seed + 1000)
 
     @torch.inference_mode()
     def generate(

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanConfig, WanModelConfig
-from omnihuman_tpu_torch.models.t5 import build_t5_encoder
+from omnihuman_tpu_torch.models.t5 import load_t5_encoder
 from omnihuman_tpu_torch.models.tokenizers import HuggingfaceTokenizer
 from omnihuman_tpu_torch.models.vae import build_vae, vae_decode
 from omnihuman_tpu_torch.models.wan_dit import (
@@ -31,6 +31,7 @@ from omnihuman_tpu_torch.models.wan_dit import (
 from omnihuman_tpu_torch.ops.quant import quantize_wan_model
 from omnihuman_tpu_torch.ops.rope import rope_angles_3d
 from omnihuman_tpu_torch.samplers.fm_solvers import get_solver
+from omnihuman_tpu_torch.utils.convert import load_wan_checkpoint_dir
 
 
 def resolve_device(device=None) -> torch.device:
@@ -53,9 +54,17 @@ def _sync(device: torch.device) -> None:
 
 
 class WanT2V:
-    """Wan text-to-video pipeline with randomly initialised weights made
-    from `init_seed`. Every module keeps the reference parameter names, so
-    real weights load into `model`, `vae` and `t5` with `load_state_dict`."""
+    """Wan text-to-video pipeline. Every module keeps the reference
+    parameter names. With `checkpoint_dir` (the reference layout, JAX
+    `WanT2V._load_checkpoint`) the DiT comes from its `*.safetensors`
+    files, the VAE from `Wan2.1_VAE.pth` (required) and umT5 from
+    `models_t5_umt5-xxl-enc-bf16.pth` where present, each cast to
+    `param_dtype`; whatever the directory does not give is random from
+    `init_seed`."""
+
+    # a checkpoint directory without Wan2.1_VAE.pth is an error (JAX
+    # WanT2V); OmniHuman builds a random VAE instead
+    vae_file_required = True
 
     def __init__(
         self,
@@ -65,6 +74,7 @@ class WanT2V:
         tokenizer: Optional[HuggingfaceTokenizer] = None,
         precision: str = "reference",
         device=None,
+        checkpoint_dir: Optional[str] = None,
     ):
         if precision not in ("reference", "fast", "int8"):
             raise ValueError(f"unknown precision {precision!r}; "
@@ -82,11 +92,18 @@ class WanT2V:
         self.vae_stride = config.vae_stride
         self.patch_size = config.model.patch_size
         self._init_seed = init_seed
+        self.checkpoint_dir = checkpoint_dir
+        self._dit_sd = vae = None
+        if checkpoint_dir is not None:
+            self._dit_sd, vae = load_wan_checkpoint_dir(
+                checkpoint_dir, config.model, config.vae,
+                vae_seed=None if self.vae_file_required else init_seed + 1,
+                device=self.device, dtype=param_dtype)
         self.model = self._build_model()
         if precision == "int8":     # after the weights are final
             quantize_wan_model(self.model)
-        self.vae = build_vae(config.vae, self.device, param_dtype,
-                                     seed=init_seed + 1)
+        self.vae = vae if vae is not None else build_vae(
+            config.vae, self.device, param_dtype, seed=init_seed + 1)
         # umT5 is built lazily on first encode and moved to host memory
         # after it: the card need not hold the encoder through the denoise
         # loop (text2video.py:274-278)
@@ -95,16 +112,25 @@ class WanT2V:
         self.timings: dict = {}
 
     def _build_model(self) -> WanModel:
-        """The denoiser, random from the init seed (a subclass builds
-        another)."""
-        return build_wan_model(self.config.model, self.device,
-                               self.param_dtype, seed=self._init_seed)
+        """The denoiser: the checkpoint's DiT, else random from the init
+        seed (a subclass builds another)."""
+        if self.checkpoint_dir is not None and self._dit_sd is None:
+            raise FileNotFoundError(
+                f"no *.safetensors in {self.checkpoint_dir}")
+        model = build_wan_model(
+            self.config.model, self.device, self.param_dtype,
+            seed=self._init_seed if self._dit_sd is None else None)
+        if self._dit_sd is not None:
+            model.load_state_dict(self._dit_sd, strict=True)
+            self._dit_sd = None
+        return model
 
     def _build_t5(self):
-        """The umT5 encoder, random from the init seed (a subclass may load
-        one)."""
-        return build_t5_encoder(self.config.t5, self.device, self.param_dtype,
-                                seed=self._init_seed + 1000)
+        """The umT5 encoder: the checkpoint directory's umT5 file where it
+        has one, else random from the init seed."""
+        return load_t5_encoder(self.config.t5, self.checkpoint_dir,
+                               self.device, self.param_dtype,
+                               seed=self._init_seed + 1000)
 
     # -- text encoding ------------------------------------------------------
 

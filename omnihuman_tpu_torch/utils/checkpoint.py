@@ -101,3 +101,25 @@ class CheckpointManager:
 
     def close(self) -> None:
         """Nothing is held open."""
+
+
+@torch.no_grad()
+def restore_ema_into(model: torch.nn.Module, directory: str) -> int:
+    """Copy the generator stream of the latest step in `directory` into
+    `model`'s parameters, cast to their dtype: the `ema_params` of a
+    distill or APT state, or a bare {name: tensor} dict as it is. Returns
+    the step. FileNotFoundError without a step, ValueError when the names
+    are not the model's."""
+    mgr = CheckpointManager(directory)
+    step = mgr.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint found in {directory}")
+    state = mgr.restore(step)
+    ema = state.get("ema_params", state)
+    params = dict(model.named_parameters())
+    if set(ema) != set(params):
+        raise ValueError(f"{directory}: the EMA parameters do not match the "
+                         f"model's")
+    for name, p in params.items():
+        p.copy_(ema[name])
+    return step

@@ -5,7 +5,8 @@ Each `*_from_jax` function is the inverse of a converter of the JAX package
 `convert_vae`, `convert_t5` and the visual tower of `convert_clip`; the APT
 discriminator's probes and head come from the JAX params of
 `apt/model.py:init_apt_discriminator`, the OmniHuman model's from those of
-`omni/model.py:init_omni_model`.
+`omni/model.py:init_omni_model`, the f-distill MLP discriminator's from
+`apt/f_distill.py:init_mlp_discriminator`.
 Input is the JAX package's params PyTree as nested dicts / lists of numpy
 arrays; output is a {name: torch.Tensor} dict for `load_state_dict`.
 `load_wan_dit_checkpoint` reads a reference checkpoint directory's DiT.
@@ -22,7 +23,7 @@ Layouts undone here:
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -302,6 +303,38 @@ def omni_train_state_from_jax(state, cfg) -> Dict[str, Any]:
             "step": int(np.asarray(state.step))}
 
 
+def mlp_discriminator_state_dict_from_jax(params: Mapping[str, Any]
+                                          ) -> StateDict:
+    """JAX f-distill MLP discriminator params (apt/f_distill.py:
+    init_mlp_discriminator: fc1 / fc2 / fc3, w [in, out]) ->
+    MLPDiscriminator state dict."""
+    sd: StateDict = {}
+    for name in ("fc1", "fc2", "fc3"):
+        _put_linear(sd, name, params[name])
+    return sd
+
+
+def f_distill_state_from_jax(state, cfg: WanModelConfig) -> Dict[str, Any]:
+    """A JAX FDistillState (student params and optax adamw state, MLP
+    discriminator params and optax adam state, step) -> the state dict
+    `apt/f_distill.py:FDistillState` loads: {"params", "opt_state":
+    {"count", "mu", "nu"}, "d_params", "d_opt_state", "step"}. Each Adam
+    state is found by its fields, as in `omni_train_state_from_jax`."""
+    out: Dict[str, Any] = {"step": int(np.asarray(state.step))}
+    for key, opt_key, params, opt, carry in (
+            ("params", "opt_state", state.params, state.opt_state,
+             lambda t: wan_dit_state_dict_from_jax(t, cfg)),
+            ("d_params", "d_opt_state", state.d_params, state.d_opt_state,
+             mlp_discriminator_state_dict_from_jax)):
+        adam = _find_adam_state(opt)
+        if adam is None:
+            raise ValueError(f"no optax ScaleByAdamState in {opt_key}")
+        out[key] = carry(params)
+        out[opt_key] = {"count": int(np.asarray(adam.count)),
+                        "mu": carry(adam.mu), "nu": carry(adam.nu)}
+    return out
+
+
 def _find_adam_state(node):
     if all(hasattr(node, f) for f in ("mu", "nu", "count")):
         return node
@@ -326,8 +359,9 @@ def load_torch_state_dict(path: str) -> StateDict:
 
 
 def load_wan_checkpoint_dir(ckpt_dir: str, model_cfg: WanModelConfig,
-                            vae_cfg: VAEConfig = None, vae_seed: int = 1,
-                            device="cpu", dtype: torch.dtype = torch.float32):
+                            vae_cfg: VAEConfig = None,
+                            vae_seed: Optional[int] = 1, device="cpu",
+                            dtype: torch.dtype = torch.float32):
     """A Wan checkpoint directory in the reference layout (JAX
     `utils/convert.py:load_wan_checkpoint_dir`):
 
@@ -336,7 +370,9 @@ def load_wan_checkpoint_dir(ckpt_dir: str, model_cfg: WanModelConfig,
                               and shapes
       Wan2.1_VAE.pth       -> a WanVAE on `device` in `dtype` loaded
                               strictly; without the file, a random one
-                              from `vae_seed` (None when `vae_cfg` is None)
+                              from `vae_seed`, or FileNotFoundError when
+                              `vae_seed` is None (JAX `WanT2V`'s rule);
+                              None when `vae_cfg` is None
 
     Returns (dit_state_dict | None, vae | None). The umT5 file is read by
     `models/t5.py:load_t5_encoder`."""
@@ -367,6 +403,8 @@ def load_wan_checkpoint_dir(ckpt_dir: str, model_cfg: WanModelConfig,
         if os.path.exists(vae_path):
             vae = build_vae(vae_cfg, device, dtype, seed=None)
             vae.load_state_dict(load_torch_state_dict(vae_path), strict=True)
+        elif vae_seed is None:
+            raise FileNotFoundError(f"no Wan2.1_VAE.pth in {ckpt_dir}")
         else:
             vae = build_vae(vae_cfg, device, dtype, seed=vae_seed)
     return (dit_sd or None), vae

@@ -1,6 +1,7 @@
-"""Host-side media IO (copy of `cache_video` from omnihuman_tpu/utils/media.py,
-reference wan/utils/utils.py:23-61). Arrays are [C, F, H, W] (or
-[B, C, F, H, W], written as a grid) in a [-1, 1]-style value range."""
+"""Host-side media IO (copies of `cache_video` and `cache_image` from
+omnihuman_tpu/utils/media.py, reference wan/utils/utils.py:23-91). Arrays
+are [C, F, H, W] (or [B, C, F, H, W], written as a grid) and [C, H, W]
+(or [B, C, H, W]) in a [-1, 1]-style value range."""
 
 from __future__ import annotations
 
@@ -81,3 +82,28 @@ def cache_video(tensor, save_file: Optional[str] = None, fps: int = 16,
     except Exception:
         raise RuntimeError(
             f"cache_video failed after {retry} tries: {err}")
+
+
+def cache_image(tensor, save_file: str, nrow: int = 8,
+                value_range=(-1.0, 1.0)) -> str:
+    """[C, H, W] or [B, C, H, W] -> one png grid, or the uint8 grid as
+    .npy where imageio is absent. Accepts numpy arrays and torch tensors;
+    returns the path written."""
+    if hasattr(tensor, "detach"):
+        tensor = tensor.detach().float().cpu().numpy()
+    x = np.asarray(tensor)
+    if x.ndim == 3:
+        x = x[None]
+    grid = make_grid(_to_uint8(x.transpose(0, 2, 3, 1), value_range),
+                     nrow=nrow)
+    parent = os.path.dirname(save_file)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    try:
+        import imageio
+    except ImportError:   # no image writer installed: keep the pixels
+        npy_file = os.path.splitext(save_file)[0] + ".npy"
+        np.save(npy_file, grid)            # [H', W', 3] uint8
+        return npy_file
+    imageio.imwrite(save_file, grid)
+    return save_file

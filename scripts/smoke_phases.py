@@ -6,7 +6,9 @@
 Builds the kernels (phase 2) of the checkout at DIR (default: this one),
 then runs the named phases in order, each with fresh launch counts:
 14 (i2v-14B request), 15 (one-step batch), 16 (OmniHuman request), 18
-(OmniHuman training). To compare two commits on one card, unpack the
+(OmniHuman training), 19 (`cli.generate --ckpt_dir`), 20 (f-distill), 21
+(`cli.train_apt`), 22 (`cli.eval_ema`). Phases 19-22 run after phase 8
+(the checkpoint directory, teacher data and distill output they read). To compare two commits on one card, unpack the
 other one (`git archive <commit> | tar -x -C DIR`) and run both in one
 call, in turns (parent, change, change, parent). Exits nonzero where a
 phase fails, as the smoke does.
@@ -24,7 +26,8 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    p.add_argument("phases", nargs="+", type=int, choices=(14, 15, 16, 18))
+    p.add_argument("phases", nargs="+", type=int,
+                   choices=(14, 15, 16, 18, 19, 20, 21, 22))
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -43,14 +46,24 @@ def main(argv=None) -> None:
            15: lambda: cs.phase_one_step(every, fwd),
            16: lambda: cs.phase_omni(every, fwd),
            18: lambda: cs.phase_omni_train(every, flash)}
-    for phase in args.phases:
+    import shutil
+    for phase in [p for p in args.phases if p < 19]:
         t0 = time.perf_counter()
         try:
             run[phase]()
         finally:
-            import shutil
             shutil.rmtree(cs.WORK, ignore_errors=True)
         cs.log(f"phase {phase} of {root}: {time.perf_counter() - t0:.0f} s")
+    later = [p for p in args.phases if p >= 19]
+    if later:
+        t0 = time.perf_counter()
+        try:
+            _, npz = cs.phase_training_main_path(flash)
+            cs.run_slice_10_phases(npz, every, {}, phases=later)
+        finally:
+            shutil.rmtree(cs.WORK, ignore_errors=True)
+        cs.log(f"phases 8, {later} of {root}: "
+               f"{time.perf_counter() - t0:.0f} s")
 
 
 if __name__ == "__main__":

@@ -163,7 +163,7 @@ def test_cli_writes_video_on_cpu(tmp_path):
     assert os.path.exists(out) and os.path.getsize(out) > 0
 
 
-@pytest.mark.parametrize("argv", [["--ckpt_dir", "ckpt"],
+@pytest.mark.parametrize("argv", [["--profile", "trace"],
                                   ["--sp_size", "2"],
                                   ["--fsdp_size", "2"],
                                   ["--use_prompt_extend"]])
