@@ -173,10 +173,36 @@ output), after phase 11:
      samples: finite PSNR / SSIM, two images written, 30 / 30 K1, 56 K3
      and 6 K4 (two 1-latent-frame decodes), the pass's seconds.
 
+Then, right after phase 16 (before phase 17), on its pipeline:
+ 23. the pose data plane at full width: Sapiens-1b (dim 1536, 40 layers,
+     24 heads, 1024x768, 308 keypoints; fp32, random from a seed with a
+     positive final-layer bias, so that keypoint confidences clear
+     gaussian_heatmaps' 0.1) written as a reference-named state-dict file
+     and loaded by `SapiensKeypointProcessor(checkpoint_path=)` through
+     `infer_sapiens_config`; the backbone's ms a crop at batch 1 and 8
+     (CUDA events, median of 7) beside its fp32 bound, and peak memory;
+     8 seeded 480x832 frames with two bright figures through detection,
+     crop, heatmaps and UDP decode (ms a frame, backbone against the
+     rest); the crop, blur and labelling on the card against the CPU, and
+     Sapiens at 2 layers of the 1b width on the same weights (tolerance
+     5e-3 of the peak, which allows TF32 convolutions);
+     `cli.extract_feature.run` over the frames (images a second, files
+     written) and a child's exception reaching the parent; then
+     `pose_heatmaps_from_frames` at phase 16's geometry and one omni
+     request with those heatmaps, whose launches must equal phase 16's;
+ 24. `cli.evaluate.main` on 2 real and 2 fake .npy clips (16 frames,
+     256x256) with InceptionV3 (random), I3D kinetics-400 from a random
+     piergiaj-named state dict (--i3d_weights) and --keypoints with phase
+     23's processor: FID > 0, finite FVD, HKC / HKV in [0, 1], the JSON's
+     feature-space tags, seconds by stage (features, sqrtm, keypoints);
+     FID of identical sets < 1e-3, IS, Sync-C with the default towers;
+     Inception and I3D features on the card against the CPU (relative L2,
+     tolerance 5e-3).
+
 The line before last is a JSON object {"kernels": [...]}; its
 `launches_by_path` holds each path's launches (phase 19's t2v request,
-20's and 21's first CLI runs, 22's pass among them); the last line is
-{"ok": true, "device": {...}}.
+20's and 21's first CLI runs, 22's pass, 23's `--pose_video` request
+among them); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1573,21 +1599,12 @@ def _omni_inputs(rng, h, w, f_total, num_keypoints):
     return img, wav, pose
 
 
-def phase_omni(all_kernels, flash_kernels):
-    """OmniHuman serving at full width through cli.omni_inference.run; then
-    one cond + uncond step at window 2's geometry, kernels against plain
-    attention, and the Wav2Vec2 base extractor timed once."""
-    import numpy as np
+def _omni_pipeline(tag: str):
+    """(args, pipe): phase 16's OmniHuman pipeline from OMNI's flags, with
+    a random head, adapter `o` and `pose_proj` (seed 5)."""
     import torch
-    from unittest import mock
     from omnihuman_tpu_torch.cli.omni_inference import (
-        build_parser, build_pipeline, run)
-    from omnihuman_tpu_torch.models.vae import vae_encode
-    from omnihuman_tpu_torch.ops import attention
-    from omnihuman_tpu_torch.omni.model import omni_model_forward
-    from omnihuman_tpu_torch.ops.flash_attention import flash_attention_plain
-    from omnihuman_tpu_torch.pipelines.omni import _slice_frames
-
+        build_parser, build_pipeline)
     args = build_parser().parse_args(OMNI["argv"])
     args.output = None                      # frames stay on the card
     t0 = time.perf_counter()
@@ -1602,9 +1619,41 @@ def phase_omni(all_kernels, flash_kernels):
             w.normal_(0.0, 0.1 * dim ** -0.5, generator=g)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in pipe.model.parameters())
-    log(f"[16] OmniHuman(t2v-1.3B) built in {time.perf_counter() - t0:.1f} "
-        f"s: {n_params / 1e9:.3f} B parameters (bf16; 30 audio adapters, "
-        f"pose guider 308->128->256->384, temporal embedding 13 rows)")
+    log(f"[{tag}] OmniHuman(t2v-1.3B) built in "
+        f"{time.perf_counter() - t0:.1f} s: {n_params / 1e9:.3f} B "
+        f"parameters (bf16; 30 audio adapters, pose guider "
+        f"308->128->256->384, temporal embedding 13 rows)")
+    return args, pipe
+
+
+def _omni_want(all_kernels, flash_kernels):
+    """The launches of one omni request at OMNI's geometry."""
+    layers, steps = NUM_LAYERS, OMNI["steps"]
+    windows = -(-OMNI["f_total"] // OMNI["f_win"])
+    f_lat = OMNI["f_total"]
+    want = {flash_kernels[0].name: 2 * layers * steps * windows,
+            flash_kernels[1].name: 3 * layers * steps * windows,
+            all_kernels[-2].name: 20 + 28 * f_lat,
+            all_kernels[-1].name: 3 * f_lat}
+    return {kn.name: want.get(kn.name, 0) for kn in all_kernels}
+
+
+def phase_omni(all_kernels, flash_kernels):
+    """OmniHuman serving at full width through cli.omni_inference.run; then
+    one cond + uncond step at window 2's geometry, kernels against plain
+    attention, and the Wav2Vec2 base extractor timed once. Returns the
+    request's launches and the pipeline (phase 23 drives it again)."""
+    import numpy as np
+    import torch
+    from unittest import mock
+    from omnihuman_tpu_torch.cli.omni_inference import run
+    from omnihuman_tpu_torch.models.vae import vae_encode
+    from omnihuman_tpu_torch.ops import attention
+    from omnihuman_tpu_torch.omni.model import omni_model_forward
+    from omnihuman_tpu_torch.ops.flash_attention import flash_attention_plain
+    from omnihuman_tpu_torch.pipelines.omni import _slice_frames
+
+    args, pipe = _omni_pipeline("16")
     w_px, h_px = OMNI["size"]
     t0 = time.perf_counter()
     img, wav, pose = _omni_inputs(np.random.default_rng(21), h_px, w_px,
@@ -1642,11 +1691,7 @@ def phase_omni(all_kernels, flash_kernels):
     layers, steps = NUM_LAYERS, OMNI["steps"]
     windows = -(-OMNI["f_total"] // OMNI["f_win"])
     f_lat = OMNI["f_total"]
-    want = {flash_kernels[0].name: 2 * layers * steps * windows,
-            flash_kernels[1].name: 3 * layers * steps * windows,
-            all_kernels[-2].name: 20 + 28 * f_lat,
-            all_kernels[-1].name: 3 * f_lat}
-    want = {kn.name: want.get(kn.name, 0) for kn in all_kernels}
+    want = _omni_want(all_kernels, flash_kernels)
     log(f"[16] launches {counts}, expected {want} ({windows} windows x "
         f"{steps} steps x {layers} layers: cond + uncond self-attention "
         f"long, cond text + cond audio + uncond text short; K3 20 for the "
@@ -1699,7 +1744,7 @@ def phase_omni(all_kernels, flash_kernels):
     if not torch.isfinite(got).all() or rel > 5e-2:
         fail(f"omni step: kernel vs plain relative L2 {rel}")
     profile_split(step, "16")
-    del pipe, got, want_v, x, pz, video, out
+    del got, want_v, x, pz, video, out
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1717,7 +1762,7 @@ def phase_omni(all_kernels, flash_kernels):
     if not np.isfinite(feats).all():
         fail("Wav2Vec2 features not finite")
     del ext
-    return counts
+    return counts, pipe
 
 
 def phase_int8_step():
@@ -2649,6 +2694,397 @@ def phase_eval_ema(npz, kernels):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 23-24: the pose data plane (Sapiens-1b keypoints, extract_feature,
+# --pose_video) and the evaluation suite, after phase 16 on its pipeline
+
+POSE = dict(frames=8, seed=31, sapiens_seed=41)   # frames at OMNI's size
+EVAL = dict(clips=2, frames=16, hw=256, seed=51)
+
+
+def _pose_frames(n, h, w, seed):
+    """n seeded frames [h, w, 3] uint8: a dark noisy background and two
+    bright figures (head and torso), drifting apart frame to frame."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 60, (n, h, w, 3), dtype=np.uint8)
+    for t in range(n):
+        for cx, level in ((0.3 * w - 4 * t, 235), (0.68 * w + 3 * t, 200)):
+            x0, x1 = int(cx - 0.04 * w), int(cx + 0.04 * w)
+            frames[t, int(0.12 * h):int(0.27 * h), x0:x1] = level
+            frames[t, int(0.28 * h):int(0.92 * h),
+                   int(cx - 0.08 * w):int(cx + 0.08 * w)] = level - 20
+    return frames
+
+
+def sapiens_flops(cfg) -> float:
+    """FLOP of one Sapiens crop: the patch embed, 12 D^2 a token a layer in
+    the linears, 4 T^2 D a layer in attention, the deconvs (4 Cin taps an
+    output pixel), the 1x1 convs and the final layer."""
+    gh, gw = cfg.grid
+    t, d = gh * gw, cfg.embed_dim
+    f = 2.0 * t * d * 3 * cfg.patch_size ** 2
+    f += cfg.depth * (2.0 * t * 12 * d * d + 4.0 * t * t * d)
+    cin, h, w = d, gh, gw
+    for c in cfg.deconv_channels:
+        h, w = 2 * h, 2 * w
+        f += 2.0 * h * w * c * cin * 4
+        cin = c
+    for c in cfg.conv_channels:
+        f += 2.0 * h * w * c * cin
+        cin = c
+    return f + 2.0 * h * w * cfg.num_keypoints * cin
+
+
+class _TimedBackbone:
+    """A backbone wrapper that adds each call's synchronised seconds."""
+
+    def __init__(self, backbone):
+        self.backbone, self.seconds, self.calls = backbone, 0.0, 0
+
+    def __call__(self, crop):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.backbone(crop)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+
+def tf32_state() -> str:
+    import torch
+    return (f"TF32 in matmuls {torch.backends.cuda.matmul.allow_tf32}, in "
+            f"cuDNN {torch.backends.cudnn.allow_tf32}")
+
+
+def _rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def phase_pose(all_kernels, flash_kernels, card, pipe=None):
+    """[23] The pose data plane at full width: Sapiens-1b from a state-dict
+    file through SapiensKeypointProcessor, its times, card against CPU,
+    cli.extract_feature.run, then --pose_video's heatmaps through one omni
+    request on phase 16's pipeline (built anew when `pipe` is None).
+    Returns (the request's launches, the processor)."""
+    import copy
+    import dataclasses
+    import multiprocessing
+    import numpy as np
+    import torch
+    from omnihuman_tpu_torch.cli import extract_feature
+    from omnihuman_tpu_torch.cli.omni_inference import (
+        build_parser, pose_heatmaps_from_frames, run)
+    from omnihuman_tpu_torch.omni import pose_utils as pu
+    from omnihuman_tpu_torch.omni import sapiens as sap
+    from omnihuman_tpu_torch.omni.keypoints import SapiensKeypointProcessor
+    from omnihuman_tpu_torch.omni.worker_pool import WorkerPool
+
+    tf32 = tf32_state()
+    cfg = sap.SAPIENS_PRESETS["1b"]
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, "sapiens_1b.pth")
+    t0 = time.perf_counter()
+    model = sap.build_sapiens(cfg, "cuda", seed=POSE["sapiens_seed"])
+    with torch.no_grad():   # random heatmaps sit near 0, under the 0.1
+        # confidence gaussian_heatmaps keeps: a positive final bias makes
+        # the pose heatmaps and HKC non-trivial
+        model.head.final_layer.bias.normal_(
+            0.5, 0.1, generator=torch.Generator(device="cuda").manual_seed(
+                POSE["sapiens_seed"]))
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
+    gb = os.path.getsize(path) / 1e9
+    del model
+    torch.cuda.empty_cache()
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = SapiensKeypointProcessor(checkpoint_path=path)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    os.remove(path)
+    if proc.backbone is None or proc.backbone.cfg != cfg:
+        fail("SapiensKeypointProcessor did not load the Sapiens-1b file")
+    log(f"[23] Sapiens-1b ({n_params / 1e9:.3f} B parameters, fp32, random "
+        f"seed {POSE['sapiens_seed']}): {gb:.2f} GB state-dict file written "
+        f"in {t_write:.1f} s, loaded through infer_sapiens_config in "
+        f"{t_load:.1f} s; {tf32}")
+
+    # the backbone alone, batch 1 and 8
+    bb = proc.backbone
+    g = torch.Generator(device="cuda").manual_seed(3)
+    crops = torch.randint(0, 256, (8, *cfg.img_size, 3), generator=g,
+                          device="cuda", dtype=torch.uint8)
+    flops = sapiens_flops(cfg)
+    base = torch.cuda.memory_allocated()
+    times = {}
+    for b in (1, 8):
+        torch.cuda.reset_peak_memory_stats()
+        times[b] = bench_ms(lambda: bb.batch(crops[:b]), reps=7,
+                            warmup=2 if b == 1 else 1)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        log(f"[23] Sapiens-1b forward 1024x768 at batch {b}: "
+            f"{times[b]:.1f} ms ({times[b] / b:.1f} ms a crop; "
+            f"{flops / 1e12:.2f} TFLOP a crop, {flops * b / times[b] / 1e9:.1f}"
+            f" TFLOP/s; fp32 bound {flops * b / 67e12 * 1e3:.1f} ms at 67 "
+            f"TFLOP/s); peak {peak:.2f} GiB above the weights ({card})")
+
+    # the processor, frame by frame
+    w_px, h_px = OMNI["size"]
+    frames = _pose_frames(POSE["frames"], h_px, w_px, POSE["seed"])
+    timed = _TimedBackbone(bb)
+    proc.backbone = proc.detector.backbone = timed
+    kps, per, dev = [], [], []
+    for f in frames:
+        torch.cuda.synchronize()
+        t0, b0 = time.perf_counter(), timed.seconds
+        kps.append(proc.extract_keypoints(f))
+        torch.cuda.synchronize()
+        per.append(time.perf_counter() - t0)
+        dev.append(timed.seconds - b0)
+    if any(k is None for k in kps) or not np.isfinite(np.stack(kps)).all():
+        fail("the keypoint processor failed on a synthetic frame")
+    kps = np.stack(kps)
+    host = np.array(per) - np.array(dev)
+    log(f"[23] keypoints of {len(frames)} frames {frames.shape[1:]}: "
+        f"{np.median(per) * 1e3:.1f} ms a frame (median; first "
+        f"{per[0] * 1e3:.1f}): backbone {np.median(dev) * 1e3:.1f} ms in "
+        f"{timed.calls // len(frames)} passes (detector + crop), the rest "
+        f"(resize, labelling, crop, blur, UDP / DARK) "
+        f"{np.median(host) * 1e3:.1f} ms (medians); keypoints {kps.shape}, "
+        f"x in [{kps[..., 0].min():.3f}, {kps[..., 0].max():.3f}], scores "
+        f"in [{kps[..., 2].min():.3f}, {kps[..., 2].max():.3f}] ({card})")
+    proc.backbone = proc.detector.backbone = bb
+
+    # card against CPU: the crop, blur and labelling, and Sapiens at 2
+    # layers of the 1b width on the same weights
+    box = proc.detect_person(frames[0])
+    c_card, *_ = pu.top_down_affine_transform(
+        torch.from_numpy(frames[0]).cuda(), box, proc.input_size)
+    c_cpu, *_ = pu.top_down_affine_transform(frames[0], box,
+                                             proc.input_size)
+    crop_err = (c_card.cpu().int() - c_cpu.int()).abs().max().item()
+    hm = bb(c_card)
+    b_card, b_cpu = pu.gaussian_blur(hm).cpu(), pu.gaussian_blur(hm.cpu())
+    blur_err = (b_card - b_cpu).abs().max().item()
+    mask = (hm.amax(0) >= 0.3 * hm.amax()).to(torch.uint8)
+    la, lb = (pu.connected_components(m) for m in
+              (mask.cpu().numpy(), (hm.cpu().amax(0) >= 0.3 * hm.cpu().amax()
+                                    ).to(torch.uint8).numpy()))
+    labels_equal = la[0] == lb[0] and (la[1] == lb[1]).all() and \
+        (la[2] == lb[2]).all()
+    small = sap.build_sapiens(dataclasses.replace(cfg, depth=2), "cpu",
+                              seed=43)
+    t0 = time.perf_counter()
+    want = sap.SapiensBackbone(model=copy.deepcopy(small), device="cpu"
+                               ).batch(c_cpu[None])
+    cpu_s = time.perf_counter() - t0
+    got = sap.SapiensBackbone(model=small, device="cuda").batch(
+        c_card[None]).cpu()
+    sap_err = (got - want).abs().max().item() / want.abs().max().item()
+    log(f"[23] card vs CPU: crop max {crop_err} levels (tol 1), blur max "
+        f"abs {blur_err:.3g} (tol 1e-6), {la[0] - 1} components, labels and "
+        f"stats equal {labels_equal}; Sapiens 2 layers at the 1b width "
+        f"max err {sap_err:.3g} of the peak (tol 5e-3, which allows TF32 "
+        f"convolutions; the CPU forward {cpu_s:.1f} s)")
+    if crop_err > 1 or blur_err > 1e-6 or not labels_equal or sap_err > 5e-3:
+        fail("the pose data plane on the card disagrees with the CPU")
+    del small, got, want
+
+    # cli.extract_feature.run over the frames, and a child's exception
+    out_dir = os.path.join(WORK, "features")
+    t0 = time.perf_counter()
+    n = extract_feature.run(((f"frame{i:02d}.png", f) for i, f in
+                             enumerate(frames)), out_dir, proc)
+    dt = time.perf_counter() - t0
+    files = sorted(os.listdir(out_dir))
+    hm0 = np.load(os.path.join(out_dir, files[0]))
+    log(f"[23] cli.extract_feature.run: {n} files of {hm0.shape} written in "
+        f"{dt:.2f} s ({n / dt:.2f} images/s, 2 spawned writers) ({card})")
+    if n != len(frames) or len(files) != n or hm0.shape != (308, 64, 64):
+        fail("extract_feature wrote the wrong files")
+    with WorkerPool(processes=1,
+                    context=multiprocessing.get_context("spawn")) as pool:
+        r = pool.apply_async(extract_feature._save_npy,
+                             (os.path.join(out_dir, "no", "x.npy"), hm0))
+        try:
+            r.get(timeout=60)
+            fail("a child's exception did not reach the parent")
+        except FileNotFoundError as e:
+            reached = "child traceback" in str(e)
+    log(f"[23] a child's FileNotFoundError reached the parent with its "
+        f"traceback: {reached}")
+    if not reached:
+        fail("the child's traceback is missing")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # --pose_video: heatmaps at phase 16's geometry, one omni request
+    if pipe is None:
+        args, pipe = _omni_pipeline("23")
+    else:
+        args = build_parser().parse_args(OMNI["argv"])
+        args.output = None
+    h_lat, w_lat = h_px // 8, w_px // 8
+    t0 = time.perf_counter()
+    pose = pose_heatmaps_from_frames(iter(frames), OMNI["f_total"], h_lat,
+                                     w_lat, proc)
+    pose_s = time.perf_counter() - t0
+    if pose.shape != (1, 308, OMNI["f_total"], 2 * h_lat, 2 * w_lat) or \
+            not np.isfinite(pose).all():
+        fail(f"pose heatmaps {pose.shape} are wrong")
+    rng = np.random.default_rng(21)
+    img = rng.integers(0, 256, (h_px, w_px, 3), dtype=np.uint8)
+    nsamp = int(OMNI["audio_s"] * OMNI["sr"])
+    wav = (0.3 * np.sin(2 * np.pi * 220 * np.arange(nsamp) / OMNI["sr"])
+           ).astype(np.float32)
+    _zero(all_kernels)
+    t0 = time.perf_counter()
+    out = run(args, img, wav, OMNI["sr"], pose=pose[0], pipe=pipe)
+    torch.cuda.synchronize()
+    req_s = time.perf_counter() - t0
+    counts = _count(all_kernels)
+    want = _omni_want(all_kernels, flash_kernels)
+    video = out["video"].float()
+    log(f"[23] --pose_video: heatmaps {pose.shape} of {len(frames)} frames "
+        f"(the last repeated to {OMNI['f_total']}; {pose.any(axis=(2, 3, 4)).sum()}"
+        f" of 308 maps non-zero) in {pose_s:.2f} s; omni "
+        f"request with them {req_s:.2f} s, video {tuple(video.shape)} "
+        f"finite {bool(torch.isfinite(video).all())}; launches {counts}, "
+        f"phase 16's {want} ({card})")
+    if counts != want or not torch.isfinite(video).all():
+        fail("the --pose_video request did not match phase 16's launches")
+    return counts, proc
+
+
+def phase_eval(card, proc=None):
+    """[24] cli.evaluate.main at full width on 2 real and 2 fake .npy clips
+    (16 frames, 256x256): InceptionV3 (random), I3D kinetics-400 from a
+    random piergiaj-named state dict, --keypoints with phase 23's
+    processor (a random Sapiens-1b one when None); then FID of identical
+    sets, IS, Sync-C with the default towers, and Inception / I3D on the
+    card against the CPU."""
+    import json
+    from unittest import mock
+    import numpy as np
+    import torch
+    from omnihuman_tpu_torch.cli import evaluate as cli
+    from omnihuman_tpu_torch.omni import evaluate as ev
+    from omnihuman_tpu_torch.omni.i3d import (
+        I3D_PRESETS, I3DVideoFeatures, build_i3d)
+    from omnihuman_tpu_torch.omni.inception import InceptionFeatures
+    from omnihuman_tpu_torch.omni.syncc import SyncCEmbedders
+
+    if proc is None:
+        proc = cli.build_keypoint_processor()
+    rng = np.random.default_rng(EVAL["seed"])
+    n, t, hw = EVAL["clips"], EVAL["frames"], EVAL["hw"]
+    dirs = {k: os.path.join(WORK, "eval", k) for k in ("real", "fake")}
+    real = rng.uniform(-1, 1, (n, t, hw, hw, 3)).astype(np.float32)
+    real[:, :, 64:200, 96:160] = 0.9                      # a figure
+    fake = np.clip(real + rng.normal(0, 0.3, real.shape), -1, 1).astype(
+        np.float32)
+    for k, clips in (("real", real), ("fake", fake)):
+        os.makedirs(dirs[k], exist_ok=True)
+        for i, c in enumerate(clips):
+            np.save(os.path.join(dirs[k], f"clip{i}.npy"), c)
+    i3d_path = os.path.join(WORK, "eval", "i3d_rgb.pt")
+    torch.save({k: v.cpu() for k, v in build_i3d(
+        I3D_PRESETS["kinetics-400"], "cuda", seed=EVAL["seed"]
+    ).state_dict().items()}, i3d_path)
+
+    spent = {"sqrtm": 0.0, "keypoints": 0.0}
+    frechet = ev.frechet_distance
+
+    def timed_frechet(a, b):
+        t0 = time.perf_counter()
+        d = frechet(a, b)
+        spent["sqrtm"] += time.perf_counter() - t0
+        return d
+
+    class TimedProcessor:
+        num_keypoints = proc.num_keypoints
+
+        def extract_keypoints(self, img):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            k = proc.extract_keypoints(img)
+            torch.cuda.synchronize()
+            spent["keypoints"] += time.perf_counter() - t0
+            if k is None:
+                fail("the keypoint processor failed on an eval frame")
+            return k
+
+    out_dir = os.path.join(WORK, "eval", "out")
+    t0 = time.perf_counter()
+    with mock.patch.object(ev, "frechet_distance", timed_frechet):
+        path = cli.main(["--real_dir", dirs["real"], "--fake_dir",
+                         dirs["fake"], "--num_frames", str(t), "--size",
+                         f"{hw}*{hw}", "--i3d_weights", i3d_path,
+                         "--keypoints", "--output_dir", out_dir,
+                         "--name", "smoke"],
+                        keypoint_processor=TimedProcessor())
+    total = time.perf_counter() - t0
+    m = json.load(open(path))
+    feats_s = total - spent["sqrtm"] - spent["keypoints"]
+    log(f"[24] cli.evaluate ({n} + {n} clips of {t} frames at {hw}x{hw}): "
+        f"fid {m['fid']:.4f}, fvd {m['fvd']:.4f}, hkc {m['hkc']:.4f}, hkv "
+        f"{m['hkv']:.4f}, feature_space {m['feature_space']}, "
+        f"fvd_feature_space {m.get('fvd_feature_space')}; {total:.1f} s: "
+        f"features and loading {feats_s:.1f} s, sqrtm {spent['sqrtm']:.1f} "
+        f"s (FID 2,048-d + FVD 1,024-d, host), keypoints "
+        f"{spent['keypoints']:.1f} s ({n * t} frames) ({card})")
+    if not (np.isfinite(m["fid"]) and m["fid"] > 0 and np.isfinite(m["fvd"])
+            and 0 <= m["hkc"] <= 1 and 0 <= m["hkv"] <= 1
+            and m["feature_space"] == "inception_v3_random_init_proxy"
+            and m.get("fvd_feature_space") == "i3d_kinetics"):
+        fail(f"cli.evaluate's metrics or tags are wrong: {m}")
+
+    inc = InceptionFeatures()
+    flat = real.reshape(-1, hw, hw, 3).transpose(0, 3, 1, 2)
+    t0 = time.perf_counter()
+    f_real = inc(flat)
+    feat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fid_same = ev.frechet_distance(f_real, f_real)
+    same_s = time.perf_counter() - t0
+    logits = inc.logits(fake.reshape(-1, hw, hw, 3).transpose(0, 3, 1, 2))
+    p = np.exp(logits - logits.max(1, keepdims=True))
+    score = ev.inception_score(p / p.sum(1, keepdims=True))
+    sy = SyncCEmbedders()
+    aud = rng.normal(size=(t, 1024)).astype(np.float32)
+    t0 = time.perf_counter()
+    sync = ev.LipSyncEvaluator(sy.audio_embed_fn, sy.visual_embed_fn
+                               ).sync_confidence(
+        fake[0].transpose(3, 0, 1, 2), aud)
+    sync_s = time.perf_counter() - t0
+    log(f"[24] FID of identical sets {fid_same:.3g} (tol 1e-3; sqrtm "
+        f"{same_s:.1f} s; {len(flat)} frames' features {feat_s:.2f} s), IS "
+        f"{score:.4f}, Sync-C (default towers, random) {sync:.4f} in "
+        f"{sync_s:.2f} s ({card})")
+    if not (abs(fid_same) < 1e-3 and np.isfinite(score)
+            and np.isfinite(sync)):
+        fail("FID of identical sets, IS or Sync-C is wrong")
+
+    # Inception and I3D on the card against the CPU, same weights
+    inc_cpu = InceptionFeatures(device="cpu")
+    inc_cpu.model.load_state_dict(inc.model.state_dict())
+    x = flat[:2]
+    e_inc = _rel_l2(torch.from_numpy(inc(x)), torch.from_numpy(inc_cpu(x)))
+    i3d_card = I3DVideoFeatures(i3d_path)
+    i3d_cpu = I3DVideoFeatures(i3d_path, device="cpu")
+    v = real[:1].transpose(0, 4, 1, 2, 3)
+    e_i3d = _rel_l2(torch.from_numpy(i3d_card(v)),
+                    torch.from_numpy(i3d_cpu(v)))
+    log(f"[24] card vs CPU relative L2: Inception features {e_inc:.3g}, "
+        f"I3D features {e_i3d:.3g} (tol 5e-3, which allows TF32 "
+        f"convolutions; {tf32_state()})")
+    if e_inc > 5e-3 or e_i3d > 5e-3:
+        fail("Inception / I3D on the card disagree with the CPU")
+    shutil.rmtree(os.path.join(WORK, "eval"), ignore_errors=True)
+
+
 def run_training_phases(flash_kernels, all_kernels, paths):
     """Phases 8-11 (the attention kernels K1 / K2 only), then 19-22 on
     phase 8's files (all five kernels); their models and states are
@@ -2728,7 +3164,24 @@ def main() -> None:
     paths.update(phase_vae_full((VAE_CONV, VAE_UPSAMPLE)))
     paths["i2v"] = phase_i2v(all_kernels, kernels)
     paths["one_step"] = phase_one_step(all_kernels, kernels)
-    paths["omni"] = phase_omni(all_kernels, kernels)
+    paths["omni"], omni_pipe = phase_omni(all_kernels, kernels)
+    try:
+        t0 = time.perf_counter()
+        paths["omni_pose"], proc = phase_pose(all_kernels, kernels, card,
+                                              omni_pipe)
+        del omni_pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[23] phase wall time {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_eval(card, proc)
+        del proc
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[24] phase wall time {time.perf_counter() - t0:.1f} s; "
+            f"{_gib_in_use():.2f} GiB in use after it")
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
     phase_int8_step()
     try:
         paths["omni_train"], _ = phase_omni_train(all_kernels, flash_kernels)

@@ -16,11 +16,16 @@ directory) or `--checkpoint` (what `cli.train_omni` wrote) gives them;
 --seed seeds the noise.
 
 `main(argv)` parses the flags and reads the files (PIL for the image,
-stdlib `wave` for the audio); `run(args, reference_image, waveform,
-sample_rate, pose=...)` takes arrays, so a caller without PIL (or with
-its own pose heatmaps) drives the same code. The flags of the JAX CLI
-whose paths are not ported yet exit naming the ROADMAP item that brings
-them.
+stdlib `wave` for the audio, cv2 for the --pose_video frames);
+`run(args, reference_image, waveform, sample_rate, pose=...)` takes
+arrays, so a caller without PIL or cv2 drives the same code. Pose
+heatmaps come from decoded driving frames through
+`pose_heatmaps_from_frames(frames, f_total, h_lat, w_lat, processor)`
+(JAX `:189-213`): keypoints of the first f_total frames, zeros where
+extraction fails, the last frame's repeated to f_total, Gaussians at
+twice the latent grid. `main` gives it `SapiensKeypointProcessor()` with
+no backbone, as JAX does, so its heatmaps are all zero; a caller with a
+Sapiens backbone passes its own processor.
 """
 
 from __future__ import annotations
@@ -30,13 +35,6 @@ import sys
 import time
 
 import numpy as np
-
-# flags of omnihuman_tpu.cli.omni_inference that later work brings
-LATER_FLAGS = {
-    "--pose_video": "pose heatmaps from a driving video through Sapiens "
-                    "and cv2 (ROADMAP queue A, item 16)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     from omnihuman_tpu_torch.parallel.train_mesh import add_mesh_args
@@ -53,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="local HF Wav2Vec2 torch checkpoint (.bin / .pt / "
                         "dir / .npz); random base topology if omitted")
     p.add_argument("--pose_video", default=None,
-                   help="driving video for pose heatmaps (not ported yet)")
+                   help="driving video (read with cv2) for pose heatmaps "
+                        "from the Sapiens keypoint processor")
     p.add_argument("--prompt", default="a person talking")
     p.add_argument("--neg_prompt", default=None,
                    help="negative prompt (default: the registry's)")
@@ -97,14 +96,47 @@ def parse_size(size: str):
 
 def check_flags(args) -> None:
     """Exit on the flags whose paths are not ported yet."""
-    for flag, why in LATER_FLAGS.items():
-        if getattr(args, flag[2:]) is not None:
-            sys.exit(f"{flag} is not ported yet: it comes with {why}")
     for flag in ("--fsdp_size", "--sp_size"):
         if getattr(args, flag[2:]) > 1:
             sys.exit(f"{flag} > 1 is not ported yet: it comes with "
                      "sequence parallelism and FSDP (ROADMAP queue A, "
                      "item 19)")
+
+
+def pose_heatmaps_from_frames(frames, f_total: int, h_lat: int, w_lat: int,
+                              processor) -> np.ndarray:
+    """Driving frames ([H, W, 3] uint8 RGB each; at most the first
+    `f_total` are read) -> heatmaps [1, K, f_total, 2 h_lat, 2 w_lat]
+    (JAX cli/omni_inference.py:189-213): the processor's keypoints, zeros
+    where it returns None, the last frame's keypoints repeated past the
+    end of the frames, `native.gaussian_heatmaps` at twice the latent
+    grid."""
+    import itertools
+
+    from omnihuman_tpu_torch import native
+    zeros = np.zeros((processor.num_keypoints, 3), np.float32)
+    kps = []
+    for frame in itertools.islice(frames, f_total):
+        k = processor.extract_keypoints(frame)
+        kps.append(k if k is not None else zeros)
+    while len(kps) < f_total:
+        kps.append(kps[-1] if kps else zeros)
+    hm = native.gaussian_heatmaps(np.stack(kps), (h_lat * 2, w_lat * 2))
+    return hm.transpose(1, 0, 2, 3)[None]
+
+
+def read_video_frames(path: str):
+    """The frames of a video file, RGB uint8, one at a time (cv2)."""
+    import cv2
+    cap = cv2.VideoCapture(path)
+    try:
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                return
+            yield cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+    finally:
+        cap.release()
 
 
 def build_pipeline(args):
@@ -190,7 +222,23 @@ def main(argv=None):
     w_px, h_px = parse_size(args.size)
     img = Image.open(args.reference_image).convert("RGB").resize((w_px, h_px))
     waveform, sr = (read_wav(args.audio) if args.audio else (None, 16000))
-    out = run(args, np.asarray(img), waveform, sr)
+    pose = None
+    if args.pose_video:
+        try:
+            import cv2  # noqa: F401
+        except ImportError:
+            sys.exit("--pose_video reads the video with cv2, which is not "
+                     "installed: pass decoded frames to "
+                     "pose_heatmaps_from_frames and its heatmaps to "
+                     "run(pose=...)")
+        from omnihuman_tpu_torch.omni.keypoints import (
+            SapiensKeypointProcessor)
+        stride = WAN_CONFIGS[args.task].vae_stride
+        pose = pose_heatmaps_from_frames(
+            read_video_frames(args.pose_video),
+            args.total_frames or args.num_frames, h_px // stride[1],
+            w_px // stride[2], SapiensKeypointProcessor(device=args.device))[0]
+    out = run(args, np.asarray(img), waveform, sr, pose=pose)
     print(f"saved {out['path']}  stage timings: {out['timings']}")
     return out["path"]
 

@@ -29,6 +29,8 @@ from torch import nn
 from omnihuman_tpu_torch.configs.wan import CLIPConfig
 from omnihuman_tpu_torch.ops.norms import layer_norm
 
+# the CLIP file of a Wan 2.1 i2v checkpoint directory (reference names)
+CLIP_CHECKPOINT = "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth"
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
@@ -169,11 +171,21 @@ def preprocess_images(images, image_size: int = 224,
 
 class CLIPModel:
     """visual() front end of the i2v pipeline (JAX CLIPModel); `model`
-    holds the weights."""
+    holds the weights: the visual tower of the CLIP file at
+    `checkpoint_path` (reference names, as JAX `convert_clip` reads them;
+    the text tower and log_scale are not carried), else random from
+    `seed`."""
 
-    def __init__(self, cfg: CLIPConfig, device, seed: Optional[int] = 0):
+    def __init__(self, cfg: CLIPConfig, device, seed: Optional[int] = 0,
+                 checkpoint_path: Optional[str] = None):
         self.cfg = cfg
-        self.model = build_clip(cfg, device, torch.float32, seed=seed)
+        self.model = build_clip(cfg, device, torch.float32,
+                                seed=None if checkpoint_path else seed)
+        if checkpoint_path:
+            from omnihuman_tpu_torch.utils.convert import (
+                load_named, load_torch_state_dict)
+            load_named(self.model, load_torch_state_dict(checkpoint_path),
+                       checkpoint_path)
 
     @torch.inference_mode()
     def visual(self, videos) -> torch.Tensor:

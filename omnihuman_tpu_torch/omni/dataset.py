@@ -379,3 +379,43 @@ class OmniHumanDataset:
                     "conditions": samples[0]["conditions"].keys(),
                     "samples": samples,
                 }
+
+
+class Wav2VecFeatureExtractor:
+    """wav2vec 2.0 features per video frame (JAX `dataset.py:415-449`, the
+    reference README's intended extractor): the waveform linearly
+    resampled to 16 kHz, the encoder's last hidden state (~50 Hz tokens),
+    `num_frames` tokens picked at evenly spaced indices, each tiled /
+    truncated to `dim`. The encoder is the port's Wav2Vec2
+    (`omni/wav2vec.py`), loaded as `Wav2Vec2AudioFeatures` loads it
+    (`model`, a local `checkpoint_path`, or random at `preset`), where
+    JAX's calls `transformers.from_pretrained`, which downloads."""
+
+    def __init__(self, checkpoint_path: Optional[str] = None,
+                 preset: str = "base", dim: int = 1024, fps: float = 16.0,
+                 model=None, device=None):
+        from omnihuman_tpu_torch.omni.wav2vec import Wav2Vec2AudioFeatures
+        from omnihuman_tpu_torch.pipelines.text2video import resolve_device
+        self.device = resolve_device(device)
+        self.model = (model.to(self.device) if model is not None else
+                      Wav2Vec2AudioFeatures(checkpoint_path, preset=preset,
+                                            device=self.device).model)
+        self.dim = dim
+        self.fps = fps
+
+    def __call__(self, waveform: np.ndarray, sr: int,
+                 num_frames: int) -> np.ndarray:
+        import torch
+        if sr != 16000:   # wav2vec expects 16 kHz
+            idx = np.linspace(0, len(waveform) - 1,
+                              int(len(waveform) * 16000 / sr))
+            waveform = np.interp(idx, np.arange(len(waveform)), waveform)
+        with torch.inference_mode():
+            out = self.model(torch.from_numpy(np.asarray(
+                waveform, np.float32))[None].to(self.device))[0]
+        feats = out.float().cpu().numpy()            # [T50hz, hidden]
+        # 50 Hz tokens onto video frames, tiled to dim
+        idx = np.linspace(0, len(feats) - 1, num_frames).astype(int)
+        sel = feats[idx]
+        reps = int(np.ceil(self.dim / sel.shape[1]))
+        return np.tile(sel, (1, reps))[:, :self.dim].astype(np.float32)

@@ -15,6 +15,7 @@ DiT attention (self, text and image cross-attention) the K1 kernel.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional, Tuple
 
@@ -22,7 +23,8 @@ import numpy as np
 import torch
 
 from omnihuman_tpu_torch.configs.wan import WanConfig
-from omnihuman_tpu_torch.models.clip import CLIPModel, resize_bicubic
+from omnihuman_tpu_torch.models.clip import (
+    CLIP_CHECKPOINT, CLIPModel, resize_bicubic)
 from omnihuman_tpu_torch.models.vae import vae_decode, vae_encode
 from omnihuman_tpu_torch.pipelines.text2video import WanT2V, _sync, sample
 
@@ -30,8 +32,9 @@ from omnihuman_tpu_torch.pipelines.text2video import WanT2V, _sync, sample
 class WanI2V(WanT2V):
     """WanT2V with the CLIP image encoder and the mask + reference-latent
     conditioning; `checkpoint_dir` as WanT2V reads it (the i2v DiT, the
-    VAE, umT5); CLIP stays random from init_seed + 2, as JAX's WanI2V
-    reads no CLIP file."""
+    VAE, umT5) and, where present, its CLIP file (CLIP_CHECKPOINT, the
+    visual tower). Without that file CLIP is random from init_seed + 2,
+    as in JAX's WanI2V, which reads no CLIP file at all."""
 
     def __init__(self, config: WanConfig, init_seed: int = 0,
                  param_dtype: torch.dtype = torch.bfloat16, tokenizer=None,
@@ -42,7 +45,12 @@ class WanI2V(WanT2V):
         super().__init__(config, init_seed=init_seed, param_dtype=param_dtype,
                          tokenizer=tokenizer, precision=precision,
                          device=device, checkpoint_dir=checkpoint_dir)
-        self.clip = CLIPModel(config.clip, self.device, seed=init_seed + 2)
+        clip_path = (os.path.join(checkpoint_dir, CLIP_CHECKPOINT)
+                     if checkpoint_dir else None)
+        if clip_path is not None and not os.path.exists(clip_path):
+            clip_path = None
+        self.clip = CLIPModel(config.clip, self.device, seed=init_seed + 2,
+                              checkpoint_path=clip_path)
 
     def latent_size_for(self, img_hw: Tuple[int, int],
                         max_area: int) -> Tuple[int, int]:

@@ -6,10 +6,14 @@ Each `*_from_jax` function is the inverse of a converter of the JAX package
 discriminator's probes and head come from the JAX params of
 `apt/model.py:init_apt_discriminator`, the OmniHuman model's from those of
 `omni/model.py:init_omni_model`, the f-distill MLP discriminator's from
-`apt/f_distill.py:init_mlp_discriminator`.
+`apt/f_distill.py:init_mlp_discriminator`; the pose and evaluation
+networks' invert `convert_sapiens`, `convert_inception_torch`,
+`convert_i3d` and `convert_syncc` (released sapiens-pose, torchvision,
+piergiaj and two-tower names).
 Input is the JAX package's params PyTree as nested dicts / lists of numpy
 arrays; output is a {name: torch.Tensor} dict for `load_state_dict`.
-`load_wan_dit_checkpoint` reads a reference checkpoint directory's DiT.
+`load_wan_dit_checkpoint` reads a reference checkpoint directory's DiT;
+`load_named` loads the entries of a released state dict a module holds.
 
 Layouts undone here:
   ours Linear [in, out]              -> torch [out, in]           (transpose)
@@ -408,3 +412,148 @@ def load_wan_checkpoint_dir(ckpt_dir: str, model_cfg: WanModelConfig,
         else:
             vae = build_vae(vae_cfg, device, dtype, seed=vae_seed)
     return (dit_sd or None), vae
+
+
+def load_named(model: torch.nn.Module, state_dict: Mapping[str, Any],
+               what: str = "state dict") -> None:
+    """Load, strictly, the entries of `state_dict` that `model` names (a
+    released file's reference names): entries the model does not hold are
+    ignored (the heads and towers of a bigger checkpoint); a missing one
+    raises KeyError naming it; a BatchNorm's `num_batches_tracked`, unused
+    at eval, may be absent."""
+    want = model.state_dict()
+    sd: StateDict = {}
+    for k, v in want.items():
+        if k in state_dict:
+            x = state_dict[k]
+            sd[k] = x if torch.is_tensor(x) else _t(x)
+        elif k.endswith("num_batches_tracked"):
+            sd[k] = v
+        else:
+            raise KeyError(f"{what}: missing '{k}' (have e.g. "
+                           f"{sorted(state_dict)[:5]}...)")
+    model.load_state_dict(sd, strict=True)
+
+
+# ---------------------------------------------------------------------------
+# the pose and evaluation models: inverses of the JAX converters
+# (convert_sapiens, convert_inception_torch, convert_i3d, convert_syncc)
+
+
+def _put_bn(sd: StateDict, name: str, p: Mapping[str, Any],
+            keys=("w", "b", "mean", "var")) -> None:
+    for k, field in zip(keys, ("weight", "bias", "running_mean",
+                               "running_var")):
+        sd[f"{name}.{field}"] = _t(p[k])
+
+
+def sapiens_state_dict_from_jax(params: Mapping[str, Any], cfg) -> StateDict:
+    """JAX Sapiens params (init_sapiens / convert_sapiens) -> the released
+    sapiens-pose names (`omni/sapiens.py:SapiensModel`). The JAX deconv
+    kernels are pre-flipped [4, 4, Cin, Cout]; torch's ConvTranspose2d
+    holds [Cin, Cout, 4, 4] unflipped."""
+    pe = params["patch_embed"]
+    sd: StateDict = {
+        "backbone.patch_embed.projection.weight":
+            _t(np.asarray(pe["w"]).transpose(3, 2, 0, 1)),
+        "backbone.patch_embed.projection.bias": _t(pe["b"]),
+        "backbone.pos_embed": _t(params["pos_embed"]),
+    }
+    _put_norm(sd, "backbone.ln1", params["final_norm"])
+    bl = params["blocks"]
+    for i in range(cfg.depth):
+        base = f"backbone.layers.{i}"
+        for norm in ("ln1", "ln2"):
+            sd[f"{base}.{norm}.weight"] = _t(np.asarray(bl[norm]["w"])[i])
+            sd[f"{base}.{norm}.bias"] = _t(np.asarray(bl[norm]["b"])[i])
+        for ours, theirs in (("qkv", "attn.qkv"), ("proj", "attn.proj"),
+                             ("fc1", "ffn.layers.0.0"),
+                             ("fc2", "ffn.layers.1")):
+            _put_linear(sd, f"{base}.{theirs}", bl[ours], i)
+    head = params["head"]
+    for i, dp in enumerate(head["deconvs"]):
+        w = np.asarray(dp["w"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        sd[f"head.deconv_layers.{3 * i}.weight"] = _t(w)
+        _put_bn(sd, f"head.deconv_layers.{3 * i + 1}", dp["bn"])
+    for i, cp in enumerate(head["convs"]):
+        sd[f"head.conv_layers.{3 * i}.weight"] = _t(
+            np.asarray(cp["w"]).transpose(3, 2, 0, 1))
+        _put_bn(sd, f"head.conv_layers.{3 * i + 1}", cp["bn"])
+    _put_conv2d(sd, "head.final_layer", head["final"])
+    return sd
+
+
+_INCEPTION_BRANCHES = {
+    "a": ("b1x1", "b5x5_1", "b5x5_2", "b3x3dbl_1", "b3x3dbl_2", "b3x3dbl_3",
+          "bpool"),
+    "b": ("b3x3", "b3x3dbl_1", "b3x3dbl_2", "b3x3dbl_3"),
+    "c": ("b1x1", "b7x7_1", "b7x7_2", "b7x7_3", "b7x7dbl_1", "b7x7dbl_2",
+          "b7x7dbl_3", "b7x7dbl_4", "b7x7dbl_5", "bpool"),
+    "d": ("b3x3_1", "b3x3_2", "b7x7x3_1", "b7x7x3_2", "b7x7x3_3",
+          "b7x7x3_4"),
+    "e": ("b1x1", "b3x3_1", "b3x3_2a", "b3x3_2b", "b3x3dbl_1", "b3x3dbl_2",
+          "b3x3dbl_3a", "b3x3dbl_3b", "bpool"),
+}
+_INCEPTION_BLOCKS = (("Mixed_5b", "a"), ("Mixed_5c", "a"), ("Mixed_5d", "a"),
+                     ("Mixed_6a", "b"), ("Mixed_6b", "c"), ("Mixed_6c", "c"),
+                     ("Mixed_6d", "c"), ("Mixed_6e", "c"), ("Mixed_7a", "d"),
+                     ("Mixed_7b", "e"), ("Mixed_7c", "e"))
+
+
+def inception_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """JAX InceptionV3 params (init_inception / convert_inception_torch)
+    -> torchvision names (`omni/inception.py:InceptionV3`)."""
+    sd: StateDict = {}
+
+    def conv(name, p):
+        sd[f"{name}.conv.weight"] = _t(np.asarray(p["w"]).transpose(
+            3, 2, 0, 1))
+        _put_bn(sd, f"{name}.bn", p,
+                ("bn_scale", "bn_bias", "bn_mean", "bn_var"))
+
+    for stem in ("Conv2d_1a_3x3", "Conv2d_2a_3x3", "Conv2d_2b_3x3",
+                 "Conv2d_3b_1x1", "Conv2d_4a_3x3"):
+        conv(stem, params[stem])
+    for block, kind in _INCEPTION_BLOCKS:
+        for ours in _INCEPTION_BRANCHES[kind]:
+            theirs = "branch_pool" if ours == "bpool" else \
+                "branch" + ours[1:]
+            conv(f"{block}.{theirs}", params[block][ours])
+    _put_linear(sd, "fc", params["fc"])
+    return sd
+
+
+def i3d_state_dict_from_jax(params: Mapping[str, Any], cfg=None
+                            ) -> StateDict:
+    """JAX I3D params (init_i3d / convert_i3d) -> piergiaj/pytorch-i3d names
+    (`omni/i3d.py:InceptionI3d`): `<unit>.conv3d.weight` [O, I, kT, kH,
+    kW], `<unit>.bn.*`, `logits.conv3d.bias`."""
+    from omnihuman_tpu_torch.omni.i3d import MIXED
+    sd: StateDict = {}
+
+    def unit(name, p):
+        sd[f"{name}.conv3d.weight"] = _t(np.asarray(p["w"]).transpose(
+            4, 3, 0, 1, 2))
+        if "b" in p:
+            sd[f"{name}.conv3d.bias"] = _t(p["b"])
+        if "bn" in p:
+            _put_bn(sd, f"{name}.bn", p["bn"], ("g", "b", "m", "v"))
+
+    for name in ("Conv3d_1a_7x7", "Conv3d_2b_1x1", "Conv3d_2c_3x3",
+                 "logits"):
+        unit(name, params[name])
+    for name, _ in MIXED:
+        for b in ("b0", "b1a", "b1b", "b2a", "b2b", "b3b"):
+            unit(f"{name}.{b}", params[name][b])
+    return sd
+
+
+def syncc_state_dict_from_jax(params: Mapping[str, Any], cfg) -> StateDict:
+    """JAX Sync-C params (init_syncc / convert_syncc) -> the two-tower
+    torch names (`omni/syncc.py:SyncCModel`)."""
+    sd: StateDict = {}
+    for name in ("audio_fc1", "audio_fc2", "visual_fc"):
+        _put_linear(sd, name, params[name])
+    for i in range(len(cfg.visual_channels)):
+        _put_conv3d(sd, f"visual_conv{i}", params[f"visual_conv{i}"])
+    return sd

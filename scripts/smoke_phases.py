@@ -7,7 +7,10 @@ Builds the kernels (phase 2) of the checkout at DIR (default: this one),
 then runs the named phases in order, each with fresh launch counts:
 14 (i2v-14B request), 15 (one-step batch), 16 (OmniHuman request), 18
 (OmniHuman training), 19 (`cli.generate --ckpt_dir`), 20 (f-distill), 21
-(`cli.train_apt`), 22 (`cli.eval_ema`). Phases 19-22 run after phase 8
+(`cli.train_apt`), 22 (`cli.eval_ema`), 23 (the pose data plane and a
+`--pose_video` request; on phase 16's pipeline when 16 is named too,
+else on one built for it), 24 (`cli.evaluate`; with phase 23's keypoint
+processor when 23 is named too). Phases 19-22 run after phase 8
 (the checkpoint directory, teacher data and distill output they read). To compare two commits on one card, unpack the
 other one (`git archive <commit> | tar -x -C DIR`) and run both in one
 call, in turns (parent, change, change, parent). Exits nonzero where a
@@ -27,14 +30,14 @@ def main(argv=None) -> None:
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     p.add_argument("phases", nargs="+", type=int,
-                   choices=(14, 15, 16, 18, 19, 20, 21, 22))
+                   choices=(14, 15, 16, 18, 19, 20, 21, 22, 23, 24))
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import chip_smoke as cs
     if os.path.dirname(os.path.abspath(cs.__file__)) != root:
         sys.exit(f"imported {cs.__file__}, not the smoke of {root}")
-    cs.phase_card_facts()
+    card = cs.phase_card_facts()
     cs.phase_build()
     from omnihuman_tpu_torch.ops.flash_attention import (
         FLASH_BWD, FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K)
@@ -42,19 +45,32 @@ def main(argv=None) -> None:
     fwd = (FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K)
     flash = fwd + (FLASH_BWD,)
     every = flash + (VAE_CONV, VAE_UPSAMPLE)
+    held = {}      # phase 16's pipeline for 23, 23's processor for 24
+
+    def omni():
+        _, held["pipe"] = cs.phase_omni(every, fwd)
+
+    def pose():
+        _, held["proc"] = cs.phase_pose(every, fwd, card, held.pop("pipe",
+                                                                    None))
+
     run = {14: lambda: cs.phase_i2v(every, fwd),
            15: lambda: cs.phase_one_step(every, fwd),
-           16: lambda: cs.phase_omni(every, fwd),
-           18: lambda: cs.phase_omni_train(every, flash)}
+           16: omni,
+           18: lambda: cs.phase_omni_train(every, flash),
+           23: pose,
+           24: lambda: cs.phase_eval(card, held.pop("proc", None))}
     import shutil
-    for phase in [p for p in args.phases if p < 19]:
+    for phase in [p for p in args.phases if p < 19 or p > 22]:
         t0 = time.perf_counter()
         try:
             run[phase]()
         finally:
             shutil.rmtree(cs.WORK, ignore_errors=True)
+        if phase != 16 or 23 not in args.phases:
+            held.pop("pipe", None)
         cs.log(f"phase {phase} of {root}: {time.perf_counter() - t0:.0f} s")
-    later = [p for p in args.phases if p >= 19]
+    later = [p for p in args.phases if 19 <= p <= 22]
     if later:
         t0 = time.perf_counter()
         try:

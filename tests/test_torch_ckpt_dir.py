@@ -28,7 +28,8 @@ from omnihuman_tpu.models.vae import vae_decode as jax_vae_decode
 from omnihuman_tpu.pipelines.text2video import WanT2V as JaxWanT2V
 from omnihuman_tpu.pipelines.text2video import sample as jax_sample
 from omnihuman_tpu_torch.configs.wan import TINY_TEST, CLIPConfig, DTypePolicy
-from omnihuman_tpu_torch.models.clip import CLIPModel
+from omnihuman_tpu_torch.models.clip import (
+    CLIP_CHECKPOINT, CLIPModel, build_clip)
 from omnihuman_tpu_torch.models.t5 import T5_CHECKPOINT, build_t5_encoder
 from omnihuman_tpu_torch.models.vae import build_vae, vae_decode
 from omnihuman_tpu_torch.models.wan_dit import build_wan_model
@@ -176,6 +177,25 @@ def test_wan_i2v_loads_the_directory(dirs):
     # no CLIP file is read: CLIP is random from init_seed + 2
     _equal(pipe.clip.model.state_dict(),
            CLIPModel(TINY_I2V.clip, "cpu", seed=2).model.state_dict(), "CLIP")
+
+
+def test_wan_i2v_reads_the_directorys_clip_file(dirs, tmp_path):
+    """With the Wan 2.1 i2v CLIP file in the directory, CLIP's visual tower
+    is that file's (its text tower and log_scale are not carried); the
+    directory without it keeps the random CLIP above."""
+    d = tmp_path / "i2v_clip"
+    shutil.copytree(dirs["i2v"], d)
+    clip = build_clip(TINY_I2V.clip, "cpu", seed=11)
+    sd = dict(clip.state_dict(), log_scale=torch.tensor(4.6),
+              **{"textual.norm.weight": torch.ones(16)})
+    torch.save(sd, str(d / CLIP_CHECKPOINT))
+    pipe = WanI2V(TINY_I2V, device="cpu", checkpoint_dir=str(d),
+                  param_dtype=torch.float32)
+    _equal(pipe.clip.model.state_dict(), clip.state_dict(), "CLIP file")
+    del sd["visual.transformer.2.mlp.2.bias"]
+    torch.save(sd, str(d / CLIP_CHECKPOINT))
+    with pytest.raises(KeyError, match="transformer.2.mlp.2.bias"):
+        WanI2V(TINY_I2V, device="cpu", checkpoint_dir=str(d))
 
 
 @pytest.mark.parametrize("one_step", [False, True])

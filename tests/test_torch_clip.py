@@ -97,6 +97,32 @@ def test_clip_state_dict_round_trips_through_jax_converter(clip_pair):
         np.testing.assert_array_equal(np.asarray(flat_b[path]), leaf)
 
 
+def test_clip_file_loads_like_jax_convert_clip(clip_pair, tmp_path):
+    """A TINY CLIP state dict in the reference names (visual and XLM-R
+    towers, log_scale) as a file: `CLIPModel(checkpoint_path=)` (what
+    `WanI2V(checkpoint_dir=)` builds where the directory holds the file)
+    and JAX's `convert_clip` -> `clip_visual_forward` give the same
+    visual tokens and pooled features (fp32, atol 1e-5)."""
+    params, model = clip_pair
+    sd = _with_textual({k: v.numpy() for k, v in model.state_dict().items()},
+                       params)
+    sd["log_scale"] = np.float32(4.6)
+    path = str(tmp_path / "clip.pth")
+    torch.save({k: torch.as_tensor(np.array(v)) for k, v in sd.items()},
+               path)
+    pm = port_clip.CLIPModel(TINY_CLIP, "cpu", seed=99, checkpoint_path=path)
+    jp = convert_clip({k: v.numpy() for k, v in torch.load(path).items()},
+                      JAX_TINY_CLIP)
+    x = np.random.default_rng(4).normal(size=(2, 3, 28, 28)
+                                        ).astype(np.float32)
+    for use_31_block in (True, False):
+        want = np.asarray(jax_clip.clip_visual_forward(
+            jp, x, JAX_TINY_CLIP, use_31_block=use_31_block))
+        got = port_clip.clip_visual_forward(pm.model, torch.from_numpy(x),
+                                            use_31_block=use_31_block)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
 def _with_textual(sd, params):
     """convert_clip also reads the XLM-R tower the port does not carry:
     hand it zeros of the right shapes."""

@@ -348,8 +348,38 @@ def test_run_takes_arrays_and_pose(tmp_path):
             "audio_features_s"} <= set(out["timings"])
 
 
+def test_cli_pose_video_drives_zero_heatmaps(tmp_path, monkeypatch):
+    """`--pose_video` (ported): cv2 decodes the driving video, and the
+    processor `main` builds has no backbone (JAX's CLI builds the same),
+    so every frame's keypoints fail and the heatmaps reaching `run` are
+    zeros [308, total_frames, 2 lat_h, 2 lat_w]; the video is written."""
+    import cv2
+    from omnihuman_tpu_torch.cli import omni_inference
+    img, _ = _write_inputs(tmp_path)
+    drive = str(tmp_path / "drive.avi")
+    vw = cv2.VideoWriter(drive, cv2.VideoWriter_fourcc(*"MJPG"), 16,
+                         (64, 64))
+    for i in range(2):
+        vw.write(np.full((64, 64, 3), 60 + 90 * i, np.uint8))
+    vw.release()
+    seen = []
+    real_run = omni_inference.run
+
+    def recording_run(args, image, waveform, sr, pose=None, pipe=None):
+        seen.append(pose)
+        return real_run(args, image, waveform, sr, pose=pose, pipe=pipe)
+
+    monkeypatch.setattr(omni_inference, "run", recording_run)
+    out = omni_inference.main(
+        ["--task", "tiny-test", "--reference_image", img, "--pose_video",
+         drive, "--size", "64*64", "--num_frames", "3",
+         "--num_inference_steps", "1", "--device", "cpu",
+         "--output", str(tmp_path / "o.mp4")])
+    assert os.path.exists(out) and os.path.getsize(out) > 0
+    assert seen[0].shape == (308, 3, 16, 16) and not seen[0].any()
+
+
 @pytest.mark.parametrize("argv", [
-    ("omni_inference", ["--pose_video", "drive.mp4"], "item 16"),
     ("train_omni", ["--sp_size", "2"], "item 19"),
     ("train_omni", ["--fsdp_size", "2"], "item 19"),
     ("omni_inference", ["--sp_size", "2"], "item 19"),
