@@ -17,8 +17,8 @@ Phases (any failure stops the run with a nonzero exit):
      error against the stated tolerance, kernel / plain / SDPA-yardstick
      times (CUDA events, warm, median of 7; the kernel also alone, on
      preallocated outputs, without its wrapper) and the bound; the training
-     forward with the LSE at B=1 beside the library's forward that also
-     returns it; ptxas's registers, spills, shared memory and any wgmma
+     forward with the LSE at B=1 beside its plain version and the
+     library's forward that also returns it; ptxas's registers, spills, shared memory and any wgmma
      serialization warning for K1;
   4. a small-input reference: the DiT forward, the VAE decode and an omni
      forward with every condition and motion tokens on the card against
@@ -199,10 +199,48 @@ Then, right after phase 16 (before phase 17), on its pipeline:
      Inception and I3D features on the card against the CPU (relative L2,
      tolerance 5e-3).
 
+Right after phase 6, on phase 5's pipeline:
+ 27. the serving-step export: the t2v-1.3B `fast` CFG step at the
+     flagship geometry (latents [1,16,21,60,104], 32,768 tokens, ctx2
+     [2, 512, 4096] bf16 untrimmed) exported with `torch.export`, saved,
+     loaded, and run with phase 5's weights as its input against the eager
+     `cfg_model_step` on the same inputs (bit-equal expected, else relative
+     L2 under 1e-3): its K1 launches through the custom op (30 long-K, 30
+     short-K), seconds to export, save and load, ms a step exported and
+     eager (median of 7); then the i2v step at the i2v-14B width cut to 2
+     layers (17 frames, 8,192 tokens) against eager, 2 + 4 K1 launches.
+
+Then, at the end:
+ 25. Qwen2.5-3B (dim 2048, 36 layers, 16 / 2 heads, vocab 151,936, tied;
+     3.09 B parameters): random bf16 weights from a seed written as an
+     HF directory (`model.safetensors` and a `config.json` written here)
+     and read by `load_qwen_checkpoint` (fp32 on the card, 12.4 GB); a
+     right-padded batch of 2 prompts (256 and 200 tokens), greedy, 128 new
+     tokens, the decode step replayed as a CUDA graph and run eagerly (the
+     same tokens): prefill ms, ms a decode token each way against the
+     weight-read bound, the device's kernel time a token and its busy
+     share, peak memory; every generated
+     token within 1e-4 of its row's logit range of the teacher-forced
+     maximum; 2 layers of the width on the card against the CPU (fp32,
+     logits within 1e-4 of the peak, 8 greedy tokens equal); the prompt
+     expander's Qwen route on the card with a stub chat tokenizer;
+ 26. the XLM-R text tower at full width (24 layers, dim 1024, vocab
+     250,002, 0.56 B parameters, fp32): 2 x 514 ids with padding, ms
+     (median of 7) against the fp32 bound, peak memory; 2 layers of the
+     width card vs CPU (relative L2 1e-5);
+ 28. `cli.generate --profile DIR --use_prompt_extend` at phase 5's
+     geometry: the trace names K1's, K3's and K4's kernels, the template
+     expander's prompt went in (no Qwen files here), the launches equal
+     phase 19's (120 / 120 K1, 140 K3, 15 K4); `anomaly_detection` on the
+     card passes K1 and raises at an injected NaN; `log_device_memory`
+     reports the card.
+Each of 25-28 logs its wall time.
+
 The line before last is a JSON object {"kernels": [...]}; its
 `launches_by_path` holds each path's launches (phase 19's t2v request,
-20's and 21's first CLI runs, 22's pass, 23's `--pose_video` request
-among them); the last line is {"ok": true, "device": {...}}.
+20's and 21's first CLI runs, 22's pass, 23's `--pose_video` request,
+27's exported flagship step ("export") and 28's profiled request
+("profile") among them); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -450,6 +488,8 @@ def phase_kernels():
                                                return_lse=True))
     out, klc = torch.empty_like(q), _clamped_lens(kl, 1, L, dev)
     kernel_ms = bench_ms(lambda: flash_fwd_launch(q, k, v, out, lse, klc))
+    plain_ms = bench_ms(lambda: flash_attention_plain(
+        q, k, v, k_lens=kl, return_lse=True), reps=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     try:
         lib_ms = round(bench_ms(
@@ -461,7 +501,7 @@ def phase_kernels():
         f"max_abs_err {err:.3g} (tol {tol:.3g}), LSE err {lse_err:.3g} (tol "
         f"1e-3), kernel {ms:.3f} ms ({kernel_ms:.3f} alone), bound "
         f"{bound:.3f} ms ({bound_by}, {100 * bound / kernel_ms:.1f}% alone), "
-        f"library forward with LSE {lib_ms} ms")
+        f"plain {plain_ms:.3f} ms, library forward with LSE {lib_ms} ms")
     del q, k, v, got, want, lse, want_lse, out
     torch.cuda.empty_cache()
     return rows
@@ -570,17 +610,25 @@ def omni_small_reference():
         f"to {scale:.3g} (tol 5e-2 x max(1, scale))")
 
 
-def phase_main_path(kernels):
+def t2v_pipe():
+    """Phase 5's pipeline: WanT2V(t2v-1.3B, fast) with random bf16 weights
+    from seed 0 and a random head."""
     import torch
     from omnihuman_tpu_torch.configs import T2V_1_3B
     from omnihuman_tpu_torch.pipelines.text2video import WanT2V
-
-    t0 = time.perf_counter()
     pipe = WanT2V(T2V_1_3B, device="cuda", precision="fast", init_seed=0)
     with torch.no_grad():    # unit-scale velocities instead of all zeros
         pipe.model.head.head.weight.normal_(
             0.0, T2V_1_3B.model.dim ** -0.5,
             generator=torch.Generator(device="cuda").manual_seed(5))
+    return pipe
+
+
+def phase_main_path(kernels):
+    import torch
+
+    t0 = time.perf_counter()
+    pipe = t2v_pipe()
     torch.cuda.synchronize()
     log(f"[5] WanT2V(t2v-1.3B) built with random bf16 weights in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -848,6 +896,8 @@ def backward_case(tag, name, b, lq, lk, k_lens, mkw, lib_ok, gen,
         q, k, v, out, lse, dout, k_lens=kl, **mkw))
     fwd_lse_ms = bench_ms(lambda: flash_attention_cuda(
         q, k, v, k_lens=kl, return_lse=True, **mkw))
+    fwd_plain_ms = bench_ms(lambda: flash_attention_plain(
+        q, k, v, k_lens=kl, return_lse=True, **mkw), reps=1, warmup=0)
     plain_ms = bench_ms(lambda: flash_bwd_plain(
         q, k, v, out, lse, dout, k_lens=kl, **mkw), reps=1, warmup=0)
     lib_ms = lse_lib_ms = None
@@ -875,7 +925,8 @@ def backward_case(tag, name, b, lq, lk, k_lens, mkw, lib_ok, gen,
     log(f"[{tag}] {name}: " + ", ".join(
         f"{g} err {e:.3g} (tol {t:.3g})" for g, e, t in errs)
         + f", LSE err {lse_err:.3g}; forward with LSE {fwd_lse_ms:.3f} "
-        f"ms (bound {fwd_bound}; library forward with LSE "
+        f"ms (bound {fwd_bound}; plain {fwd_plain_ms:.1f} ms; library "
+        f"forward with LSE "
         f"{lse_lib_ms if lse_lib_ms is None else round(lse_lib_ms, 3)} "
         f"ms); K2 kernel {kernel_ms:.3f} ms, with its wrapper "
         f"{bwd_ms:.3f} ms (bound {bound:.3f}, {by}), plain backward "
@@ -3085,6 +3136,489 @@ def phase_eval(card, proc=None):
     shutil.rmtree(os.path.join(WORK, "eval"), ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 25-28: the Qwen prompt expander, the XLM-R text tower, the exported
+# CFG step and the tools
+
+QWEN = dict(lens=(256, 200), new_tokens=128, seed=41)
+PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
+
+
+class _StubChatTokenizer:
+    """A chat template over a byte vocabulary: no tokenizer files exist
+    here (tests/test_qwen_expander.py's stub)."""
+
+    eos_token_id = 2
+
+    def apply_chat_template(self, msgs, tokenize=False,
+                            add_generation_prompt=True):
+        return "\n".join(f"{m['role']}: {m['content']}" for m in msgs)
+
+    def __call__(self, texts, return_tensors="np"):
+        import numpy as np
+
+        class R:
+            input_ids = np.asarray([[3 + (b % 120)
+                                     for b in texts[0].encode()]], np.int32)
+        return R()
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(chr(97 + int(t) % 26) for t in ids)
+
+
+def _device_ms(fn) -> float:
+    """Summed device time (ms) of the CUDA kernels one run of `fn`
+    launches (torch.profiler / CUPTI)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def phase_qwen():
+    """[25] Qwen2.5-3B at full width: random bf16 weights written as an HF
+    directory and read by `load_qwen_checkpoint` (fp32 on the card); a
+    right-padded batch of 2 prompts, greedy, 128 new tokens, held against
+    teacher-forced argmax; 2 layers of the width card vs CPU; the prompt
+    expander's Qwen route on the card."""
+    import dataclasses
+    import torch
+    from safetensors.torch import save_file
+    from omnihuman_tpu_torch.models import qwen as pq
+    from omnihuman_tpu_torch.utils.prompt_extend import QwenPromptExpander
+
+    cfg = pq.QWEN_CONFIGS["qwen2.5-3b"]
+    d = os.path.join(WORK, "qwen2.5-3b")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    src = pq.build_qwen(cfg, "cuda", torch.bfloat16, seed=QWEN["seed"])
+    sd = {k: v.cpu() for k, v in src.state_dict().items()}
+    del src
+    torch.cuda.empty_cache()
+    n_params = sum(v.numel() for v in sd.values())
+    save_file(sd, os.path.join(d, "model.safetensors"))
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"architectures": ["Qwen2ForCausalLM"],
+                   "hidden_size": cfg.dim,
+                   "intermediate_size": cfg.ffn_dim,
+                   "num_hidden_layers": cfg.num_layers,
+                   "num_attention_heads": cfg.num_heads,
+                   "num_key_value_heads": cfg.num_kv_heads,
+                   "vocab_size": cfg.vocab_size,
+                   "rope_theta": cfg.rope_theta,
+                   "rms_norm_eps": cfg.rms_eps,
+                   "tie_word_embeddings": True,
+                   "torch_dtype": "bfloat16"}, f)
+    t_write = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, lcfg = pq.load_qwen_checkpoint(d, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    if lcfg != cfg:
+        fail(f"load_qwen_checkpoint read {lcfg}, not {cfg}")
+    loaded = model.state_dict()
+    for k in ("model.embed_tokens.weight", "model.layers.0.self_attn.q_proj."
+              "weight", f"model.layers.{cfg.num_layers - 1}.mlp.down_proj."
+              "weight"):
+        if not torch.equal(loaded[k].cpu(), sd[k].float()):
+            fail(f"{k} loaded differs from the file")
+    del sd, loaded
+    weights_gb = n_params * 4 / 1e9
+    log(f"[25] Qwen2.5-3B: {n_params / 1e9:.3f} B parameters; random bf16 "
+        f"weights written as an HF directory in {t_write:.1f} s, loaded by "
+        f"load_qwen_checkpoint (fp32, {weights_gb:.2f} GB) in {t_load:.1f} "
+        f"s; config {lcfg}")
+
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    l0 = max(QWEN["lens"])
+    prompt = torch.randint(0, cfg.vocab_size, (2, l0), generator=gen,
+                           device="cuda")
+    lens = torch.tensor(QWEN["lens"], device="cuda")
+    prompt[1, QWEN["lens"][1]:] = 0
+    n_new = QWEN["new_tokens"]
+
+    def generate(n, graph=True):
+        return pq.qwen_generate(model, prompt, lens, n, cuda_graph=graph)
+
+    out = generate(n_new)
+    out_eager = generate(n_new, graph=False)
+    torch.cuda.synchronize()
+    if not torch.equal(out, out_eager):
+        fail("the CUDA-graph decode and the eager decode give other tokens")
+    prefill_ms = bench_ms(lambda: generate(1), reps=7, warmup=1)
+    ms = {}
+    for graph in (True, False):     # 2 tokens: the first step (and capture)
+        two = bench_ms(lambda: generate(2, graph), reps=3, warmup=0)
+        full = bench_ms(lambda: generate(n_new, graph), reps=3, warmup=0)
+        ms[graph] = (two, full, (full - two) / (n_new - 2))
+    dev_tok = (_device_ms(lambda: generate(17, False))
+               - _device_ms(lambda: generate(1, False))) / 16
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    bound_ms = weights_gb * 1e9 / PEAK_BYTES * 1e3
+    prefill_flop = 2.0 * n_params * sum(QWEN["lens"])
+    log(f"[25] generate 2 prompts ({QWEN['lens']} tokens, right-padded), "
+        f"greedy, {n_new} new tokens, the same tokens with and without the "
+        f"CUDA graph: prefill {prefill_ms:.2f} ms ({prefill_flop / 1e12:.2f}"
+        f" TFLOP in the linears: {prefill_flop / PEAK_FP32_FLOPS * 1e3:.1f} "
+        f"ms at the fp32 rate); decode a token {ms[True][2]:.2f} ms with the "
+        f"graph, {ms[False][2]:.2f} ms eager, against the weight-read bound "
+        f"{bound_ms:.2f} ms ({weights_gb:.2f} GB / 3.35 TB/s); the device's "
+        f"kernel time a token {dev_tok:.2f} ms (busy {100 * dev_tok / ms[True][2]:.1f}"
+        f"% with the graph, {100 * dev_tok / ms[False][2]:.1f}% eager); the "
+        f"first step with its capture {ms[True][0] - prefill_ms:.1f} ms; "
+        f"request {ms[True][1]:.1f} ms ({ms[False][1]:.1f} eager); peak "
+        f"{peak:.2f} GiB above the "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held")
+
+    # teacher-forced check: each generated token is its row's argmax
+    seqs = torch.zeros((2, l0 + n_new), dtype=torch.int64, device="cuda")
+    for r, n in enumerate(QWEN["lens"]):
+        seqs[r, :n] = prompt[r, :n]
+        seqs[r, n:n + n_new] = out[r]
+    logits = pq.qwen_forward(model, seqs, lens + n_new)
+    rows = torch.stack([torch.arange(n - 1, n - 1 + n_new, device="cuda")
+                        for n in QWEN["lens"]])
+    sel = torch.gather(logits, 1, rows[..., None].expand(
+        -1, -1, logits.shape[-1]))                     # [2, T, V]
+    chosen = torch.gather(sel, 2, out[..., None])[..., 0]
+    top, low = sel.max(-1).values, sel.min(-1).values
+    gap = ((top - chosen) / (top - low)).max().item()
+    log(f"[25] teacher-forced qwen_forward over prompt + output: the worst "
+        f"generated token sits {gap:.3g} of its row's logit range below the "
+        f"row's maximum (tol 1e-4); {int((chosen == top).sum())} of "
+        f"{2 * n_new} are the exact argmax")
+    if gap > 1e-4:
+        fail("qwen_generate disagrees with step-by-step argmax")
+    del logits, sel
+
+    e = QwenPromptExpander(checkpoint_path=d, device="cuda",
+                           max_new_tokens=16)
+    e._tok = _StubChatTokenizer()
+    e._qwen = (model, lcfg)          # the checkpoint loaded above
+    t0 = time.perf_counter()
+    res = e("a red fox running through fresh snow at sunrise", seed=5)
+    torch.cuda.synchronize()
+    log(f"[25] QwenPromptExpander on the card: status {res.status}, "
+        f"message {res.message!r}, {len(res.prompt)} characters in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not (res.status and res.message == "qwen-torch"):
+        fail("the prompt expander did not take the Qwen route on the card")
+    del model, e
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(d, ignore_errors=True)
+
+    # 2 layers of the 3B width on the card against the CPU (fp32)
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    m2 = pq.build_qwen(cfg2, "cpu", seed=44)
+    g = torch.Generator().manual_seed(45)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
+    lens2 = torch.tensor([64, 40])
+    want = pq.qwen_forward(m2, toks, lens2)
+    want_gen = pq.qwen_generate(m2, toks, lens2, 8)
+    m2 = m2.to("cuda")
+    got = pq.qwen_forward(m2, toks.cuda(), lens2.cuda()).cpu()
+    got_gen = pq.qwen_generate(m2, toks.cuda(), lens2.cuda(), 8).cpu()
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    log(f"[25] 2 layers of the 3B width, card vs CPU: logits max abs err "
+        f"{err:.3g} of the peak (tol 1e-4; {tf32_state()}); 8 greedy "
+        f"tokens equal: {torch.equal(got_gen, want_gen)}")
+    if err > 1e-4 or not torch.equal(got_gen, want_gen):
+        fail("Qwen on the card disagrees with the CPU")
+    del m2
+
+
+def phase_xlmr():
+    """[26] The XLM-R text tower at full width (24 layers, dim 1024,
+    vocab 250,002), 2 x 514 ids with padding: ms and peak memory; 2 layers
+    of the width card vs CPU."""
+    import dataclasses
+    import torch
+    from omnihuman_tpu_torch.configs.wan import CLIPConfig
+    from omnihuman_tpu_torch.models.clip import (
+        build_clip, clip_textual_forward)
+
+    cfg = CLIPConfig()
+
+    def ids_on(device):
+        g = torch.Generator().manual_seed(52)
+        ids = torch.randint(2, cfg.vocab_size, (2, cfg.max_text_len),
+                            generator=g)
+        ids[0, 512:] = cfg.pad_id       # 512 tokens: the last position
+        ids[1, 300:] = cfg.pad_id
+        return ids.to(device)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = build_clip(cfg, "cuda", torch.float32, seed=51, text=True)
+    n_text = sum(p.numel() for p in model.textual.parameters())
+    ids = ids_on("cuda")
+
+    def run():
+        with torch.inference_mode():
+            return clip_textual_forward(model, ids)
+
+    out = run()
+    torch.cuda.synchronize()
+    if tuple(out.shape) != (2, cfg.embed_dim) or not torch.isfinite(out).all():
+        fail(f"text tower output {tuple(out.shape)} not finite / wrong shape")
+    ms = bench_ms(run, reps=7, warmup=1)
+    d, s, n = cfg.text_dim, cfg.max_text_len, 2
+    per_tok = 2.0 * cfg.text_layers * (4 * d * d + 8 * d * d)
+    flop = per_tok * n * s + cfg.text_layers * n * 4.0 * s * s * d
+    bound = max(flop / PEAK_FP32_FLOPS, n_text * 4 / PEAK_BYTES) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    log(f"[26] XLM-R text tower: {n_text / 1e9:.3f} B parameters (fp32); "
+        f"2 x {s} ids (512 and 300 valid): {ms:.2f} ms ({flop / 1e12:.2f} "
+        f"TFLOP, fp32 bound {bound:.2f} ms); peak {peak:.2f} GiB with the "
+        f"visual tower it is built beside")
+    del model
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(cfg, text_layers=2, vision_layers=1)
+    m2 = build_clip(cfg2, "cpu", torch.float32, seed=53, text=True)
+    with torch.inference_mode():
+        want = clip_textual_forward(m2, ids_on("cpu"))
+        got = clip_textual_forward(m2.to("cuda"), ids_on("cuda")).cpu()
+    err = _rel_l2(got, want)
+    log(f"[26] 2 layers of the width, card vs CPU: relative L2 {err:.3g} "
+        f"(tol 1e-5, fp32; {tf32_state()})")
+    if err > 1e-5:
+        fail("the XLM-R text tower on the card disagrees with the CPU")
+    return ms
+
+
+def phase_export(all_kernels, pipe):
+    """[27] The exported t2v-1.3B `fast` CFG step at the flagship geometry
+    (phase 5's model and weights): export, save, load, then the loaded
+    program against the eager step, its K1 launches and ms; then the i2v
+    step at the i2v-14B width cut to 2 layers. Returns the exported t2v
+    step's launch counts."""
+    import dataclasses
+    import torch
+    from omnihuman_tpu_torch.configs import I2V_14B, T2V_1_3B
+    from omnihuman_tpu_torch.models.wan_dit import build_wan_model
+    from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+    from omnihuman_tpu_torch.pipelines.text2video import cfg_model_step
+    from omnihuman_tpu_torch.utils.export import (
+        export_i2v_denoise_step, export_t2v_denoise_step, load_exported)
+
+    d = os.path.join(WORK, "export")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "t2v_1.3B_480x832_81f.pt2")
+    w, h = FLAGSHIP["size"]
+    t0 = time.perf_counter()
+    export_t2v_denoise_step(T2V_1_3B, (w, h), FLAGSHIP["frames"], path,
+                            platforms=("cuda",), precision="fast")
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step = load_exported(path)
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.export.save(step.program, path.replace(".pt2", "_again.pt2"))
+    t_save = time.perf_counter() - t0
+    log(f"[27] t2v-1.3B fast step exported (trace and save) in "
+        f"{t_export:.1f} s ({t_save:.2f} s of it the save, "
+        f"{os.path.getsize(path) / 1e6:.1f} MB), loaded in {t_load:.2f} s; "
+        f"metadata {step.metadata['seq_len']} tokens, "
+        f"{len(step.metadata['in_avals'])} inputs")
+
+    dev, mc = pipe.device, pipe.config.model
+    gen = torch.Generator(device=dev).manual_seed(71)
+    lat = pipe.latent_shape((w, h), FLAGSHIP["frames"])
+    seq = step.metadata["seq_len"]
+    x = torch.randn((1,) + lat, generator=gen, device=dev)
+    t = torch.tensor(900.0, device=dev)
+    ctx2 = torch.randn((2, mc.text_len, mc.text_dim), generator=gen,
+                       device=dev).to(torch.bfloat16)
+
+    def rope(lat_fhw):
+        grid = tuple(n // p for n, p in zip(lat_fhw, mc.patch_size))
+        return rope_angles_3d(grid, mc.head_dim, seq_len=seq, device=dev)
+
+    sin, cos = rope(lat[1:])
+    params = pipe.model.state_dict()
+
+    def exported():
+        return step.call(params, x, t, ctx2, sin, cos)
+
+    def eager():
+        with torch.inference_mode():
+            return cfg_model_step(pipe.model, x, 900.0, ctx2, sin, cos,
+                                  policy=pipe.policy, seq_len=seq,
+                                  guide_scale=5.0)
+
+    _zero(all_kernels)
+    got = exported()
+    torch.cuda.synchronize()
+    counts = _count(all_kernels)
+    want = eager()
+    same = torch.equal(got, want)
+    rel = 0.0 if same else _rel_l2(got, want)
+    log(f"[27] exported step vs eager cfg_model_step on the same weights and "
+        f"inputs: bit-equal {same}, relative L2 {rel:.3g} (tol 1e-3 where "
+        f"not bit-equal); launches of one exported step {counts}")
+    if not torch.isfinite(got).all() or (not same and rel > 1e-3):
+        fail("the exported step disagrees with the eager step")
+    if counts != _want(all_kernels, NUM_LAYERS, NUM_LAYERS):
+        fail(f"the exported step did not launch K1 {NUM_LAYERS} + "
+             f"{NUM_LAYERS} times")
+    ms_exp = bench_ms(exported, reps=7, warmup=1)
+    ms_eager = bench_ms(eager, reps=7, warmup=1)
+    log(f"[27] ms a step at {seq} tokens, text {mc.text_len} keys "
+        f"untrimmed: exported {ms_exp:.1f}, eager {ms_eager:.1f} "
+        f"({100 * (ms_exp / ms_eager - 1):+.2f}%)")
+    del got, want, params
+    torch.cuda.empty_cache()
+
+    mcfg = dataclasses.replace(I2V_14B.model, num_layers=2)
+    icfg = dataclasses.replace(I2V_14B, model=mcfg)
+    model = build_wan_model(mcfg, dev, torch.bfloat16, seed=61)
+    with torch.no_grad():
+        model.head.head.weight.normal_(
+            0.0, mcfg.dim ** -0.5,
+            generator=torch.Generator(device=dev).manual_seed(62))
+    ipath = os.path.join(d, "i2v_14B_2layers.pt2")
+    t0 = time.perf_counter()
+    export_i2v_denoise_step(icfg, (w, h), 17, ipath, platforms=("cuda",),
+                            precision="fast")
+    istep = load_exported(ipath)
+    t_i = time.perf_counter() - t0
+    seq = istep.metadata["seq_len"]
+    ilat = pipe.latent_shape((w, h), 17)
+    x = torch.randn((1,) + ilat, generator=gen, device=dev)
+    y2 = torch.randn((2, mcfg.in_dim - 16) + ilat[1:], generator=gen,
+                     device=dev)
+    clip2 = torch.randn((2, mcfg.clip_tokens, mcfg.clip_embed_dim),
+                        generator=gen, device=dev).to(torch.bfloat16)
+    ctx2 = torch.randn((2, mcfg.text_len, mcfg.text_dim), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    isin, icos = rope(ilat[1:])
+    _zero(all_kernels)
+    got = istep.call(model.state_dict(), x, t, ctx2, y2, clip2, isin, icos)
+    torch.cuda.synchronize()
+    icounts = _count(all_kernels)
+    with torch.inference_mode():
+        want = cfg_model_step(
+            model, x, 900.0, ctx2, isin, icos, seq_len=seq, guide_scale=5.0,
+            policy=dataclasses.replace(I2V_14B.policy,
+                                       residual=torch.bfloat16),
+            y=y2, clip_fea=clip2)
+    same = torch.equal(got, want)
+    rel = 0.0 if same else _rel_l2(got, want)
+    log(f"[27] i2v-14B width, 2 layers, 17 frames ({seq} tokens): exported "
+        f"and loaded in {t_i:.1f} s; vs eager: bit-equal {same}, relative "
+        f"L2 {rel:.3g}; launches {icounts}")
+    if not torch.isfinite(got).all() or (not same and rel > 1e-3):
+        fail("the exported i2v step disagrees with the eager step")
+    if icounts != _want(all_kernels, 2, 4):
+        fail("the exported i2v step did not launch K1 2 + 4 times")
+    del model, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(d, ignore_errors=True)
+    return counts
+
+
+def phase_tools(all_kernels):
+    """[28] `cli.generate --profile DIR --use_prompt_extend` at phase 5's
+    geometry; the trace names K1's, K3's and K4's kernels; the template
+    expander's prompt went in; `anomaly_detection` on the card;
+    `log_device_memory`. Returns the request's launch counts."""
+    import logging
+    import torch
+    from omnihuman_tpu_torch.cli import generate as cli_gen
+    from omnihuman_tpu_torch.ops.flash_attention import flash_fwd
+    from omnihuman_tpu_torch.utils.logging import (
+        anomaly_detection, log_device_memory)
+
+    os.environ.pop("DASH_API_KEY", None)
+    d = os.path.join(WORK, "profile")
+    os.makedirs(d, exist_ok=True)
+    w, h = SMOKE["size"]
+    prompt, seed = SMOKE["requests"][0]
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    lg = logging.getLogger("omnihuman_tpu_torch")
+    keep = Keep()
+    lg.addHandler(keep)
+    _zero(all_kernels)
+    t0 = time.perf_counter()
+    try:
+        cli_gen.main(["--task", "t2v-1.3B", "--size", f"{h}*{w}",
+                      "--frame_num", str(SMOKE["frames"]), "--sample_steps",
+                      str(SMOKE["steps"]), "--base_seed", str(seed),
+                      "--prompt", prompt, "--profile", d,
+                      "--use_prompt_extend",
+                      "--save_file", os.path.join(d, "clip.mp4")])
+    finally:
+        lg.removeHandler(keep)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _count(all_kernels)
+    trace = os.path.join(d, "trace.json")
+    with open(trace) as f:
+        text = f.read()
+    named = {k: text.count(k) for k in ("flash_fwd_kernel",
+                                        "vae_conv_kernel",
+                                        "vae_upsample_kernel")}
+    extended = [ln for ln in lines if ln.startswith("prompt extended")]
+    log(f"[28] cli.generate --profile --use_prompt_extend: {wall:.1f} s; "
+        f"trace {os.path.getsize(trace) / 1e6:.1f} MB naming {named}; "
+        f"launches {counts}; {extended[:1]}")
+    if not all(named.values()):
+        fail("the profiler trace does not name K1's, K3's and K4's kernels")
+    if not extended or "template-expanded" not in extended[0]:
+        fail("the prompt was not expanded")
+    if counts != _want(all_kernels, 120, 120, 0, 140, 15):
+        fail("the profiled request's launches differ from phase 19's")
+
+    q = torch.randn((1, 2048, 2, 128), device="cuda").to(torch.bfloat16)
+    with anomaly_detection():
+        flash_fwd(q, q, q)                  # K1 under the check: clean
+        try:
+            torch.log(torch.full((4,), -1.0, device="cuda"))
+        except FloatingPointError as e:
+            caught = str(e)
+        else:
+            fail("anomaly_detection did not raise at a NaN on the card")
+    stats = log_device_memory("[28]")
+    log(f"[28] anomaly_detection on the card: {caught}; log_device_memory: "
+        f"{stats}")
+    if len(stats) != torch.cuda.device_count() or \
+            min(v[1] for v in stats.values()) < 10:
+        fail("log_device_memory did not report the card")
+    shutil.rmtree(d, ignore_errors=True)
+    return counts
+
+
+def run_slice_12_phases(all_kernels, paths):
+    """Phases 25, 26 and 28, each timed (27 runs after phase 6, on phase
+    5's pipeline)."""
+    import torch
+    for phase, fn in ((25, phase_qwen), (26, phase_xlmr),
+                      (28, lambda: paths.__setitem__(
+                          "profile", phase_tools(all_kernels)))):
+        t0 = time.perf_counter()
+        try:
+            fn()
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[{phase}] phase wall time {time.perf_counter() - t0:.1f} s; "
+            f"{_gib_in_use():.2f} GiB in use after it")
+
+
 def run_training_phases(flash_kernels, all_kernels, paths):
     """Phases 8-11 (the attention kernels K1 / K2 only), then 19-22 on
     phase 8's files (all five kernels); their models and states are
@@ -3155,6 +3689,12 @@ def main() -> None:
     paths = {"serve": _count(all_kernels)}
     phase_step_vs_plain(pipe)
     phase_flagship_step(pipe)
+    t0 = time.perf_counter()
+    try:
+        paths["export"] = phase_export(all_kernels, pipe)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    log(f"[27] phase wall time {time.perf_counter() - t0:.1f} s")
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -3187,6 +3727,7 @@ def main() -> None:
         paths["omni_train"], _ = phase_omni_train(all_kernels, flash_kernels)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    run_slice_12_phases(all_kernels, paths)
     log(f"smoke wall time {time.perf_counter() - t_start:.0f} s")
 
     def by_path(kn):

@@ -7,7 +7,8 @@ noise [16, 1, 60, 104] (one latent frame at 480x832: 1,560 tokens), run
 the teacher once at t = T - 1 = 999 with CFG 7.5,
     v_teacher = v_uncond + cfg * (v_cond - v_uncond),
 and store {dummy_data, noise, dummy_prompts, positive_contexts,
-negative_context, v_teacher} as `.npz`, the JAX package's keys and shapes.
+negative_context, v_teacher} as `.npz`, the JAX package's keys and shapes;
+`visualize_and_save_batch_with_vae` draws such a batch through the VAE.
 
 The noise of sample i comes from a CPU torch.Generator seeded with
 base_seed + i (the JAX package draws it with jax.random, which torch cannot
@@ -169,3 +170,40 @@ def create_dataloader(data: Dict[str, np.ndarray], batch_size: int = 1,
 
 def load_teacher_data(path: str) -> Dict[str, np.ndarray]:
     return dict(np.load(path, allow_pickle=True))
+
+
+@torch.no_grad()
+def visualize_and_save_batch_with_vae(data, pipe, out_path: str =
+                                      "teacher_data_viz.png",
+                                      num_samples: int = 4) -> str:
+    """Decode noise, v_teacher and x0 = noise - v_teacher with the
+    pipeline's VAE and draw their first frames in a 3 x n panel (JAX
+    apt/generate.py:164, reference generate.py:304-362). matplotlib is
+    needed (utils/viz.pyplot)."""
+    from omnihuman_tpu_torch.models.vae import vae_decode
+    from omnihuman_tpu_torch.utils.viz import pyplot
+
+    plt = pyplot()
+    n = min(num_samples, data["noise"].shape[0])
+    dev = pipe.device
+    dt = pipe.vae.conv2.weight.dtype
+    noise = torch.as_tensor(np.asarray(data["noise"][:n]), device=dev)
+    v = torch.as_tensor(np.asarray(data["v_teacher"][:n]), device=dev)
+    panels = []
+    for name, lat in (("noise", noise), ("v_teacher", v),
+                      ("x0", noise - v)):
+        imgs = vae_decode(pipe.vae, lat.to(dt), streaming=True)
+        panels.append((name, imgs[:, :, 0].float().cpu().numpy()))
+
+    fig, axes = plt.subplots(3, n, figsize=(3 * n, 9), squeeze=False)
+    for r, (name, imgs) in enumerate(panels):
+        for c in range(n):
+            img = np.clip(imgs[c].transpose(1, 2, 0) * 0.5 + 0.5, 0, 1)
+            axes[r][c].imshow(img)
+            axes[r][c].set_axis_off()
+            if c == 0:
+                axes[r][c].set_title(name, loc="left")
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=100)
+    plt.close(fig)
+    return out_path

@@ -7,32 +7,36 @@ image-to-video and the one-step APT generator.
         --size 480*832 --image first_frame.png --prompt "..."
     python -m omnihuman_tpu_torch.cli.generate --task t2v-1.3B --one_step \\
         --prompts_file prompts.txt --generator_ckpt distill_out/
+    python -m omnihuman_tpu_torch.cli.generate --task t2v-1.3B \\
+        --size 480*832 --frame_num 81 --export_step t2v_step.pt2
+    python -m omnihuman_tpu_torch.cli.generate --profile trace_dir \\
+        --use_prompt_extend --prompt "..."
 
 Runs on the GPU unless `--device cpu` is given. `--ckpt_dir` names a Wan
 checkpoint directory in the reference layout (`*.safetensors` DiT shards,
 `Wan2.1_VAE.pth`, and `models_t5_umt5-xxl-enc-bf16.pth` where present);
 without it the weights are random, made from a fixed init seed (0).
 --base_seed seeds the noise. With `--one_step`, `--generator_ckpt` names
-a training checkpoint whose EMA stream replaces the DiT. The flags of the JAX CLI that belong to
-paths not ported yet are refused with the slice that brings them.
+a training checkpoint whose EMA stream replaces the DiT. `--export_step`
+writes the CFG denoise step as a `torch.export` program instead of
+generating (utils/export.py); `--profile DIR` records a torch.profiler
+trace of the request in DIR; `--use_prompt_extend` expands the prompt
+first (DashScope where DASH_API_KEY is set, else the local Qwen expander,
+whose template fallback needs no weights). The flags of the JAX CLI that
+belong to paths not ported yet are refused with the item that brings
+them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
-# flags of omnihuman_tpu.cli.generate that later slices of the port bring
+# flags of omnihuman_tpu.cli.generate that a later slice of the port brings
 LATER_FLAGS = {
-    "--sp_size": "sequence parallelism (ROADMAP queue A, slice 5)",
-    "--fsdp_size": "multi-GPU sharding (ROADMAP queue A, slice 5)",
-    "--export_step": "serving-step export (ROADMAP queue A, slice 5)",
-    "--export_platform": "serving-step export (ROADMAP queue A, slice 5)",
-    "--profile": "tracing tools (ROADMAP queue A, slice 5)",
-    "--use_prompt_extend": "the Qwen prompt expander (ROADMAP queue A, "
-                           "slice 4)",
-    "--prompt_extend_target_lang": "the Qwen prompt expander (ROADMAP "
-                                   "queue A, slice 4)",
+    "--sp_size": "sequence parallelism (ROADMAP queue A, item 19)",
+    "--fsdp_size": "multi-GPU sharding (ROADMAP queue A, item 19)",
 }
 
 
@@ -78,6 +82,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="directory of a training checkpoint of the port "
                         "(utils/checkpoint.py, from cli.train_distill); "
                         "its EMA stream becomes the one-step generator")
+    p.add_argument("--export_step", default=None, metavar="PATH",
+                   help="instead of generating, export the CFG denoise "
+                        "step for this task / size / frame_num as a "
+                        "torch.export program (utils/export.py; weights "
+                        "are its input, a .json sidecar beside it)")
+    p.add_argument("--export_platform", default=None,
+                   choices=("cuda", "cpu", "tpu"),
+                   help="device the exported step is traced for (default: "
+                        "cpu with --device cpu, else cuda); tpu artifacts "
+                        "are the JAX package's")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="record a torch.profiler trace of the generation "
+                        "as DIR/trace.json")
+    p.add_argument("--use_prompt_extend", action="store_true",
+                   help="expand the prompt with an LLM first (DashScope "
+                        "with DASH_API_KEY, else the local Qwen expander, "
+                        "whose template fallback needs no weights)")
+    p.add_argument("--prompt_extend_target_lang", default="en",
+                   choices=("en", "zh"))
     p.add_argument("--save_file", default=None)
     p.add_argument("--device", default=None,
                    help="torch device (default: the GPU; 'cpu' on request)")
@@ -125,6 +148,11 @@ def main(argv=None):
     frame_num = args.frame_num or (1 if args.task == "t2i-14B"
                                    else cfg.frame_num)
 
+    if args.export_step:
+        return _export(args, cfg, (w, h), frame_num, i2v)
+    if args.use_prompt_extend:
+        args.prompt = _extend_prompt(args)
+
     out = args.save_file or (f"{args.task.replace('-', '_')}_"
                              f"{args.size.replace('*', 'x')}.mp4")
     sampling = dict(shift=args.sample_shift or cfg.sample_shift,
@@ -134,6 +162,10 @@ def main(argv=None):
                                  or cfg.sample_guide_scale),
                     n_prompt=args.n_prompt, seed=args.base_seed,
                     cfg_mode=args.cfg_mode)
+    prof = contextlib.nullcontext()
+    if args.profile:
+        from omnihuman_tpu_torch.utils.logging import profile_trace
+        prof = profile_trace(args.profile)
     if i2v:
         import numpy as np
         from PIL import Image
@@ -143,23 +175,65 @@ def main(argv=None):
                       checkpoint_dir=args.ckpt_dir)
         img = np.asarray(Image.open(args.image).convert("RGB"),
                          np.float32).transpose(2, 0, 1) / 127.5 - 1.0
-        video = pipe.generate(args.prompt, img, max_area=h * w,
-                              frame_num=frame_num, **sampling)
+        with prof:
+            video = pipe.generate(args.prompt, img, max_area=h * w,
+                                  frame_num=frame_num, **sampling)
         timings = pipe.timings
     elif args.one_step:
-        return _one_step(args, cfg, (w, h), frame_num, out)
+        return _one_step(args, cfg, (w, h), frame_num, out, prof)
     else:
         pipe = WanT2V(cfg, precision=args.precision, device=args.device,
                       checkpoint_dir=args.ckpt_dir)
-        video = pipe.generate(args.prompt, size=(w, h), frame_num=frame_num,
-                              **sampling)
+        with prof:
+            video = pipe.generate(args.prompt, size=(w, h),
+                                  frame_num=frame_num, **sampling)
         timings = pipe.timings
     path = cache_video(video, out, fps=cfg.sample_fps)
     print(f"saved {path}  stage timings: {timings}")
     return path
 
 
-def _one_step(args, cfg, size, frame_num: int, out: str):
+def _export(args, cfg, size, frame_num: int, i2v: bool) -> str:
+    """--export_step: the CFG denoise step as a torch.export program."""
+    from omnihuman_tpu_torch.utils.export import (
+        export_i2v_denoise_step, export_t2v_denoise_step)
+    from omnihuman_tpu_torch.utils.logging import logger
+    platform = args.export_platform or (
+        "cpu" if args.device == "cpu" else "cuda")
+    if platform == "tpu":
+        sys.exit("--export_platform tpu: a TPU artifact is the JAX "
+                 "package's (omnihuman_tpu.utils.export); the port exports "
+                 "for cuda or cpu")
+    guide = (args.sample_guide_scale if args.sample_guide_scale is not None
+             else cfg.sample_guide_scale)
+    exporter = export_i2v_denoise_step if i2v else export_t2v_denoise_step
+    path = exporter(cfg, size, frame_num, args.export_step,
+                    guide_scale=guide, platforms=(platform,),
+                    cfg_mode=args.cfg_mode, precision=args.precision)
+    logger.info(f"exported serving step -> {path} (+.json sidecar)")
+    return path
+
+
+def _extend_prompt(args) -> str:
+    """--use_prompt_extend: DashScope where DASH_API_KEY is set, else the
+    local Qwen expander on --device; the prompt unchanged on failure."""
+    import os
+
+    from omnihuman_tpu_torch.utils.logging import logger
+    from omnihuman_tpu_torch.utils.prompt_extend import (
+        DashScopePromptExpander, QwenPromptExpander)
+    expander = (DashScopePromptExpander() if os.environ.get("DASH_API_KEY")
+                else QwenPromptExpander(device=args.device))
+    out = expander(args.prompt, tar_lang=args.prompt_extend_target_lang,
+                   seed=max(args.base_seed, 0))
+    if out.status:
+        logger.info(f"prompt extended ({out.message}): {out.prompt}")
+        return out.prompt
+    logger.warning(f"prompt extension failed: {out.message}")
+    return args.prompt
+
+
+def _one_step(args, cfg, size, frame_num: int, out: str, prof):
     """--one_step: the pipeline's DiT (from --ckpt_dir or random), or the
     EMA stream of the training checkpoint in --generator_ckpt, one forward
     per batch of prompts."""
@@ -187,16 +261,19 @@ def _one_step(args, cfg, size, frame_num: int, out: str):
             prompts = [ln.strip() for ln in f if ln.strip()]
         if not prompts:
             sys.exit(f"{args.prompts_file} contains no prompts")
-        videos = gen.generate_batch(prompts, size=size, frame_num=frame_num,
-                                    seed=args.base_seed)
+        with prof:
+            videos = gen.generate_batch(prompts, size=size,
+                                        frame_num=frame_num,
+                                        seed=args.base_seed)
         root, ext = os.path.splitext(out)
         paths = [cache_video(videos[i], f"{root}_{i:02d}{ext}",
                              fps=cfg.sample_fps)
                  for i in range(videos.shape[0])]
         print(f"saved {paths}  one-step timings: {gen.timings}")
         return paths
-    video = gen.generate(args.prompt, size=size, frame_num=frame_num,
-                         seed=args.base_seed)
+    with prof:
+        video = gen.generate(args.prompt, size=size, frame_num=frame_num,
+                             seed=args.base_seed)
     path = cache_video(video, out, fps=cfg.sample_fps)
     print(f"saved {path}  one-step timings: {gen.timings}")
     return path

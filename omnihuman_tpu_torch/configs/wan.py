@@ -102,9 +102,8 @@ UMT5_SMALL = T5Config(
 
 @dataclasses.dataclass(frozen=True)
 class CLIPConfig:
-    """XLM-RoBERTa-CLIP ViT-H/14 (reference wan/modules/clip.py:471-499).
-    The visual tower is ported (models/clip.py); the text-tower fields are
-    carried for the registry."""
+    """XLM-RoBERTa-CLIP ViT-H/14 (reference wan/modules/clip.py:471-499):
+    the visual tower and the XLM-R text tower (models/clip.py)."""
 
     embed_dim: int = 1024
     image_size: int = 224

@@ -11,8 +11,10 @@ hand-written Hopper kernels (ops/flash_attention.py); there is no other
 back-end and no fallback between them. When a gradient is needed, the call
 goes through the autograd Function `FlashAttention` (forward with the LSE,
 then the flash backward); otherwise it is one forward launch without the
-LSE, the serving path. The sequence-parallel paths
-(ring / ulysses / sp_cross) come with the multi-GPU work.
+LSE, the serving path, through K1's custom op (`flash_fwd`, which
+`torch.export` traces into the exported serving step). The
+sequence-parallel paths (ring / ulysses / sp_cross) come with the
+multi-GPU work.
 """
 
 from __future__ import annotations

@@ -25,7 +25,10 @@ Backward (flash_pallas._flash_bwd): given dO, the saved O and the LSE,
 
 `flash_fwd` / `flash_bwd` dispatch on the tensors' device: CPU tensors take
 the plain versions, CUDA tensors launch the kernels (or raise). Nothing
-falls back. `FlashAttention` is the autograd Function over the pair.
+falls back. `flash_fwd` goes through the custom op
+`torch.ops.omnihuman_tpu_torch.flash_fwd` (`flash_fwd_op`), so that
+`torch.export` can trace it and an exported program launches K1.
+`FlashAttention` is the autograd Function over the pair.
 """
 
 from __future__ import annotations
@@ -350,16 +353,64 @@ def flash_bwd_cuda(
     return dq_acc.to(q.dtype), dk, dv
 
 
+# K1 as a torch custom op: an exported program (utils/export.py) traces
+# it with fake tensors and calls it, so a loaded program launches K1 on
+# CUDA tensors; the eager no-grad path and FlashAttention call it too.
+# The CUDA body is `flash_attention_cuda` (the k_lens clamp and the launch
+# with its count stay inside it); CPU tensors take the plain version.
+# Without `return_lse` the LSE output is an empty fp32 tensor.
+@torch.library.custom_op("omnihuman_tpu_torch::flash_fwd", mutates_args=(),
+                         device_types="cuda")
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 k_lens: Optional[torch.Tensor], softmax_scale: Optional[float],
+                 causal: bool, window_left: int, window_right: int,
+                 q_off: int, k_off: int, return_lse: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    res = flash_attention_cuda(q, k, v, k_lens, softmax_scale, causal,
+                               (window_left, window_right), (q_off, k_off),
+                               return_lse)
+    return res if return_lse else (res, _no_lse(q))
+
+
+@flash_fwd_op.register_kernel("cpu")
+def _flash_fwd_op_cpu(q, k, v, k_lens, softmax_scale, causal, window_left,
+                      window_right, q_off, k_off, return_lse):
+    res = flash_attention_plain(q, k, v, k_lens, softmax_scale, causal,
+                                (window_left, window_right), (q_off, k_off),
+                                return_lse)
+    return res if return_lse else (res, _no_lse(q))
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_op_fake(q, k, v, k_lens, softmax_scale, causal, window_left,
+                       window_right, q_off, k_off, return_lse):
+    _check_shapes(q, k, v)
+    b, lq, n, _ = q.shape
+    lse = (q.new_empty((b, n, lq), dtype=torch.float32) if return_lse
+           else _no_lse(q))
+    return torch.empty_like(q, memory_format=torch.contiguous_format), lse
+
+
+def _no_lse(q: torch.Tensor) -> torch.Tensor:
+    return q.new_empty((0,), dtype=torch.float32)
+
+
 def flash_fwd(q, k, v, k_lens=None, softmax_scale=None, causal=False,
               window_size=(-1, -1), offsets=None, return_lse=False):
-    """The kernel on CUDA tensors, its plain version on CPU tensors."""
-    if q.is_cuda:
-        return flash_attention_cuda(q, k, v, k_lens, softmax_scale, causal,
-                                    window_size, offsets, return_lse)
-    if q.device.type != "cpu":
+    """The kernel on CUDA tensors, its plain version on CPU tensors, both
+    through the custom op `torch.ops.omnihuman_tpu_torch.flash_fwd`."""
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no flash-attention path for device {q.device}")
-    return flash_attention_plain(q, k, v, k_lens, softmax_scale, causal,
-                                 window_size, offsets, return_lse)
+    if k_lens is not None:
+        k_lens = torch.as_tensor(k_lens, device=q.device)
+    left, right = window_size
+    q_off, k_off = offsets if offsets is not None else (0, 0)
+    out, lse = flash_fwd_op(
+        q, k, v, k_lens,
+        None if softmax_scale is None else float(softmax_scale),
+        bool(causal), int(left), int(right), int(q_off), int(k_off),
+        bool(return_lse))
+    return (out, lse) if return_lse else out
 
 
 def flash_bwd(q, k, v, out, lse, dout, k_lens=None, softmax_scale=None,

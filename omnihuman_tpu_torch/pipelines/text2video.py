@@ -48,6 +48,19 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def serving_policy(config: WanConfig, precision: str) -> DTypePolicy:
+    """The dtype policy of a serving precision: "reference" is the
+    config's (the fp32 residual the torch reference keeps,
+    model.py:287-296); "fast" a bf16 residual stream; "int8" is "fast"
+    with the DiT's block GEMMs in W8A8 (ops/quant.py), serving only."""
+    if precision not in ("reference", "fast", "int8"):
+        raise ValueError(f"unknown precision {precision!r}; "
+                         "supported: 'reference', 'fast', 'int8'")
+    if precision == "reference":
+        return config.policy
+    return dataclasses.replace(config.policy, residual=torch.bfloat16)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -76,19 +89,11 @@ class WanT2V:
         device=None,
         checkpoint_dir: Optional[str] = None,
     ):
-        if precision not in ("reference", "fast", "int8"):
-            raise ValueError(f"unknown precision {precision!r}; "
-                             "supported: 'reference', 'fast', 'int8'")
+        self.policy = serving_policy(config, precision)
         self.device = resolve_device(device)
         self.config = config
         self.param_dtype = param_dtype
         self.precision = precision
-        # "fast": bf16 residual stream; "reference": the fp32 residual the
-        # torch reference keeps (model.py:287-296); "int8": "fast" with the
-        # DiT's block GEMMs in W8A8 (ops/quant.py), serving only
-        self.policy = (config.policy if precision == "reference"
-                       else dataclasses.replace(config.policy,
-                                                residual=torch.bfloat16))
         self.vae_stride = config.vae_stride
         self.patch_size = config.model.patch_size
         self._init_seed = init_seed
@@ -287,21 +292,32 @@ class WanT2V:
         return video[0]
 
 
-def cfg_model_step(model: WanModel, x, t: float, ctx2, rope_sin, rope_cos,
+def _t_batch(t, n: int, device) -> torch.Tensor:
+    """[n] fp32 copies of the timestep: a Python float, or a 0-d tensor
+    (the exported step's input, utils/export.py)."""
+    if torch.is_tensor(t):
+        return t.to(device=device, dtype=torch.float32).reshape(1).repeat(n)
+    return torch.full((n,), t, dtype=torch.float32, device=device)
+
+
+def cfg_model_step(model: WanModel, x, t, ctx2, rope_sin, rope_cos,
                    ctx_lens=None, *, policy: DTypePolicy, seq_len: int,
                    guide_scale: float, cfg_mode: str = "fused", y=None,
                    clip_fea=None):
     """One classifier-free-guidance model call (JAX _cfg_model_step and
     _i2v_cfg_model_step): 'fused' stacks cond / uncond on the batch,
-    'sequential' runs two forwards (half the activation peak). i2v: the
-    same y [1, C, F, H, W] and clip_fea [1, 257, D] condition both."""
+    'sequential' runs two forwards (half the activation peak). `t` is a
+    float or a 0-d tensor. i2v: y [1, C, F, H, W] and clip_fea [1, 257, D]
+    condition both halves, or come stacked cond / uncond ([2, ...], JAX
+    `_i2v_cfg_model_step`'s y2 and clip2, whose 'sequential' mode gives
+    the cond half to both forwards)."""
     fwd = dict(seq_len=seq_len, rope_sin=rope_sin, rope_cos=rope_cos,
                policy=policy, y=y, clip_fea=clip_fea)
+    b = x.shape[0]
     if cfg_mode == "fused":
         x2 = torch.cat([x, x], dim=0)
-        t2 = torch.full((x2.shape[0],), t, dtype=torch.float32,
-                        device=x.device)
-        if y is not None:
+        t2 = _t_batch(t, x2.shape[0], x.device)
+        if y is not None and y.shape[0] == b:
             fwd["y"] = torch.cat([y, y], dim=0)
             fwd["clip_fea"] = torch.cat([clip_fea, clip_fea], dim=0)
         v2 = model(x2, t2, ctx2, context_lens=ctx_lens, **fwd)
@@ -311,8 +327,9 @@ def cfg_model_step(model: WanModel, x, t: float, ctx2, rope_sin, rope_cos,
         lens_c = lens_n = None
         if ctx_lens is not None:
             lens_c, lens_n = ctx_lens[:1], ctx_lens[1:]
-        t1 = torch.full((x.shape[0],), t, dtype=torch.float32,
-                        device=x.device)
+        if y is not None:
+            fwd["y"], fwd["clip_fea"] = y[:b], clip_fea[:b]
+        t1 = _t_batch(t, b, x.device)
         v_cond = model(x, t1, ctx, context_lens=lens_c, **fwd)
         v_uncond = model(x, t1, ctx_null, context_lens=lens_n, **fwd)
     else:

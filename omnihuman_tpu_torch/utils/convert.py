@@ -2,7 +2,8 @@
 
 Each `*_from_jax` function is the inverse of a converter of the JAX package
 (omnihuman_tpu/utils/convert.py): `convert_wan_dit` (t2v and i2v),
-`convert_vae`, `convert_t5` and the visual tower of `convert_clip`; the APT
+`convert_vae`, `convert_t5`, `convert_clip` (the visual tower alone, or
+both towers) and `models/qwen.py:convert_qwen`; the APT
 discriminator's probes and head come from the JAX params of
 `apt/model.py:init_apt_discriminator`, the OmniHuman model's from those of
 `omni/model.py:init_omni_model`, the f-distill MLP discriminator's from
@@ -45,11 +46,13 @@ def _t(x) -> torch.Tensor:
 
 def _put_linear(sd: StateDict, name: str, p: Mapping[str, Any],
                 i: int = None) -> None:
-    w, b = np.asarray(p["w"]), np.asarray(p["b"])
-    if i is not None:
-        w, b = w[i], b[i]
-    sd[f"{name}.weight"] = _t(w.T)
-    sd[f"{name}.bias"] = _t(b)
+    """A JAX linear {w [in, out], b} (layer i of a stack) -> torch names;
+    a linear without "b" has no bias."""
+    w = np.asarray(p["w"])
+    sd[f"{name}.weight"] = _t((w if i is None else w[i]).T)
+    if "b" in p:
+        b = np.asarray(p["b"])
+        sd[f"{name}.bias"] = _t(b if i is None else b[i])
 
 
 def wan_dit_state_dict_from_jax(params: Mapping[str, Any],
@@ -254,7 +257,7 @@ def clip_visual_state_dict_from_jax(params: Mapping[str, Any],
                                     cfg: CLIPConfig) -> StateDict:
     """JAX CLIP params (init_clip / convert_clip) -> the port's CLIP state
     dict, the visual tower (`visual.*`, inverse of convert_clip's visual
-    half); the XLM-R text tower is not ported."""
+    half): what the i2v path's `build_clip(cfg, ...)` holds."""
     vp = params["visual"] if "visual" in params else params
     dim, p = cfg.vision_dim, cfg.patch_size
     pe = np.asarray(vp["patch_embedding"]["w"])          # [3*p*p, O]
@@ -276,6 +279,63 @@ def clip_visual_state_dict_from_jax(params: Mapping[str, Any],
         _put_linear(sd, f"{base}.attn.proj", bl["proj"], i)
         _put_linear(sd, f"{base}.mlp.0", bl["fc1"], i)
         _put_linear(sd, f"{base}.mlp.2", bl["fc2"], i)
+    return sd
+
+
+def clip_state_dict_from_jax(params: Mapping[str, Any],
+                             cfg: CLIPConfig) -> StateDict:
+    """JAX CLIP params with both towers -> the state dict of
+    `build_clip(cfg, ..., text=True)`: the visual tower as above and the
+    XLM-R text tower (`textual.*`, inverse of convert_clip's text half,
+    whose fused qkv splits back into the reference's q / k / v)."""
+    sd = clip_visual_state_dict_from_jax(params, cfg)
+    tp = params["textual"]
+    sd["textual.token_embedding.weight"] = _t(tp["token_embedding"])
+    sd["textual.type_embedding.weight"] = _t(tp["type_embedding"])
+    sd["textual.pos_embedding.weight"] = _t(tp["pos_embedding"])
+    _put_norm(sd, "textual.norm", tp["norm"])
+    bl = tp["blocks"]
+    dim = cfg.text_dim
+    for i in range(cfg.text_layers):
+        base = f"textual.blocks.{i}"
+        w = np.asarray(bl["qkv"]["w"])[i]                 # [dim, 3 dim]
+        b = np.asarray(bl["qkv"]["b"])[i]
+        for j, name in enumerate(("q", "k", "v")):
+            sd[f"{base}.attn.{name}.weight"] = _t(
+                w[:, j * dim:(j + 1) * dim].T)
+            sd[f"{base}.attn.{name}.bias"] = _t(b[j * dim:(j + 1) * dim])
+        _put_linear(sd, f"{base}.attn.o", bl["proj"], i)
+        for norm in ("norm1", "norm2"):
+            sd[f"{base}.{norm}.weight"] = _t(np.asarray(bl[norm]["w"])[i])
+            sd[f"{base}.{norm}.bias"] = _t(np.asarray(bl[norm]["b"])[i])
+        _put_linear(sd, f"{base}.ffn.0", bl["fc1"], i)
+        _put_linear(sd, f"{base}.ffn.2", bl["fc2"], i)
+    _put_linear(sd, "textual.head.0", tp["head_fc1"])
+    _put_linear(sd, "textual.head.2", tp["head_fc2"])
+    return sd
+
+
+def qwen_state_dict_from_jax(params: Mapping[str, Any], cfg) -> StateDict:
+    """JAX Qwen params (init_qwen / convert_qwen: stacked blocks, w [in,
+    out]) -> an HF `Qwen2ForCausalLM` state dict (`model.*`, and
+    `lm_head.weight` where the config is untied), the names the port's
+    `models/qwen.py:Qwen` carries."""
+    sd: StateDict = {"model.embed_tokens.weight": _t(params["embed"]),
+                     "model.norm.weight": _t(params["norm"])}
+    bl = params["blocks"]
+    names = (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+             ("v", "self_attn.v_proj"), ("o", "self_attn.o_proj"),
+             ("gate", "mlp.gate_proj"), ("up", "mlp.up_proj"),
+             ("down", "mlp.down_proj"))
+    for i in range(cfg.num_layers):
+        base = f"model.layers.{i}"
+        sd[f"{base}.input_layernorm.weight"] = _t(np.asarray(bl["ln1"])[i])
+        sd[f"{base}.post_attention_layernorm.weight"] = _t(
+            np.asarray(bl["ln2"])[i])
+        for jax_name, hf in names:
+            _put_linear(sd, f"{base}.{hf}", bl[jax_name], i)
+    if not cfg.tie_embeddings:
+        _put_linear(sd, "lm_head", params["lm_head"])
     return sd
 
 

@@ -1,5 +1,7 @@
-"""The port's logger and training-metrics sink (port of
-omnihuman_tpu/utils/logging.py: `get_logger`, `logger`, `MetricsLogger`).
+"""The port's logger, device helpers and training-metrics sink (port of
+omnihuman_tpu/utils/logging.py: `get_logger`, `logger`,
+`log_device_memory`, `debug_tensor`, `anomaly_detection`,
+`profile_trace`, `MetricsLogger`).
 
 `logger` writes to stderr (JAX's also appends to `project.log` in the
 working directory). `MetricsLogger` appends one JSON record a call to
@@ -12,20 +14,30 @@ the exception it raises, whose frames then hold every object of the
 caller that built the logger (a whole train setup, where wandb is
 installed but not logged in).
 
-The JAX module's device helpers (`log_device_memory`, `profile_trace`,
-`anomaly_detection`, `debug_tensor`) are not ported: their counterparts
-here are `torch.cuda.max_memory_allocated`, `torch.profiler` and
-`torch.autograd.set_detect_anomaly` (ROADMAP queue A, item 20).
+Device helpers: `log_device_memory` reports each CUDA device's allocated
+and total memory (JAX: `memory_stats()` per device); `debug_tensor`
+returns JAX's dict; `profile_trace` records a `torch.profiler` trace
+(host and, where there is a card, CUDA activity) and writes it as a
+chrome trace in `log_dir` (JAX: `jax.profiler`; the TPU trace parser
+`utils/xplane.py` has no counterpart). `anomaly_detection` is JAX's
+`jax_debug_nans`: it raises FloatingPointError at the first op whose
+floating output holds a NaN, forward ops included (a TorchDispatchMode;
+`torch.autograd.set_detect_anomaly` alone checks only the backward, which
+it also turns on).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import sys
 import time
 from typing import Optional
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 def get_logger() -> logging.Logger:
@@ -43,6 +55,91 @@ def get_logger() -> logging.Logger:
 
 
 logger = get_logger()
+
+
+def log_device_memory(tag: str = "") -> dict:
+    """{device: (GiB allocated by this process, GiB total)} of every CUDA
+    device, each also logged; raises without one."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("log_device_memory reports CUDA devices; this "
+                           "process sees none")
+    stats = {}
+    for i in range(torch.cuda.device_count()):
+        used = torch.cuda.memory_allocated(i) / 2 ** 30
+        total = torch.cuda.mem_get_info(i)[1] / 2 ** 30
+        name = f"cuda:{i} ({torch.cuda.get_device_name(i)})"
+        stats[name] = (used, total)
+        logger.info(f"{tag} {name}: {used:.2f}/{total:.2f} GiB in use")
+    return stats
+
+
+def debug_tensor(x, name: str = "tensor") -> dict:
+    """Shape, dtype, min / max / mean / std (population) and NaN / Inf
+    flags of a tensor, with the JAX helper's keys and dtype names."""
+    x = torch.as_tensor(x)
+    xf = x.detach().to(torch.float32)
+    info = {
+        "name": name, "shape": tuple(x.shape),
+        "dtype": str(x.dtype).removeprefix("torch."),
+        "min": float(xf.min()), "max": float(xf.max()),
+        "mean": float(xf.mean()), "std": float(xf.std(correction=0)),
+        "has_nan": bool(torch.isnan(xf).any()),
+        "has_inf": bool(torch.isinf(xf).any()),
+    }
+    logger.debug(f"{name}: {info}")
+    return info
+
+
+# factories whose output is uninitialised memory, not a result
+_UNINITIALISED = ("empty", "empty_like", "empty_strided", "new_empty",
+                  "new_empty_strided", "empty_permuted")
+
+
+class _NaNCheck(TorchDispatchMode):
+    """Raises FloatingPointError at the first op that returns a new
+    floating tensor holding a NaN (views, in-place results and
+    uninitialised allocations are not results of their own)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        schema = func._schema
+        if (func.overloadpacket.__name__ in _UNINITIALISED
+                or schema.is_mutable
+                or any(r.alias_info is not None for r in schema.returns)):
+            return out
+        for t in torch.utils._pytree.tree_leaves(out):
+            if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                    and torch.isnan(t).any()):
+                raise FloatingPointError(f"NaN in the output of {func}")
+        return out
+
+
+@contextlib.contextmanager
+def anomaly_detection():
+    """NaN trap (JAX `jax_debug_nans`, reference TorchDebugger anomaly
+    mode): forward ops through `_NaNCheck`, the backward through
+    `torch.autograd.set_detect_anomaly`."""
+    with torch.autograd.set_detect_anomaly(True), _NaNCheck():
+        yield
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """A `torch.profiler` trace of the block (host activity, and CUDA
+    activity where there is a card), written on exit as
+    `<log_dir>/trace.json` (chrome trace format). Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    logger.info(f"profiler trace -> {path}")
 
 
 class MetricsLogger:

@@ -10,7 +10,9 @@ then runs the named phases in order, each with fresh launch counts:
 (`cli.train_apt`), 22 (`cli.eval_ema`), 23 (the pose data plane and a
 `--pose_video` request; on phase 16's pipeline when 16 is named too,
 else on one built for it), 24 (`cli.evaluate`; with phase 23's keypoint
-processor when 23 is named too). Phases 19-22 run after phase 8
+processor when 23 is named too), 25 (Qwen2.5-3B), 26 (the XLM-R text
+tower), 27 (the exported CFG steps, on phase 5's pipeline built for it),
+28 (`cli.generate --profile --use_prompt_extend`, anomaly_detection). Phases 19-22 run after phase 8
 (the checkpoint directory, teacher data and distill output they read). To compare two commits on one card, unpack the
 other one (`git archive <commit> | tar -x -C DIR`) and run both in one
 call, in turns (parent, change, change, parent). Exits nonzero where a
@@ -30,7 +32,8 @@ def main(argv=None) -> None:
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     p.add_argument("phases", nargs="+", type=int,
-                   choices=(14, 15, 16, 18, 19, 20, 21, 22, 23, 24))
+                   choices=(14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26,
+                            27, 28))
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -59,7 +62,11 @@ def main(argv=None) -> None:
            16: omni,
            18: lambda: cs.phase_omni_train(every, flash),
            23: pose,
-           24: lambda: cs.phase_eval(card, held.pop("proc", None))}
+           24: lambda: cs.phase_eval(card, held.pop("proc", None)),
+           25: cs.phase_qwen,
+           26: cs.phase_xlmr,
+           27: lambda: cs.phase_export(every, cs.t2v_pipe()),
+           28: lambda: cs.phase_tools(every)}
     import shutil
     for phase in [p for p in args.phases if p < 19 or p > 22]:
         t0 = time.perf_counter()

@@ -1,8 +1,9 @@
-"""The port's CLIP visual tower against JAX at TINY_CLIP
+"""The port's CLIP towers against JAX at TINY_CLIP
 (tests/test_clip_i2v.py), fp32: `clip_visual_forward` (all tokens with
 use_31_block, and the pooled head), `preprocess_images` (bicubic resize +
 CLIP normalisation), and `CLIPModel.visual`; the port's state dict back
-through JAX `convert_clip`.
+through JAX `convert_clip`; the XLM-R text tower's `clip_textual_forward`
+on padded ids (1e-5, fp32), built only where asked for.
 
 Tolerances: tokens and pooled output 1e-5 (fp32, other summation order);
 preprocessing 1e-4 (an antialiased bicubic resize in each package, from
@@ -21,7 +22,8 @@ from omnihuman_tpu.models import clip as jax_clip
 from omnihuman_tpu.utils.convert import convert_clip
 from omnihuman_tpu_torch.configs.wan import CLIPConfig
 from omnihuman_tpu_torch.models import clip as port_clip
-from omnihuman_tpu_torch.utils.convert import clip_visual_state_dict_from_jax
+from omnihuman_tpu_torch.utils.convert import (
+    clip_state_dict_from_jax, clip_visual_state_dict_from_jax)
 
 torch.set_num_threads(1)
 
@@ -124,8 +126,8 @@ def test_clip_file_loads_like_jax_convert_clip(clip_pair, tmp_path):
 
 
 def _with_textual(sd, params):
-    """convert_clip also reads the XLM-R tower the port does not carry:
-    hand it zeros of the right shapes."""
+    """convert_clip also reads the XLM-R tower, which the i2v path's
+    `build_clip` does not hold: hand it zeros of the right shapes."""
     sd = dict(sd)
     tp, cfg = params["textual"], JAX_TINY_CLIP
     d, f = cfg.text_dim, 4 * cfg.text_dim
@@ -152,3 +154,66 @@ def _with_textual(sd, params):
 
 def test_tiny_config_fields_match():
     assert dataclasses.asdict(TINY_CLIP) == dataclasses.asdict(JAX_TINY_CLIP)
+
+
+@pytest.fixture(scope="module")
+def text_pair():
+    params = jax.tree.map(np.asarray,
+                          jax_clip.init_clip(jax.random.key(2), JAX_TINY_CLIP))
+    rng = np.random.default_rng(5)   # non-trivial norms and biases
+    tb = params["textual"]["blocks"]
+    for k in ("norm1", "norm2"):
+        tb[k]["w"] = (1 + 0.1 * rng.normal(size=tb[k]["w"].shape)
+                      ).astype(np.float32)
+        tb[k]["b"] = (0.1 * rng.normal(size=tb[k]["b"].shape)
+                      ).astype(np.float32)
+    for k in ("qkv", "proj", "fc1", "fc2"):
+        tb[k]["b"] = (0.1 * rng.normal(size=tb[k]["b"].shape)
+                      ).astype(np.float32)
+    model = port_clip.build_clip(TINY_CLIP, "cpu", seed=None, text=True)
+    model.load_state_dict(clip_state_dict_from_jax(params, TINY_CLIP))
+    return params, model
+
+
+def test_clip_textual_matches_jax_on_padded_ids(text_pair):
+    params, model = text_pair
+    rng = np.random.default_rng(6)
+    ids = rng.integers(2, 64, size=(3, 12)).astype(np.int32)
+    ids[1, 7:] = 1                       # pad_id 1: right padding
+    ids[2, 3:] = 1
+    want = np.asarray(jax.jit(lambda p, i: jax_clip.clip_textual_forward(
+        p, i, JAX_TINY_CLIP))(params, ids))
+    got = port_clip.clip_textual_forward(model, torch.from_numpy(ids).long())
+    assert got.shape == (3, 16)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    # padding beyond a row's length changes nothing
+    wider = np.concatenate([ids, np.ones((3, 4), np.int32)], axis=1)
+    got2 = port_clip.clip_textual_forward(model,
+                                          torch.from_numpy(wider).long())
+    np.testing.assert_allclose(got2.numpy(), got.numpy(), atol=1e-5)
+
+
+def test_clip_text_state_dict_round_trips_through_jax_converter(text_pair):
+    params, model = text_pair
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    back = convert_clip(sd, JAX_TINY_CLIP)
+    for tower in ("visual", "textual"):
+        flat_a = jax.tree_util.tree_leaves_with_path(params[tower])
+        flat_b = dict(jax.tree_util.tree_leaves_with_path(back[tower]))
+        assert len(flat_a) == len(flat_b)
+        for path, leaf in flat_a:
+            np.testing.assert_array_equal(np.asarray(flat_b[path]), leaf)
+
+
+def test_text_tower_is_built_only_where_asked(text_pair):
+    _, model = text_pair
+    assert not hasattr(port_clip.build_clip(TINY_CLIP, "meta", seed=None),
+                       "textual")
+    pm = port_clip.CLIPModel(TINY_CLIP, "cpu", seed=0)
+    assert not any(k.startswith("textual.") for k in pm.model.state_dict())
+    # the seeded visual tower does not depend on whether text is built
+    a = port_clip.build_clip(TINY_CLIP, "cpu", seed=3)
+    b = port_clip.build_clip(TINY_CLIP, "cpu", seed=3, text=True)
+    for k, v in a.state_dict().items():
+        assert torch.equal(v, b.state_dict()[k])
+    assert any(k.startswith("textual.") for k in model.state_dict())

@@ -33,7 +33,7 @@ from omnihuman_tpu_torch.models import vae as vae_mod
 from omnihuman_tpu_torch.ops import vae_kernels as vk
 from omnihuman_tpu_torch.ops.flash_attention import (
     KERNELS, NEG_INF, flash_attention_cuda, flash_attention_plain,
-    flash_bwd_cuda, flash_bwd_plain)
+    flash_bwd_cuda, flash_bwd_plain, flash_fwd_op)
 
 CASES = {
     "short_k": dict(lq=300, lk=24, k_lens=None, d=128),
@@ -92,6 +92,35 @@ def test_front_end_counts_launches_by_key_length(cuda_device):
     torch.cuda.synchronize()
     assert out.dtype == torch.float32
     assert [kn.launches - b for kn, b in zip(KERNELS, before)] == [1, 1, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lk", [300, 1500])
+def test_custom_op_is_the_kernel(cuda_device, lk):
+    """torch.ops.omnihuman_tpu_torch.flash_fwd on CUDA tensors launches K1:
+    bit-equal to flash_attention_cuda, with and without the LSE; opcheck
+    (schema, fake, dispatch) passes; each call moves K1's count by one."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn(2, 200, 2, 128, generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    k, v = (torch.randn(2, lk, 2, 128, generator=g,
+                        device=cuda_device).to(torch.bfloat16)
+            for _ in range(2))
+    kl = torch.tensor([lk, lk // 3], dtype=torch.int32, device=cuda_device)
+    kernel = KERNELS[0] if lk > 1024 else KERNELS[1]
+    op = torch.ops.omnihuman_tpu_torch.flash_fwd
+    for with_lse in (False, True):
+        before = kernel.launches
+        out, lse = op(q, k, v, kl, None, False, -1, -1, 0, 0, with_lse)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        want = flash_attention_cuda(q, k, v, kl, return_lse=with_lse)
+        if with_lse:
+            assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+        else:
+            assert torch.equal(out, want) and lse.numel() == 0
+    torch.library.opcheck(flash_fwd_op,
+                          (q, k, v, kl, 0.1, True, -1, -1, 4, 0, True))
 
 
 @pytest.mark.cuda
