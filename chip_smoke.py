@@ -236,15 +236,50 @@ Then, at the end:
      reports the card.
 Each of 25-28 logs its wall time.
 
+Right after phase 27, on phase 5's pipeline:
+ 29. sequence-parallel serving. (a) The per-rank programs at flagship
+     width on one card (B=2, N=12, D=128, bf16, 32,768 tokens, 32,760
+     valid), for sp 2 and 4: every virtual rank's ring (`ring_forward_hop`:
+     K1 with the LSE on each K / V shard in ring order, the fp32 LSE merge)
+     concatenated against one K1 call over the whole (2^-6 of the peak),
+     rank 0's hops timed as K1 and merge apart, against 1/sp of the whole
+     call and the bound; every rank's Ulysses program (the port's
+     all-to-all buffer layouts, emulated exchanges, `ulysses_local`: K1
+     over all tokens at N/sp heads) and sp_cross (`sp_cross_local`: K1 at
+     Lq/sp against 128 / 512 text keys) against the whole call, each timed
+     beside its bound and the library's flash forward with the LSE. (b) A
+     one-rank NCCL process group and
+     `WanT2V(mesh=create_mesh(MeshConfig(1, 1, 1)))` on phase 5's weights
+     (the ring and sp_cross at sp 1, FSDP2 over one rank on the DiT and
+     umT5, umT5 resident): phase 5's first request as latents against
+     phase 5's pipeline's (bit-equal expected, 1e-3 relative L2 allowed),
+     launch counts zeroed before the request and read after its video's
+     decode (120 K1 long-K, 120 short-K, K3 and K4 in the decode); phase
+     5's request timed under the pipelines' no_grad and inside
+     inference_mode, alternated; a second mesh request timed, and one of
+     each pipeline profiled (device time by kernel group, the mesh's
+     largest extra kernels). (c) With two or more cards,
+     `torchrun` runs this script's --sp-worker mode at sp min(4, cards)
+     against (b)'s latents (5e-2 relative L2) and `cli.generate --sp_size`;
+     with one card that is logged as not run, and two processes probe
+     whether gloo carries CUDA tensors for batch_isend_irecv and
+     all_to_all_single. The phase logs its wall time.
+
 The line before last is a JSON object {"kernels": [...]}; its
 `launches_by_path` holds each path's launches (phase 19's t2v request,
 20's and 21's first CLI runs, 22's pass, 23's `--pose_video` request,
-27's exported flagship step ("export") and 28's profiled request
-("profile") among them); the last line is {"ok": true, "device": {...}}.
+27's exported flagship step ("export"), 28's profiled request
+("profile") and 29's one-rank mesh request ("sp_serve") among them); the
+last line is {"ok": true, "device": {...}}.
+
+    torchrun --standalone --nproc_per_node N chip_smoke.py --sp-worker OUT
+
+is phase 29 (c)'s worker: one rank of the mesh pipeline at sp N.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -610,18 +645,30 @@ def omni_small_reference():
         f"to {scale:.3g} (tol 5e-2 x max(1, scale))")
 
 
-def t2v_pipe():
-    """Phase 5's pipeline: WanT2V(t2v-1.3B, fast) with random bf16 weights
-    from seed 0 and a random head."""
+def _random_head(model, device="cuda"):
+    """Unit-scale velocities instead of the reference init's all zeros."""
     import torch
+    with torch.no_grad():
+        model.head.head.weight.normal_(
+            0.0, model.cfg.dim ** -0.5,
+            generator=torch.Generator(device=device).manual_seed(5))
+
+
+def t2v_pipe(mesh=None, device="cuda"):
+    """Phase 5's pipeline: WanT2V(t2v-1.3B, fast) with random bf16 weights
+    from seed 0 and a random head; with `mesh`, the same weights on it
+    (the head is drawn before FSDP2 shards the model)."""
     from omnihuman_tpu_torch.configs import T2V_1_3B
     from omnihuman_tpu_torch.pipelines.text2video import WanT2V
-    pipe = WanT2V(T2V_1_3B, device="cuda", precision="fast", init_seed=0)
-    with torch.no_grad():    # unit-scale velocities instead of all zeros
-        pipe.model.head.head.weight.normal_(
-            0.0, T2V_1_3B.model.dim ** -0.5,
-            generator=torch.Generator(device="cuda").manual_seed(5))
-    return pipe
+
+    class Pipe(WanT2V):
+        def _build_model(self):
+            model = super()._build_model()
+            _random_head(model, self.device)
+            return model
+
+    return Pipe(T2V_1_3B, device=device, precision="fast", init_seed=0,
+                mesh=mesh)
 
 
 def phase_main_path(kernels):
@@ -3601,6 +3648,443 @@ def phase_tools(all_kernels):
     return counts
 
 
+SP_SIZES = (2, 4)
+
+
+def _sp_row(tag, fn, b, lq, n, d, k_valid, lib_args=None, k_lens=None,
+            lse=False):
+    """Time `fn` (CUDA events, median of 7), the bound of its attention
+    and, on (q, k, v) `lib_args`, the plain version on the same inputs and
+    the library's flash forward with the LSE (unmasked, a yardstick the
+    port never calls); log one K1 row."""
+    import torch
+    from omnihuman_tpu_torch.ops.flash_attention import flash_attention_plain
+    ms = bench_ms(fn)
+    bound, bound_by = attention_bound(b, lq, n, d, k_valid)
+    lib_ms = plain_ms = None
+    if lib_args is not None:
+        plain_ms = round(bench_ms(lambda: flash_attention_plain(
+            *lib_args, k_lens=k_lens, return_lse=lse), reps=3, warmup=1), 2)
+        qt, kt, vt = (x.transpose(1, 2) for x in lib_args)
+        try:
+            lib_ms = round(bench_ms(
+                lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                    qt, kt, vt)), 3)
+        except (RuntimeError, AttributeError) as e:
+            lib_ms = f"not measured ({e})"
+    log(f"[29] K1 {tag}: {ms:.3f} ms, bound {bound:.3f} ms ({bound_by}, "
+        f"{100 * bound / ms:.1f}%), plain {plain_ms} ms, library flash "
+        f"forward with LSE {lib_ms} ms")
+    return ms, bound
+
+
+def phase_sp_programs():
+    """[29a] The sequence-parallel per-rank programs at flagship width on
+    one card (B=2, N=12, D=128, bf16, 32,768 tokens, 32,760 valid): for
+    each virtual rank of sp 2 and 4, `ring_forward_hop` (K1 with the LSE,
+    the fp32 merge) over its query shard and every K / V shard in ring
+    order, concatenated and held against one K1 call over the whole; each
+    hop's K1 and merge timed on rank 0's program; then every rank's
+    Ulysses program (the port's buffer layouts and `ulysses_local`, K1 over
+    all tokens at N / sp heads, the all-to-alls emulated) and sp_cross
+    (`sp_cross_local`, K1 at Lq / sp against 128 / 512 text keys) against
+    the whole call."""
+    import torch
+    from omnihuman_tpu_torch.ops import ring_attention as ra
+    from omnihuman_tpu_torch.ops.flash_attention import (
+        flash_attention_cuda, flash_fwd)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2929)
+    b, n, d = 2, 12, 128
+    L, valid = FLAGSHIP["seq_len"], FLAGSHIP["tokens"]
+
+    def rnd(l, heads=n):
+        return torch.randn((b, l, heads, d), generator=gen, device=dev
+                           ).to(torch.bfloat16)
+
+    q, k, v = rnd(L), rnd(L), rnd(L)
+    kl = torch.tensor([valid] * b, dtype=torch.int32, device=dev)
+    whole = flash_attention_cuda(q, k, v, k_lens=kl)
+    whole_ms = bench_ms(lambda: flash_attention_cuda(q, k, v, k_lens=kl))
+    tol = 2 ** -6 * whole.float().abs().max().item()
+    log(f"[29] whole K1 call (32,768 tokens, k_len 32,760): "
+        f"{whole_ms:.3f} ms; tolerance 2^-6 of the peak = {tol:.3g}")
+
+    def check(tag, got, want):
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.isfinite(got.float()).all() or err > tol:
+            fail(f"[29] {tag}: max abs err {err} > {tol} against the whole "
+                 f"K1 call")
+        return err
+
+    scale = d ** -0.5
+    for sp in SP_SIZES:
+        lq = L // sp
+        outs = []
+        for r in range(sp):
+            qs = q[:, r * lq:(r + 1) * lq].contiguous()
+            o = lse = None          # the first hop seeds the accumulator
+            hops = []
+            for i in range(sp):
+                src = (r + i) % sp
+                kc = k[:, src * lq:(src + 1) * lq].contiguous()
+                vc = v[:, src * lq:(src + 1) * lq].contiguous()
+                klc = (kl - src * lq).clamp(0, lq)
+                hops.append((kc, vc, klc))
+                o, lse = ra.ring_forward_hop(qs, kc, vc, klc, o, lse,
+                                             (r * lq, src * lq), scale=scale)
+            outs.append(o.to(torch.bfloat16))
+            if r:
+                continue
+            # rank 0's hops, each split into its K1 launch and the merge
+            rank_ms, k1_total = 0.0, 0.0
+            for i, (kc, vc, klc) in enumerate(hops):
+                o_i, lse_i = flash_fwd(qs, kc, vc, k_lens=klc,
+                                       return_lse=True)
+                of = o_i.float()
+                k1_ms, bound = _sp_row(
+                    f"ring hop sp {sp} hop {i} (Lq = Lk = {lq}, k_len "
+                    f"{klc.tolist()})",
+                    lambda: flash_fwd(qs, kc, vc, k_lens=klc,
+                                      return_lse=True),
+                    b, lq, n, d, klc.tolist(),
+                    lib_args=(qs, kc, vc) if i == 0 else None, k_lens=klc,
+                    lse=True)
+                merge_ms = (bench_ms(lambda: ra._merge(o, lse, of, lse_i))
+                            if i else 0.0)   # hop 0 seeds, no merge
+                log(f"[29] ring sp {sp} rank 0 hop {i}: K1 {k1_ms:.3f} ms "
+                    f"(bound {bound:.3f}), merge {merge_ms:.3f} ms")
+                rank_ms += k1_ms + merge_ms
+                k1_total += k1_ms
+            log(f"[29] ring sp {sp}: rank 0's program {rank_ms:.3f} ms "
+                f"(K1 {k1_total:.3f}, merge {rank_ms - k1_total:.3f}) "
+                f"against 1/{sp} of the whole call {whole_ms / sp:.3f} ms "
+                f"(x{rank_ms / (whole_ms / sp):.2f}); the rank's bound "
+                f"{attention_bound(b, lq, n, d, [valid] * b)[0]:.3f} ms")
+        err = check(f"ring sp {sp}", torch.cat(outs, dim=1), whole)
+        log(f"[29] ring sp {sp}: {sp} ranks x {sp} hops concatenated vs "
+            f"the whole call: max abs err {err:.3g}")
+        del outs, hops
+
+        # Ulysses: every rank's program, the all-to-alls emulated (rank r
+        # receives part r of every rank's buffer)
+        nh = n // sp
+
+        def exchange(bufs):
+            return [torch.stack([x[r] for x in bufs]) for r in range(sp)]
+
+        def to_heads(x):
+            return [ra.ulysses_gather_tokens(buf) for buf in exchange(
+                [ra.ulysses_split_heads(x[:, r * lq:(r + 1) * lq], sp)
+                 for r in range(sp)])]
+
+        heads = list(zip(to_heads(q), to_heads(k), to_heads(v)))
+        per_rank = [ra.ulysses_local(qh, kh, vh, kl) for qh, kh, vh in heads]
+        qh, kh, vh = heads[0]
+        got = torch.cat([ra.ulysses_gather_heads(buf) for buf in exchange(
+            [ra.ulysses_split_tokens(o, sp) for o in per_rank])], dim=1)
+        err = check(f"ulysses sp {sp}", got, whole)
+        u_ms, _ = _sp_row(f"ulysses sp {sp} ({nh} heads, L {L}, k_len "
+                          f"{valid})",
+                          lambda: ra.ulysses_local(qh, kh, vh, kl),
+                          b, L, nh, d, [valid] * b, lib_args=(qh, kh, vh),
+                          k_lens=kl)
+        log(f"[29] ulysses sp {sp}: {sp} ranks' programs vs the whole "
+            f"call: max abs err {err:.3g}; K1 {u_ms:.3f} ms against 1/{sp} "
+            f"of the whole call {whole_ms / sp:.3f} ms")
+        del qh, kh, vh, heads, per_rank, got
+
+        # sp_cross: the rank's queries against the whole text context
+        for lc in (128, 512):
+            kt, vt = rnd(lc), rnd(lc)
+            ktl = torch.tensor([37, lc], dtype=torch.int32, device=dev)
+            full = flash_attention_cuda(q, kt, vt, k_lens=ktl)
+            full_ms = bench_ms(lambda: flash_attention_cuda(q, kt, vt,
+                                                            k_lens=ktl))
+            errs = []
+            for r in range(sp):
+                qs = q[:, r * lq:(r + 1) * lq].contiguous()
+                errs.append(check(
+                    f"sp_cross sp {sp} Lc {lc} rank {r}",
+                    ra.sp_cross_local(qs, kt, vt, r, sp, k_lens=ktl),
+                    full[:, r * lq:(r + 1) * lq]))
+            c_ms, _ = _sp_row(
+                f"sp_cross sp {sp} (Lq {lq}, Lc {lc}, k_lens (37, {lc}))",
+                lambda: ra.sp_cross_local(qs, kt, vt, sp - 1, sp,
+                                          k_lens=ktl),
+                b, lq, n, d, [37, lc], lib_args=(qs, kt, vt), k_lens=ktl)
+            log(f"[29] sp_cross sp {sp} Lc {lc}: max abs err "
+                f"{max(errs):.3g}; K1 {c_ms:.3f} ms against 1/{sp} of the "
+                f"whole call {full_ms / sp:.3f} ms")
+    del q, k, v, whole
+    torch.cuda.empty_cache()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _sp_request(pipe):
+    """Phase 5's first request (17 frames at 480x832, 4 steps) as latents,
+    with its seconds and stage seconds."""
+    import torch
+    w, h = SMOKE["size"]
+    prompt, seed = SMOKE["requests"][0]
+    t0 = time.perf_counter()
+    lat = pipe.generate(prompt, size=(w, h), frame_num=SMOKE["frames"],
+                        sampling_steps=SMOKE["steps"], seed=seed,
+                        return_latents=True)
+    torch.cuda.synchronize()
+    return lat, time.perf_counter() - t0, dict(pipe.timings)
+
+
+def phase_sp_serve(all_kernels, pipe):
+    """[29b] The mesh path through the real entry points on a one-rank NCCL
+    group: `WanT2V(mesh=create_mesh(MeshConfig(1, 1, 1)))` on phase 5's
+    weights (the ring and sp_cross at sp 1, FSDP2 over one rank, umT5
+    resident), phase 5's first request as latents, held against phase 5's
+    pipeline's latents for it, and its video decoded; launch counts zeroed
+    just before the request and read just after the decode. Returns (the
+    counts, the latents)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.fsdp import FSDPModule
+    from omnihuman_tpu_torch.models.vae import vae_decode
+    from omnihuman_tpu_torch.ops.vae_kernels import VAE_CONV, VAE_UPSAMPLE
+    from omnihuman_tpu_torch.parallel import MeshConfig, create_mesh
+
+    want, want_s, want_t = _sp_request(pipe)
+    # the pipelines serve under torch.no_grad; the same request inside
+    # torch.inference_mode, alternated with it, times the other choice
+    per_step = {"no_grad": [want_t["denoise_s"]], "inference_mode": []}
+    same = True
+    for mode in ("inference_mode", "no_grad", "inference_mode"):
+        with (torch.inference_mode() if mode == "inference_mode"
+              else contextlib.nullcontext()):
+            lat, _, t = _sp_request(pipe)
+        per_step[mode].append(t["denoise_s"])
+        same = same and torch.equal(lat, want)
+    log(f"[29] phase 5's request, denoise ms/step by grad mode: " + ", ".join(
+        f"{m} {[round(x / SMOKE['steps'] * 1e3, 1) for x in v]}"
+        for m, v in per_step.items()) + f"; latents bit-equal: {same}")
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = create_mesh(MeshConfig(1, 1, 1))
+        t0 = time.perf_counter()
+        mp = t2v_pipe(mesh)
+        torch.cuda.synchronize()
+        log(f"[29] WanT2V(t2v-1.3B, mesh (1, 1, 1)) built in "
+            f"{time.perf_counter() - t0:.1f} s: attn_impl {mp.attn_impl}, "
+            f"sp {mp.sp_size}, FSDP2 on the DiT: "
+            f"{isinstance(mp.model, FSDPModule)} and its blocks: "
+            f"{all(isinstance(b, FSDPModule) for b in mp.model.blocks)}")
+        if mp.attn_impl != "ring" or not isinstance(mp.model, FSDPModule):
+            fail("[29] the mesh pipeline did not take the mesh plan")
+        _zero(all_kernels)
+        got, got_s, got_t = _sp_request(mp)
+        video = vae_decode(mp.vae, got, streaming=True)
+        counts = _count(all_kernels)
+        if not torch.isfinite(video.float()).all() or tuple(
+                video.shape[2:]) != (SMOKE["frames"], SMOKE["size"][1],
+                                     SMOKE["size"][0]):
+            fail(f"[29] mesh video {tuple(video.shape)} not finite / shaped")
+        if not isinstance(mp._t5, FSDPModule):
+            fail("[29] umT5 is not sharded by FSDP2 on the mesh")
+        if next(mp._t5.parameters()).device.type != "cuda":
+            fail("[29] umT5 left the card under a mesh")
+        steps = SMOKE["steps"]
+        want_n = NUM_LAYERS * steps
+        log(f"[29] mesh request launches {counts}, expected {want_n} K1 "
+            f"long-K and {want_n} short-K (the ring's one hop and sp_cross, "
+            f"cond + uncond in one batch), K3 and K4 in the decode")
+        if (counts["flash_fwd (Lk > 1024)"] != want_n
+                or counts["flash_fwd (Lk <= 1024)"] != want_n):
+            fail("[29] the mesh path did not send every attention through K1")
+        if not counts[VAE_CONV.name] or not counts[VAE_UPSAMPLE.name]:
+            fail("[29] the mesh video's decode did not launch K3 and K4")
+        diff = got.float() - want.float()
+        rel = (diff.norm() / want.float().norm()).item()
+        log(f"[29] mesh latents vs phase 5's pipeline: bit-equal "
+            f"{torch.equal(got, want)}, max abs {diff.abs().max().item():.3g}"
+            f", relative L2 {rel:.3g} (bit-equal expected; tolerance 1e-3 "
+            f"relative L2)")
+        if rel > 1e-3 or not torch.isfinite(got).all():
+            fail("[29] the mesh path's latents differ from phase 5's")
+        log(f"[29] request seconds: mesh {got_s:.2f} (T5 encode "
+            f"{got_t.get('t5_encode_s', 0):.2f}, {steps} steps "
+            f"{got_t['denoise_s']:.2f} s = "
+            f"{got_t['denoise_s'] / steps * 1e3:.1f} ms/step), unsharded "
+            f"{want_s:.2f} ({want_t['denoise_s'] / steps * 1e3:.1f} "
+            f"ms/step)")
+        # where a mesh step's extra time goes: a second (warm) request,
+        # then one profiled request of each pipeline
+        _, _, again_t = _sp_request(mp)
+        prof = {}
+        for tag, p_ in (("unsharded", pipe), ("mesh", mp)):
+            prof[tag] = kernel_split(lambda: _sp_request(p_))
+        log(f"[29] mesh request again: "
+            f"{again_t['denoise_s'] / steps * 1e3:.1f} ms/step; device "
+            f"kernel time of one request: " + "; ".join(
+                f"{tag} {total:.1f} ms (" + ", ".join(
+                    f"{k.split(' (')[0]} {v:.1f}" for k, v in groups.items())
+                + ")" for tag, (groups, total, _) in prof.items()))
+        base = {e.key: e.self_device_time_total
+                for e in prof["unsharded"][2]}
+        extra = sorted(((e.self_device_time_total - base.get(e.key, 0), e)
+                        for e in prof["mesh"][2]), key=lambda x: -x[0])
+        for dt, e in extra[:5]:
+            log(f"[29]   mesh - unsharded {dt / 1e3:+8.2f} ms "
+                f"x{e.count:<5d} {e.key[:90]}")
+        del mp, video
+        return counts, got
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _gloo_probe_rank(rank, port, out_dir):
+    """One of two processes on one card: does gloo carry CUDA tensors for
+    batch_isend_irecv and all_to_all_single?"""
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    res = {}
+    x = torch.arange(8, dtype=torch.float32, device="cuda") + 10 * rank
+    try:
+        got = torch.empty_like(x)
+        for w in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x, 1 - rank),
+                dist.P2POp(dist.irecv, got, 1 - rank)]):
+            w.wait()
+        res["batch_isend_irecv"] = (
+            "ok" if got[0].item() == 10 * (1 - rank)
+            else f"wrong value {got[0].item()}")
+    except Exception as e:       # the finding is the message
+        res["batch_isend_irecv"] = f"{type(e).__name__}: {e}"[:200]
+    try:
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        want = [4.0 * rank + i for i in range(4)]
+        res["all_to_all_single"] = (
+            "ok" if out.tolist() == want + [10 + w for w in want]
+            else f"wrong values {out.tolist()}")
+    except Exception as e:
+        res["all_to_all_single"] = f"{type(e).__name__}: {e}"[:200]
+    with open(os.path.join(out_dir, f"gloo{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def phase_sp_multi(latents_b):
+    """[29c] With two or more cards: `torchrun` runs this script's
+    --sp-worker mode (the mesh pipeline on phase 5's weights at sp n),
+    whose latents are held against (b)'s, and `cli.generate --sp_size n`
+    at phase 5's geometry. With one card, NCCL cannot hold two ranks:
+    logged as not run, and two processes probe whether gloo carries CUDA
+    tensors for the ring's and Ulysses' collectives."""
+    import numpy as np
+    import torch
+    count = torch.cuda.device_count()
+    os.makedirs(WORK, exist_ok=True)
+    if count < 2:
+        log(f"[29] (c) not run: {count} card; NCCL refuses two ranks on "
+            f"one GPU (duplicate GPU), so sp > 1 over NCCL needs >= 2 cards")
+        import torch.multiprocessing as tmp
+        ctx = tmp.spawn(_gloo_probe_rank, args=(_free_port(), WORK),
+                        nprocs=2, join=False)
+        t_end = time.monotonic() + 120
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > t_end:
+                    raise TimeoutError("still running after 120 s")
+            found = [json.load(open(os.path.join(WORK, f"gloo{r}.json")))
+                     for r in range(2)]
+            log(f"[29] gloo with CUDA tensors, two processes on one card: "
+                f"{found}")
+        except Exception as e:
+            log(f"[29] gloo probe failed: {type(e).__name__}: {e}")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        return
+    n = min(4, count)
+    out = os.path.join(WORK, "sp_latents.npy")
+    w, h = SMOKE["size"]
+    prompt, seed = SMOKE["requests"][0]
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={n}"]
+    t0 = time.perf_counter()
+    r = subprocess.run(run + [os.path.abspath(__file__), "--sp-worker", out],
+                       cwd=HERE, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        fail(f"[29] torchrun sp {n} worker failed:\n{r.stderr[-3000:]}")
+    got = np.load(out)
+    want = latents_b.float().cpu().numpy()
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    log(f"[29] (c) sp {n} over NCCL on {n} cards: {r.stdout.strip()}; "
+        f"latents vs (b): relative L2 {rel:.3g} (tolerance 5e-2: the ring "
+        f"merges bf16 chunk outputs in fp32); {time.perf_counter() - t0:.1f}"
+        f" s with start-up")
+    if rel > 5e-2:
+        fail("[29] sp > 1 latents differ from the one-rank mesh's")
+    r = subprocess.run(run + ["-m", "omnihuman_tpu_torch.cli.generate",
+                              "--task", "t2v-1.3B", "--size", f"{h}*{w}",
+                              "--frame_num", str(SMOKE["frames"]),
+                              "--sample_steps", str(SMOKE["steps"]),
+                              "--base_seed", str(seed), "--prompt", prompt,
+                              "--sp_size", str(n), "--save_file",
+                              os.path.join(WORK, "sp_cli.mp4")],
+                       cwd=HERE, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        fail(f"[29] torchrun cli.generate --sp_size {n} failed:\n"
+             f"{r.stderr[-3000:]}")
+    log(f"[29] (c) torchrun cli.generate --sp_size {n}: "
+        f"{r.stdout.strip().splitlines()[-1]}")
+
+
+def sp_worker(out: str) -> None:
+    """--sp-worker OUT, one rank under torchrun: the mesh (1, 1, world)
+    pipeline on phase 5's weights, phase 5's first request; rank 0 saves
+    the latents to OUT and prints the denoise ms a step."""
+    import numpy as np
+    import torch.distributed as dist
+    from omnihuman_tpu_torch.parallel import (
+        MeshConfig, create_mesh, init_distributed)
+    dev = init_distributed()
+    mesh = create_mesh(MeshConfig(1, 1, dist.get_world_size()))
+    lat, _, timings = _sp_request(t2v_pipe(mesh, device=dev))
+    if dist.get_rank() == 0:
+        np.save(out, lat.float().cpu().numpy())
+        print(f"{timings['denoise_s'] / SMOKE['steps'] * 1e3:.1f} ms/step",
+              flush=True)
+    dist.destroy_process_group()
+
+
+def run_sp_phase(all_kernels, pipe, paths):
+    """Phase 29 (a, b, c), timed, on phase 5's pipeline."""
+    import torch
+    t0 = time.perf_counter()
+    try:
+        phase_sp_programs()
+        paths["sp_serve"], latents = phase_sp_serve(all_kernels, pipe)
+        phase_sp_multi(latents)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[29] phase wall time {time.perf_counter() - t0:.1f} s (planned "
+        f"under 90 s)")
+
+
 def run_slice_12_phases(all_kernels, paths):
     """Phases 25, 26 and 28, each timed (27 runs after phase 6, on phase
     5's pipeline)."""
@@ -3663,6 +4147,9 @@ def run_slice_10_phases(npz, all_kernels, paths, phases=(19, 20, 21, 22)):
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--sp-worker"]:       # one rank under torchrun
+        sys.path.insert(0, HERE)
+        return sp_worker(sys.argv[2])
     if not os.path.isdir(os.path.join(HERE, "omnihuman_tpu_torch")):
         fail("omnihuman_tpu_torch/ is not beside chip_smoke.py: run this "
              "from the root of a checkout of the repository")
@@ -3695,6 +4182,7 @@ def main() -> None:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(f"[27] phase wall time {time.perf_counter() - t0:.1f} s")
+    run_sp_phase(all_kernels, pipe, paths)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()

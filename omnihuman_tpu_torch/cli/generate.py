@@ -11,6 +11,8 @@ image-to-video and the one-step APT generator.
         --size 480*832 --frame_num 81 --export_step t2v_step.pt2
     python -m omnihuman_tpu_torch.cli.generate --profile trace_dir \\
         --use_prompt_extend --prompt "..."
+    torchrun --nproc_per_node 4 -m omnihuman_tpu_torch.cli.generate \\
+        --task t2v-14B --size 720*1280 --sp_size 4
 
 Runs on the GPU unless `--device cpu` is given. `--ckpt_dir` names a Wan
 checkpoint directory in the reference layout (`*.safetensors` DiT shards,
@@ -22,9 +24,13 @@ writes the CFG denoise step as a `torch.export` program instead of
 generating (utils/export.py); `--profile DIR` records a torch.profiler
 trace of the request in DIR; `--use_prompt_extend` expands the prompt
 first (DashScope where DASH_API_KEY is set, else the local Qwen expander,
-whose template fallback needs no weights). The flags of the JAX CLI that
-belong to paths not ported yet are refused with the item that brings
-them.
+whose template fallback needs no weights).
+
+`--sp_size` / `--fsdp_size` above 1 run one process per GPU under
+torchrun (NCCL; gloo with `--device cpu`) on a (data, fsdp, sp) mesh,
+data taking the rest of the world (`parallel.mesh_from_flags`): the ring /
+sp_cross attention over `sp`, FSDP2 over `fsdp`; rank 0 writes the file.
+`--one_step` and `--export_step` run on one device.
 """
 
 from __future__ import annotations
@@ -32,12 +38,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import sys
-
-# flags of omnihuman_tpu.cli.generate that a later slice of the port brings
-LATER_FLAGS = {
-    "--sp_size": "sequence parallelism (ROADMAP queue A, item 19)",
-    "--fsdp_size": "multi-GPU sharding (ROADMAP queue A, item 19)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -101,6 +101,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "whose template fallback needs no weights)")
     p.add_argument("--prompt_extend_target_lang", default="en",
                    choices=("en", "zh"))
+    p.add_argument("--sp_size", type=int, default=1,
+                   help="sequence-parallel degree (ring attention over the "
+                        "token axis; one process per GPU under torchrun)")
+    p.add_argument("--fsdp_size", type=int, default=1,
+                   help="parameter-sharding degree (FSDP2 over the DiT and "
+                        "umT5; one process per GPU under torchrun)")
     p.add_argument("--save_file", default=None)
     p.add_argument("--device", default=None,
                    help="torch device (default: the GPU; 'cpu' on request)")
@@ -108,14 +114,28 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    argv = list(sys.argv[1:] if argv is None else argv)
-    for a in argv:
-        flag = a.split("=", 1)[0]
-        if flag in LATER_FLAGS:
-            sys.exit(f"{flag} is not ported yet: it comes with "
-                     f"{LATER_FLAGS[flag]}")
     args = build_parser().parse_args(argv)
+    multi = args.sp_size > 1 or args.fsdp_size > 1
+    if multi and args.one_step:
+        sys.exit("--one_step on a mesh needs the W-sharded VAE decode "
+                 "(ROADMAP queue A, item 19); run it on one device")
+    if multi and args.export_step:
+        sys.exit("--export_step exports the single-device step; drop "
+                 "--sp_size / --fsdp_size")
+    if args.precision == "int8" and args.fsdp_size > 1:
+        sys.exit("--precision int8 with --fsdp_size > 1: FSDP2 does not "
+                 "shard the int8 weights (buffers) yet (ROADMAP queue A, "
+                 "item 19)")
+    import torch.distributed as dist
+    owned = not dist.is_initialized()
+    try:
+        return _main(args)
+    finally:
+        if multi and owned and dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def _main(args):
     from omnihuman_tpu_torch.configs import (
         SIZE_CONFIGS, SUPPORTED_SIZES, WAN_CONFIGS)
     from omnihuman_tpu_torch.pipelines.text2video import WanT2V
@@ -147,6 +167,9 @@ def main(argv=None):
                      f"{list(SIZE_CONFIGS)}")
     frame_num = args.frame_num or (1 if args.task == "t2i-14B"
                                    else cfg.frame_num)
+    from omnihuman_tpu_torch.parallel.mesh import is_writer, mesh_from_flags
+    mesh, args.device = mesh_from_flags(args.fsdp_size, args.sp_size,
+                                        args.device)
 
     if args.export_step:
         return _export(args, cfg, (w, h), frame_num, i2v)
@@ -163,7 +186,7 @@ def main(argv=None):
                     n_prompt=args.n_prompt, seed=args.base_seed,
                     cfg_mode=args.cfg_mode)
     prof = contextlib.nullcontext()
-    if args.profile:
+    if args.profile and is_writer():
         from omnihuman_tpu_torch.utils.logging import profile_trace
         prof = profile_trace(args.profile)
     if i2v:
@@ -172,7 +195,7 @@ def main(argv=None):
 
         from omnihuman_tpu_torch.pipelines.image2video import WanI2V
         pipe = WanI2V(cfg, precision=args.precision, device=args.device,
-                      checkpoint_dir=args.ckpt_dir)
+                      checkpoint_dir=args.ckpt_dir, mesh=mesh)
         img = np.asarray(Image.open(args.image).convert("RGB"),
                          np.float32).transpose(2, 0, 1) / 127.5 - 1.0
         with prof:
@@ -183,11 +206,13 @@ def main(argv=None):
         return _one_step(args, cfg, (w, h), frame_num, out, prof)
     else:
         pipe = WanT2V(cfg, precision=args.precision, device=args.device,
-                      checkpoint_dir=args.ckpt_dir)
+                      checkpoint_dir=args.ckpt_dir, mesh=mesh)
         with prof:
             video = pipe.generate(args.prompt, size=(w, h),
                                   frame_num=frame_num, **sampling)
         timings = pipe.timings
+    if not is_writer():          # one file per run: rank 0's
+        return None
     path = cache_video(video, out, fps=cfg.sample_fps)
     print(f"saved {path}  stage timings: {timings}")
     return path

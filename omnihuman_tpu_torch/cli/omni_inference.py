@@ -26,6 +26,10 @@ extraction fails, the last frame's repeated to f_total, Gaussians at
 twice the latent grid. `main` gives it `SapiensKeypointProcessor()` with
 no backbone, as JAX does, so its heatmaps are all zero; a caller with a
 Sapiens backbone passes its own processor.
+
+`--sp_size` / `--fsdp_size` above 1 run one process per GPU under
+torchrun (gloo with `--device cpu`) on a (data, fsdp, sp) mesh
+(`OmniHuman(mesh=)`); rank 0 writes the video.
 """
 
 from __future__ import annotations
@@ -94,15 +98,6 @@ def parse_size(size: str):
     return w, h
 
 
-def check_flags(args) -> None:
-    """Exit on the flags whose paths are not ported yet."""
-    for flag in ("--fsdp_size", "--sp_size"):
-        if getattr(args, flag[2:]) > 1:
-            sys.exit(f"{flag} > 1 is not ported yet: it comes with "
-                     "sequence parallelism and FSDP (ROADMAP queue A, "
-                     "item 19)")
-
-
 def pose_heatmaps_from_frames(frames, f_total: int, h_lat: int, w_lat: int,
                               processor) -> np.ndarray:
     """Driving frames ([H, W, 3] uint8 RGB each; at most the first
@@ -139,14 +134,31 @@ def read_video_frames(path: str):
         cap.release()
 
 
-def build_pipeline(args):
+def join_mesh(args):
+    """(mesh, device) of the flags: None and --device at sizes 1, else the
+    mesh of torchrun's processes (`parallel.mesh_from_flags`, JAX
+    omni_inference.py:87-94); a single process with sizes above 1 exits
+    naming torchrun."""
+    from omnihuman_tpu_torch.parallel.mesh import mesh_from_flags
+    if args.precision == "int8" and args.fsdp_size > 1:
+        sys.exit("--precision int8 with --fsdp_size > 1: FSDP2 does not "
+                 "shard the int8 weights (buffers) yet (ROADMAP queue A, "
+                 "item 19)")
+    return mesh_from_flags(args.fsdp_size, args.sp_size, args.device,
+                           module="omnihuman_tpu_torch.cli.omni_inference")
+
+
+def build_pipeline(args, mesh_and_device=None):
     """The OmniHuman pipeline the flags ask for (random weights from init
-    seed 0 where --ckpt_dir / --checkpoint give none)."""
+    seed 0 where --ckpt_dir / --checkpoint give none), on
+    `mesh_and_device` (default: `join_mesh(args)`)."""
     from omnihuman_tpu_torch.configs import WAN_CONFIGS
     from omnihuman_tpu_torch.pipelines.omni import OmniHuman
+    mesh, device = mesh_and_device or join_mesh(args)
     return OmniHuman(WAN_CONFIGS[args.task], num_frames=args.num_frames,
-                     precision=args.precision, device=args.device,
-                     ckpt_dir=args.ckpt_dir, checkpoint=args.checkpoint)
+                     precision=args.precision, device=device,
+                     ckpt_dir=args.ckpt_dir, checkpoint=args.checkpoint,
+                     mesh=mesh)
 
 
 def run(args, reference_image: np.ndarray, waveform=None,
@@ -156,11 +168,12 @@ def run(args, reference_image: np.ndarray, waveform=None,
     `pose` heatmaps [K, F_total, 2 lat_h, 2 lat_w] or None. `pipe` is an
     `OmniHuman` built by `build_pipeline(args)` (one is built when None).
     Returns {"video": [3, F, H, W] tensor, "path": file written or None
-    when args.output is None, "timings": stage seconds}."""
+    when args.output is None or this is not rank 0, "timings": stage
+    seconds}."""
     from omnihuman_tpu_torch.omni.dataset import AudioFeatureExtractor
+    from omnihuman_tpu_torch.parallel.mesh import is_writer
     from omnihuman_tpu_torch.utils.media import cache_video
 
-    check_flags(args)
     w_px, h_px = parse_size(args.size)
     img = np.asarray(reference_image)
     if img.shape != (h_px, w_px, 3):
@@ -201,16 +214,25 @@ def run(args, reference_image: np.ndarray, waveform=None,
         seed=args.seed, n_prompt=args.neg_prompt or "")
     timings = dict(pipe.timings, audio_features_s=audio_s)
     path = None
-    if args.output is not None:
+    if args.output is not None and is_writer():
         path = cache_video(video, args.output, fps=16)
     return {"video": video, "path": path, "timings": timings}
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_flags(args)
     if args.reference_image is None:
         sys.exit("--reference_image is required")
+    import torch.distributed as dist
+    owned = not dist.is_initialized()
+    try:
+        return _main(args, join_mesh(args))
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args, mesh_and_device):
     from PIL import Image
 
     from omnihuman_tpu_torch.configs import WAN_CONFIGS
@@ -238,8 +260,10 @@ def main(argv=None):
             read_video_frames(args.pose_video),
             args.total_frames or args.num_frames, h_px // stride[1],
             w_px // stride[2], SapiensKeypointProcessor(device=args.device))[0]
-    out = run(args, np.asarray(img), waveform, sr, pose=pose)
-    print(f"saved {out['path']}  stage timings: {out['timings']}")
+    out = run(args, np.asarray(img), waveform, sr, pose=pose,
+              pipe=build_pipeline(args, mesh_and_device))
+    if out["path"] is not None:
+        print(f"saved {out['path']}  stage timings: {out['timings']}")
     return out["path"]
 
 

@@ -91,6 +91,19 @@ class T5SelfAttention(nn.Module):
         self.pos_embedding = T5RelativeEmbedding(cfg.num_buckets,
                                                  cfg.num_heads)
 
+    def forward(self, x, mask_bias, buckets, cfg: T5Config,
+                cd: torch.dtype) -> torch.Tensor:
+        """One encoder block on the fp32 residual x [B, L, dim]. Called as
+        a module, so FSDP2's per-block hooks gather its parameters."""
+        h = rms_norm(x, self.norm1.weight, eps=1e-6)
+        x = x + _t5_attention(self, h, mask_bias, buckets, cfg, cd).float()
+        h = rms_norm(x, self.norm2.weight, eps=1e-6)
+        hc = h.to(cd)
+        ff = (hc @ self.ffn.fc1.weight.to(cd).t()) * _t5_gelu(
+            hc @ self.ffn.gate[0].weight.to(cd).t())
+        ff = ff @ self.ffn.fc2.weight.to(cd).t()
+        return x + ff.float()
+
 
 def _t5_gelu(x: torch.Tensor) -> torch.Tensor:
     """The reference's tanh-approx GELU (t5.py:46-50)."""
@@ -171,17 +184,8 @@ class T5Encoder(nn.Module):
         else:
             mask_bias = torch.zeros((b, 1, 1, l), dtype=torch.float32,
                                     device=dev)
-        cd = compute_dtype
         for blk in self.blocks:
-            h = rms_norm(x, blk.norm1.weight, eps=1e-6)
-            x = x + _t5_attention(blk, h, mask_bias, buckets, cfg,
-                                  cd).float()
-            h = rms_norm(x, blk.norm2.weight, eps=1e-6)
-            hc = h.to(cd)
-            ff = (hc @ blk.ffn.fc1.weight.to(cd).t()) * _t5_gelu(
-                hc @ blk.ffn.gate[0].weight.to(cd).t())
-            ff = ff @ blk.ffn.fc2.weight.to(cd).t()
-            x = x + ff.float()
+            x = blk(x, mask_bias, buckets, cfg, compute_dtype)
         x = rms_norm(x, self.norm.weight, eps=1e-6)
         if mask is not None:
             x = x * (mask[:, :, None] > 0)

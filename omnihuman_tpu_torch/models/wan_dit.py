@@ -40,7 +40,15 @@ after the text cross-attention when `body` is given `audio_ctx` (JAX
 `_block_forward`, wan_dit.py:291-303). `_linear` takes the int8 serving
 weights of ops/quant.py (`Int8Linear`) as well as nn.Linear.
 
-Left for later slices: token sharding.
+Sequence parallelism (JAX `attn_impl` and `token_sharding`): with
+`token_sharding` (the 1-D `mesh["sp"]`), `body` keeps this rank's
+contiguous 1/sp of the padded tokens and of the RoPE rows (seq_lens stays
+global), the self-attention runs as `attn_impl` "ring" or "ulysses" and
+every cross-attention (text, i2v image, audio) as "sp_cross"
+(ops/ring_attention.py), and the head output (and any taps) is gathered
+over sp before it is returned. The blocks are called as modules
+(`WanAttentionBlock.forward`), so FSDP2's per-block hooks
+(parallel/partition.py) gather and free their parameters.
 """
 
 from __future__ import annotations
@@ -59,13 +67,16 @@ from omnihuman_tpu_torch.ops.attention import flash_attention
 from omnihuman_tpu_torch.ops.norms import layer_norm, rms_norm
 from omnihuman_tpu_torch.ops.quant import Int8Linear, int8_linear
 from omnihuman_tpu_torch.ops.rope import apply_rope
+from omnihuman_tpu_torch.parallel.partition import gather_tokens, shard_tokens
 
 
-def padded_seq_len(n_tokens: int) -> int:
-    """The token length the DiT runs at: long sequences round up to the
-    1024 block of the JAX flash kernel, so both packages see the same
-    token counts (the padding is masked through seq_lens)."""
-    align = 1024 if n_tokens >= 4096 else 1
+def padded_seq_len(n_tokens: int, sp: int = 1) -> int:
+    """The token length the DiT runs at (JAX `seq_len_for`): a multiple of
+    the sp degree, and for long sequences of lcm(sp, 1024), the block of
+    the JAX flash kernel, so both packages see the same token counts (the
+    padding is masked through seq_lens)."""
+    sp = max(int(sp), 1)
+    align = math.lcm(sp, 1024) if n_tokens >= 4096 else sp
     return int(math.ceil(n_tokens / align) * align)
 
 
@@ -148,6 +159,10 @@ class WanAttentionBlock(nn.Module):
         if audio_adapter:
             self.audio_attn = AudioAdapter(dim, cfg.eps)
 
+    def forward(self, x, *args, **kwargs):
+        """`_block_forward(self, x, ...)`: FSDP2's hooks run around it."""
+        return _block_forward(self, x, *args, **kwargs)
+
 
 class MLPProj(nn.Module):
     """`img_emb`: CLIP tokens [B, 257, clip_embed_dim] -> [B, 257, dim]."""
@@ -168,7 +183,8 @@ class Head(nn.Module):
 
 
 def _self_attention(p: WanAttention, x, rope_sin, rope_cos, seq_lens,
-                    cfg: WanModelConfig, policy: DTypePolicy):
+                    cfg: WanModelConfig, policy: DTypePolicy,
+                    attn_impl: str = "auto"):
     b, s, _ = x.shape
     n, d = cfg.num_heads, cfg.head_dim
     cd = policy.compute
@@ -179,12 +195,19 @@ def _self_attention(p: WanAttention, x, rope_sin, rope_cos, seq_lens,
     q = apply_rope(q.reshape(b, s, n, d), rope_sin, rope_cos)
     k = apply_rope(k.reshape(b, s, n, d), rope_sin, rope_cos)
     y = flash_attention(q, k, v.reshape(b, s, n, d), k_lens=seq_lens,
-                        window_size=cfg.window_size, dtype=cd)
+                        window_size=cfg.window_size, dtype=cd,
+                        implementation=attn_impl)
     return _linear(p.o, y.reshape(b, s, n * d).to(cd))
 
 
 def _cross_attention(p: WanAttention, x, context, context_lens,
-                     cfg: WanModelConfig, policy: DTypePolicy):
+                     cfg: WanModelConfig, policy: DTypePolicy,
+                     attn_impl: str = "auto"):
+    """Queries of x (this rank's token shard under sp) against the whole
+    short context: with a sequence-parallel self-attention, "sp_cross"
+    (JAX wan_dit.py:209-214)."""
+    if attn_impl in ("ring", "ulysses"):
+        attn_impl = "sp_cross"
     b, s, _ = x.shape
     n, d = cfg.num_heads, cfg.head_dim
     cd = policy.compute
@@ -200,12 +223,14 @@ def _cross_attention(p: WanAttention, x, context, context_lens,
                          eps=cfg.eps)
         v_img = _linear(p.v_img, ctx_img)
         y_img = flash_attention(q, k_img.reshape(b, ti, n, d),
-                                v_img.reshape(b, ti, n, d), dtype=cd)
+                                v_img.reshape(b, ti, n, d), dtype=cd,
+                                implementation=attn_impl)
     lc = ctx.shape[1]
     k = rms_norm(_linear(p.k, ctx), p.norm_k.weight, eps=cfg.eps)
     v = _linear(p.v, ctx)
     y = flash_attention(q, k.reshape(b, lc, n, d), v.reshape(b, lc, n, d),
-                        k_lens=context_lens, dtype=cd)
+                        k_lens=context_lens, dtype=cd,
+                        implementation=attn_impl)
     if y_img is not None:
         y = y + y_img
     return _linear(p.o, y.reshape(b, s, n * d).to(cd))
@@ -213,7 +238,8 @@ def _cross_attention(p: WanAttention, x, context, context_lens,
 
 def _block_forward(blk: WanAttentionBlock, x, e0, context, context_lens,
                    rope_sin, rope_cos, seq_lens, cfg: WanModelConfig,
-                   policy: DTypePolicy, audio_ctx=None):
+                   policy: DTypePolicy, audio_ctx=None,
+                   attn_impl: str = "auto"):
     """One transformer block (reference model.py:279-330); x in
     policy.residual, e0 [B, 6, dim] fp32. With `audio_ctx` [B, La, dim]
     and an adapter in the block, the gated audio cross-attention follows
@@ -226,7 +252,7 @@ def _block_forward(blk: WanAttentionBlock, x, e0, context, context_lens,
     h = layer_norm(x, eps=cfg.eps, out_dtype=f32)
     h = h * (1.0 + sa_scale) + sa_shift
     y = _self_attention(blk.self_attn, h, rope_sin, rope_cos, seq_lens,
-                        cfg, policy)
+                        cfg, policy, attn_impl)
     x = (x + (y.to(f32) * sa_gate).to(rd)).to(rd)
 
     if cfg.cross_attn_norm:
@@ -235,7 +261,7 @@ def _block_forward(blk: WanAttentionBlock, x, e0, context, context_lens,
     else:
         h = x
     y = _cross_attention(blk.cross_attn, h, context, context_lens, cfg,
-                         policy)
+                         policy, attn_impl)
     x = x + y.to(rd)
 
     ap = getattr(blk, "audio_attn", None)
@@ -245,7 +271,7 @@ def _block_forward(blk: WanAttentionBlock, x, e0, context, context_lens,
         # the t2v branch even on an i2v base: no image tokens in audio
         y = _cross_attention(ap, h, audio_ctx, None,
                              dataclasses.replace(cfg, model_type="t2v"),
-                             policy)
+                             policy, attn_impl)
         x = (x.to(f32) + y.to(f32) * ap.gate.to(f32)).to(rd)
 
     h = layer_norm(x, eps=cfg.eps, out_dtype=f32)
@@ -346,12 +372,14 @@ class WanModel(nn.Module):
              n_tokens: int, context_lens=None, clip_fea=None,
              policy: DTypePolicy = DTypePolicy(), remat=False,
              collect_layers: Optional[Sequence[int]] = None,
-             audio_ctx=None):
+             audio_ctx=None, attn_impl: str = "auto", token_sharding=None):
         """The DiT trunk on built tokens (JAX dit_body): pad to seq_len,
         time / text (and, with clip_fea, image) embeddings, blocks (with
         `audio_ctx` [B, La, dim], the audio adapters), modulated head.
         Returns (out [B, seq_len, prod(patch)*out_dim], taps), taps being
-        {layer: [B, seq_len, dim] in policy.residual} for collect_layers."""
+        {layer: [B, seq_len, dim] in policy.residual} for collect_layers.
+        `token_sharding` (the 1-D sp mesh): the blocks and the head run on
+        this rank's 1/sp of the tokens, and the outputs are gathered."""
         cfg, f32 = self.cfg, torch.float32
         b = tokens.shape[0]
         if n_tokens > seq_len:
@@ -365,6 +393,9 @@ class WanModel(nn.Module):
             rope_cos = F.pad(rope_cos, (0, 0, 0, pad), value=1.0)
         seq_lens = torch.full((b,), n_tokens, dtype=torch.int32,
                               device=x.device)
+        x = shard_tokens(x, token_sharding)
+        rope_sin = shard_tokens(rope_sin, token_sharding, dim=0)
+        rope_cos = shard_tokens(rope_cos, token_sharding, dim=0)
 
         # time path, fp32 (model.py:526-528)
         e = sinusoidal_embedding_1d(cfg.freq_dim, t)
@@ -390,14 +421,16 @@ class WanModel(nn.Module):
 
         x, taps = self._blocks(x, (e0, ctx, context_lens, rope_sin,
                                    rope_cos, seq_lens, cfg, policy,
-                                   audio_ctx),
+                                   audio_ctx, attn_impl),
                                remat, collect_layers)
 
         # head: fp32, two-chunk modulation (model.py:332-359)
         he = self.head.modulation.to(f32) + e[:, None]        # [B, 2, dim]
         h = layer_norm(x, eps=cfg.eps, out_dtype=f32)
         h = h * (1.0 + he[:, 1:2]) + he[:, 0:1]
-        return _linear(self.head.head, h), taps
+        out = gather_tokens(_linear(self.head.head, h), token_sharding)
+        taps = {i: gather_tokens(v, token_sharding) for i, v in taps.items()}
+        return out, taps
 
     def _blocks(self, x, args, remat, collect_layers):
         """The block loop: plain, per-block checkpointed, grouped, or
@@ -412,9 +445,8 @@ class WanModel(nn.Module):
         def block(i, h):
             if ckpt:
                 return torch.utils.checkpoint.checkpoint(
-                    _block_forward, self.blocks[i], h, *args,
-                    use_reentrant=False)
-            return _block_forward(self.blocks[i], h, *args)
+                    self.blocks[i], h, *args, use_reentrant=False)
+            return self.blocks[i](h, *args)
 
         taps: Dict[int, torch.Tensor] = {}
         if grouped:
@@ -440,7 +472,8 @@ class WanModel(nn.Module):
     def forward(self, x, t, context, *, seq_len: int, rope_sin, rope_cos,
                 context_lens=None, clip_fea=None, y=None,
                 policy: DTypePolicy = DTypePolicy(),
-                remat=False, collect_layers: Optional[Sequence[int]] = None):
+                remat=False, collect_layers: Optional[Sequence[int]] = None,
+                attn_impl: str = "auto", token_sharding=None):
         """Velocity v = model(x_t, t, context) (JAX wan_model_forward):
         x [B, out_dim, F, H, W], t [B], context [B, Lc, text_dim]; i2v adds
         clip_fea [B, 257, clip_embed_dim] and y [B, in_dim - out_dim, F, H,
@@ -448,7 +481,8 @@ class WanModel(nn.Module):
         [B, out_dim, F, H, W] fp32, or (v, {layer: [B, seq_len, dim]})
         when `collect_layers` is given. `remat`: False, True (per block) or
         an int group size (grouped two-level; ignored with
-        collect_layers, as in JAX)."""
+        collect_layers, as in JAX). `attn_impl` / `token_sharding`: the
+        sequence-parallel plan (`body`)."""
         if y is not None:           # i2v: mask + reference latent
             x = torch.cat([x, y.to(x.dtype)], dim=1)
         pt, ph, pw = self.cfg.patch_size
@@ -459,7 +493,9 @@ class WanModel(nn.Module):
                               rope_sin=rope_sin, rope_cos=rope_cos,
                               n_tokens=n_tokens, context_lens=context_lens,
                               clip_fea=clip_fea, policy=policy, remat=remat,
-                              collect_layers=collect_layers)
+                              collect_layers=collect_layers,
+                              attn_impl=attn_impl,
+                              token_sharding=token_sharding)
         v = self.unpatchify(out, grid).to(torch.float32)
         return (v, taps) if collect_layers is not None else v
 

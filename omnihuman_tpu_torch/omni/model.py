@@ -86,6 +86,10 @@ class OmniModel(nn.Module):
         self.base = WanModel(cfg.base, audio_adapters=True)
         self.cond = OmniConditions(cfg)
 
+    def forward(self, x, t, context, **kwargs):
+        """`omni_model_forward(self, x, t, context, **kwargs)`."""
+        return _omni_forward(self, x, t, context, **kwargs)
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """The JAX init: the base by the reference rule, each adapter with
@@ -202,12 +206,33 @@ def omni_model_forward(
     context_lens: Optional[torch.Tensor] = None,
     policy: DTypePolicy = DTypePolicy(),
     remat=True,
+    attn_impl: str = "auto",
+    token_sharding=None,
+    seq_align: int = 1,
 ) -> torch.Tensor:
     """Velocity [B, out_dim, F, H, W] fp32 with the omni conditions
     (JAX `omni_model_forward`). `cond_mask`: {"audio" / "pose" /
     "reference": [B] in {0, 1}}. `remat`: False, True (per block, the JAX
     default) or an int group size, as `WanModel.body` takes it; it acts
-    only while autograd records."""
+    only while autograd records. `attn_impl` / `token_sharding`: the
+    sequence-parallel plan of `WanModel.body`; `seq_align`: the sp degree,
+    which the packed length is padded to a multiple of
+    (`padded_seq_len`). The call goes through the model's `__call__`
+    (`OmniModel.forward`), so FSDP2's root hooks gather the parameters
+    outside the blocks."""
+    return model(x, t, context, audio=audio, pose=pose,
+                 ref_latent=ref_latent, motion_latent=motion_latent,
+                 cond_mask=cond_mask, context_lens=context_lens,
+                 policy=policy, remat=remat, attn_impl=attn_impl,
+                 token_sharding=token_sharding, seq_align=seq_align)
+
+
+def _omni_forward(model: OmniModel, x, t, context, *, audio=None, pose=None,
+                  ref_latent=None, motion_latent=None, cond_mask=None,
+                  context_lens=None, policy: DTypePolicy = DTypePolicy(),
+                  remat=True, attn_impl: str = "auto", token_sharding=None,
+                  seq_align: int = 1):
+    """`omni_model_forward`'s computation (`OmniModel.forward`)."""
     cfg = model.cfg
     base_cfg = cfg.base
     base, cond = model.base, model.cond
@@ -273,8 +298,10 @@ def omni_model_forward(
         if m is not None:
             audio_ctx = audio_ctx * m
 
-    out, _ = base.body(tokens, t, context, seq_len=padded_seq_len(n_packed),
+    out, _ = base.body(tokens, t, context,
+                       seq_len=padded_seq_len(n_packed, seq_align),
                        rope_sin=rope_sin, rope_cos=rope_cos,
                        n_tokens=n_packed, context_lens=context_lens,
-                       policy=policy, remat=remat, audio_ctx=audio_ctx)
+                       policy=policy, remat=remat, audio_ctx=audio_ctx,
+                       attn_impl=attn_impl, token_sharding=token_sharding)
     return base.unpatchify(out[:, :n_video], grid).to(torch.float32)

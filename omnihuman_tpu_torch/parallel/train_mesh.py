@@ -3,8 +3,9 @@ omnihuman_tpu/parallel/train_mesh.py, single-GPU part).
 
 The JAX package builds a (data, fsdp, sp) mesh from --fsdp_size/--sp_size.
 The port trains on one GPU: both sizes must be 1, and anything else is
-refused with the slice that brings torch.distributed, FSDP and the ring
-attention (ROADMAP queue A, item 19). --remat_group works as in JAX.
+refused with the slice that brings the ring backward and FSDP2 to the
+trainers (ROADMAP queue A, item 19); serving runs on the mesh already
+(parallel/mesh.py). --remat_group works as in JAX.
 """
 
 from __future__ import annotations
@@ -18,10 +19,12 @@ def add_mesh_args(parser) -> None:
     (reference: --ulysses_size/--ring_size, distilled_trainer.py:370-371)."""
     parser.add_argument(
         "--fsdp_size", type=int, default=1,
-        help="parameter-sharding degree; only 1 (one GPU) is ported")
+        help="parameter-sharding degree (the training CLIs take only 1 so "
+             "far; serving runs it under torchrun)")
     parser.add_argument(
         "--sp_size", type=int, default=1,
-        help="sequence-parallel degree; only 1 (one GPU) is ported")
+        help="sequence-parallel degree (the training CLIs take only 1 so "
+             "far; serving runs it under torchrun)")
     parser.add_argument(
         "--remat_group", type=int, default=0,
         help="grouped two-level remat segment size (0 = per-block "

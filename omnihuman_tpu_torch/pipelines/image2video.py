@@ -26,7 +26,8 @@ from omnihuman_tpu_torch.configs.wan import WanConfig
 from omnihuman_tpu_torch.models.clip import (
     CLIP_CHECKPOINT, CLIPModel, resize_bicubic)
 from omnihuman_tpu_torch.models.vae import vae_decode, vae_encode
-from omnihuman_tpu_torch.pipelines.text2video import WanT2V, _sync, sample
+from omnihuman_tpu_torch.pipelines.text2video import (
+    WanT2V, _sync, request_seed, sample)
 
 
 class WanI2V(WanT2V):
@@ -34,17 +35,19 @@ class WanI2V(WanT2V):
     conditioning; `checkpoint_dir` as WanT2V reads it (the i2v DiT, the
     VAE, umT5) and, where present, its CLIP file (CLIP_CHECKPOINT, the
     visual tower). Without that file CLIP is random from init_seed + 2,
-    as in JAX's WanI2V, which reads no CLIP file at all."""
+    as in JAX's WanI2V, which reads no CLIP file at all. `mesh`: WanT2V's
+    plan; CLIP and the VAE stay whole on every rank."""
 
     def __init__(self, config: WanConfig, init_seed: int = 0,
                  param_dtype: torch.dtype = torch.bfloat16, tokenizer=None,
                  precision: str = "reference", device=None,
-                 checkpoint_dir: Optional[str] = None):
+                 checkpoint_dir: Optional[str] = None, mesh=None):
         if config.clip is None:
             raise ValueError(f"{config.name}: i2v needs a CLIP config")
         super().__init__(config, init_seed=init_seed, param_dtype=param_dtype,
                          tokenizer=tokenizer, precision=precision,
-                         device=device, checkpoint_dir=checkpoint_dir)
+                         device=device, checkpoint_dir=checkpoint_dir,
+                         mesh=mesh)
         clip_path = (os.path.join(checkpoint_dir, CLIP_CHECKPOINT)
                      if checkpoint_dir else None)
         if clip_path is not None and not os.path.exists(clip_path):
@@ -72,7 +75,7 @@ class WanI2V(WanT2V):
         msk[:4] = 1.0
         return msk.reshape(-1, 4, lat_h, lat_w).transpose(0, 1)
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def generate(
         self,
         input_prompt: str,
@@ -95,7 +98,7 @@ class WanI2V(WanT2V):
         in [-1, 1] (reference WanI2V.generate). Stage seconds of the call
         are left in `self.timings`."""
         cfg, dev = self.config, self.device
-        seed = seed if seed >= 0 else int(np.random.randint(0, 2 ** 31))
+        seed = request_seed(seed, self.mesh)
         timings: dict = {}
         context, context_null, context_lens = self.text_context(
             input_prompt, n_prompt, context, context_null, context_lens,
@@ -135,7 +138,7 @@ class WanI2V(WanT2V):
             seq_len=seq_len, shift=shift, solver=sample_solver,
             steps=sampling_steps, guide_scale=guide_scale,
             num_train_timesteps=cfg.num_train_timesteps, cfg_mode=cfg_mode,
-            context_lens=context_lens, y=y, clip_fea=clip_fea)
+            context_lens=context_lens, y=y, clip_fea=clip_fea, mesh=self.mesh)
         _sync(dev)
         timings["denoise_s"] = time.perf_counter() - t0
         timings["steps"] = sampling_steps

@@ -16,10 +16,14 @@ tracks are cut per window, repeating their last frame when they run out;
 the result is trimmed to `total_frames`. Each window's noise is drawn by
 `window_noise` from a torch.Generator seeded by (seed, window).
 
-One GPU: no mesh (sequence parallelism is ROADMAP queue A, item 19). On
-the card every attention of the DiT (packed self-attention, text and
-audio cross-attention) runs the K1 kernel and the VAE encode / decode the
-K3 / K4 kernels.
+With `mesh` (`OmniHuman(mesh=)`, `omni_generate(mesh=)`), the plan of
+`text2video.mesh_plan` (JAX pipelines/omni.py:30-72): the packed
+self-attention as the ring, the text and audio cross-attention as
+sp_cross, the packed tokens sharded over `sp` and padded to a multiple of
+it (`seq_align`), the DiT sharded over `fsdp` by FSDP2; the VAE stays
+whole on every rank. Serving runs under `torch.no_grad`. On
+the card every attention of the DiT runs the K1 kernel and the VAE encode
+/ decode the K3 / K4 kernels.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ from omnihuman_tpu_torch.models.vae import vae_decode, vae_encode
 from omnihuman_tpu_torch.omni.model import (
     OmniModel, OmniModelConfig, build_omni_model, load_base_dit,
     omni_model_forward)
-from omnihuman_tpu_torch.pipelines.text2video import WanT2V, _sync
+from omnihuman_tpu_torch.parallel.mesh import use_mesh
+from omnihuman_tpu_torch.pipelines.text2video import WanT2V, _sync, mesh_plan
 from omnihuman_tpu_torch.samplers.fm_solvers import get_solver
 from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
 
@@ -49,7 +54,7 @@ def window_noise(seed: int, window: int, shape, device) -> torch.Tensor:
                        dtype=torch.float32)
 
 
-@torch.inference_mode()
+@torch.no_grad()
 def omni_generate(
     model: OmniModel,
     noise: torch.Tensor,                  # [B, C, F, H, W] fp32
@@ -67,30 +72,37 @@ def omni_generate(
     motion_latent: Optional[torch.Tensor] = None,
     context_lens: Optional[torch.Tensor] = None,
     null_lens: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Sampled latents [B, C, F, H, W] fp32 from `noise` (JAX
     `omni_generate`), one conditional and one unconditional forward a
-    step."""
+    step; with `mesh`, under its plan (`text2video.mesh_plan`), the
+    packed tokens padded to a multiple of sp."""
+    attn_impl, token_sharding, sp = mesh_plan(mesh)
+    plan = dict(attn_impl=attn_impl, token_sharding=token_sharding,
+                seq_align=sp)
     sol = get_solver(solver, sampling_steps, float(shift))
     b = noise.shape[0]
     x = noise
     state = sol.init_state(noise)
-    for i in range(sampling_steps):
-        # the JAX float32 arithmetic of the annealed scale
-        progress = np.float32(i) / np.float32(sampling_steps)
-        cfg_t = (np.float32(cfg_scale) * (np.float32(1.0) - progress)
-                 + progress)
-        tb = torch.full((b,), float(np.float32(sol.timesteps[i])),
-                        dtype=torch.float32, device=noise.device)
-        v_c = omni_model_forward(
-            model, x, tb, context, audio=audio, pose=pose,
-            ref_latent=ref_latent, motion_latent=motion_latent,
-            context_lens=context_lens, policy=policy, remat=False)
-        v_u = omni_model_forward(model, x, tb, context_null,
-                                 context_lens=null_lens, policy=policy,
-                                 remat=False)
-        v = v_u + float(cfg_t) * (v_c - v_u)
-        x, state = sol.step(state, v, x, i)
+    with use_mesh(mesh):
+        for i in range(sampling_steps):
+            # the JAX float32 arithmetic of the annealed scale
+            progress = np.float32(i) / np.float32(sampling_steps)
+            cfg_t = (np.float32(cfg_scale) * (np.float32(1.0) - progress)
+                     + progress)
+            tb = torch.full((b,), float(np.float32(sol.timesteps[i])),
+                            dtype=torch.float32, device=noise.device)
+            v_c = omni_model_forward(
+                model, x, tb, context, audio=audio, pose=pose,
+                ref_latent=ref_latent, motion_latent=motion_latent,
+                context_lens=context_lens, policy=policy, remat=False,
+                **plan)
+            v_u = omni_model_forward(model, x, tb, context_null,
+                                     context_lens=null_lens, policy=policy,
+                                     remat=False, **plan)
+            v = v_u + float(cfg_t) * (v_c - v_u)
+            x, state = sol.step(state, v, x, i)
     return x
 
 
@@ -109,7 +121,7 @@ def _slice_frames(x: torch.Tensor, dim: int, start: int,
     return sl
 
 
-@torch.inference_mode()
+@torch.no_grad()
 def omni_generate_windowed(
     model: OmniModel,
     seed: int,
@@ -179,14 +191,14 @@ class OmniHuman(WanT2V):
                  param_dtype: torch.dtype = torch.bfloat16, tokenizer=None,
                  precision: str = "fast", device=None,
                  ckpt_dir: Optional[str] = None,
-                 checkpoint: Optional[str] = None):
+                 checkpoint: Optional[str] = None, mesh=None):
         self.omni_config = OmniModelConfig(base=config.model,
                                            num_frames=num_frames)
         self._checkpoint = checkpoint
         super().__init__(config, init_seed=init_seed,
                          param_dtype=param_dtype, tokenizer=tokenizer,
                          precision=precision, device=device,
-                         checkpoint_dir=ckpt_dir)
+                         checkpoint_dir=ckpt_dir, mesh=mesh)
 
     def _build_model(self) -> OmniModel:
         model = build_omni_model(self.omni_config, self.device,
@@ -203,7 +215,7 @@ class OmniHuman(WanT2V):
             model.load_state_dict(params, strict=True)
         return model
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def generate(
         self,
         input_prompt: str,
@@ -254,7 +266,7 @@ class OmniHuman(WanT2V):
             audio=track(audio), pose=track(pose), ref_latent=ref_lat,
             timings=timings, policy=self.policy,
             sampling_steps=sampling_steps, cfg_scale=cfg_scale, shift=1.0,
-            context_lens=lens[:1], null_lens=lens[1:])
+            context_lens=lens[:1], null_lens=lens[1:], mesh=self.mesh)
         _sync(dev)
         timings["denoise_s"] = time.perf_counter() - t0
         timings["steps"] = sampling_steps

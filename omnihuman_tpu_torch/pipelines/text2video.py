@@ -10,6 +10,18 @@ Every attention of the DiT runs on the hand-written Hopper kernel when the
 pipeline lives on a CUDA device. The pipeline runs on the card unless the
 caller asks for the CPU (`device="cpu"`, as the tests do); without a GPU
 the default raises.
+
+With `mesh` (parallel/mesh.py, one process per GPU, every rank calling
+`generate` with the same arguments) the pipeline runs JAX's mesh plan
+(text2video.py:85-107): self-attention as the ring at any sp (sp 1
+included), cross-attention as sp_cross, the tokens sharded over `sp`
+(`WanModel.body`), the DiT and umT5 parameters sharded over `fsdp` by
+FSDP2 (`parallel.shard_params`); umT5 stays on the card between requests;
+the VAE stays whole on every rank and each rank decodes the whole clip.
+The noise comes from the same seeded generator on every rank (a random
+seed is rank 0's). Serving runs under `torch.no_grad`, with or without a
+mesh: FSDP2's gathers refuse inference tensors, and `torch.export`
+(cli/export_step.py) does too.
 """
 
 from __future__ import annotations
@@ -30,6 +42,8 @@ from omnihuman_tpu_torch.models.wan_dit import (
     WanModel, build_wan_model, padded_seq_len)
 from omnihuman_tpu_torch.ops.quant import quantize_wan_model
 from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+from omnihuman_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_SP, use_mesh
+from omnihuman_tpu_torch.parallel.partition import shard_params
 from omnihuman_tpu_torch.samplers.fm_solvers import get_solver
 from omnihuman_tpu_torch.utils.convert import load_wan_checkpoint_dir
 
@@ -66,6 +80,29 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def mesh_plan(mesh):
+    """(attn_impl, token_sharding, sp) of an optional mesh: any mesh runs
+    the ring with the tokens on `mesh["sp"]` (JAX WanT2V), and pads them to
+    a multiple of sp."""
+    if mesh is None:
+        return "auto", None, 1
+    return "ring", mesh[AXIS_SP], int(mesh[AXIS_SP].size())
+
+
+def request_seed(seed: int, mesh=None) -> int:
+    """`seed`, or a random one when it is negative: rank 0's under a mesh,
+    so every rank draws the same noise."""
+    if seed >= 0:
+        return seed
+    seed = int(np.random.randint(0, 2 ** 31))
+    if mesh is not None:
+        import torch.distributed as dist
+        box = [seed]
+        dist.broadcast_object_list(box, src=0)
+        seed = int(box[0])
+    return seed
+
+
 class WanT2V:
     """Wan text-to-video pipeline. Every module keeps the reference
     parameter names. With `checkpoint_dir` (the reference layout, JAX
@@ -73,7 +110,7 @@ class WanT2V:
     files, the VAE from `Wan2.1_VAE.pth` (required) and umT5 from
     `models_t5_umt5-xxl-enc-bf16.pth` where present, each cast to
     `param_dtype`; whatever the directory does not give is random from
-    `init_seed`."""
+    `init_seed`. `mesh`: the multi-GPU plan (module docstring)."""
 
     # a checkpoint directory without Wan2.1_VAE.pth is an error (JAX
     # WanT2V); OmniHuman builds a random VAE instead
@@ -88,9 +125,20 @@ class WanT2V:
         precision: str = "reference",
         device=None,
         checkpoint_dir: Optional[str] = None,
+        mesh=None,
     ):
         self.policy = serving_policy(config, precision)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.attn_impl, _, self.sp_size = mesh_plan(mesh)
+        # JAX's t5_auto_unload: a mesh keeps umT5 on the card
+        self.t5_auto_unload = mesh is None
+        if (precision == "int8" and mesh is not None
+                and mesh[AXIS_FSDP].size() > 1):
+            raise ValueError(
+                "precision 'int8' with fsdp > 1: FSDP2 shards parameters, "
+                "and the int8 weights are Int8Linear buffers, which it "
+                "leaves whole on every rank (ROADMAP queue A, item 19)")
         self.config = config
         self.param_dtype = param_dtype
         self.precision = precision
@@ -107,6 +155,8 @@ class WanT2V:
         self.model = self._build_model()
         if precision == "int8":     # after the weights are final
             quantize_wan_model(self.model)
+        if mesh is not None:
+            shard_params(self.model, mesh)
         self.vae = vae if vae is not None else build_vae(
             config.vae, self.device, param_dtype, seed=init_seed + 1)
         # umT5 is built lazily on first encode and moved to host memory
@@ -145,6 +195,8 @@ class WanT2V:
         first use, brought back from host memory after `unload_t5`."""
         if self._t5 is None:
             self._t5 = self._build_t5()
+            if self.mesh is not None:
+                shard_params(self._t5, self.mesh)
         elif next(self._t5.parameters()).device != self.device:
             self._t5.to(self.device)
         return self._t5
@@ -170,7 +222,7 @@ class WanT2V:
                 clean="whitespace")
         return self.tokenizer
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def encode_text(self, prompts) -> Tuple[torch.Tensor, torch.Tensor]:
         """[prompts] -> (context [B, text_len, t5.dim] fp32, lens [B] int32)."""
         ids, mask = self._get_tokenizer()(prompts, return_mask=True)
@@ -190,10 +242,12 @@ class WanT2V:
                 h // self.vae_stride[1], w // self.vae_stride[2])
 
     def seq_len_for(self, latent_shape) -> int:
-        """Padded token length of a latent (`wan_dit.padded_seq_len`)."""
+        """Padded token length of a latent (`wan_dit.padded_seq_len` at the
+        pipeline's sp degree)."""
         _, f, h, w = latent_shape
         pt, ph, pw = self.patch_size
-        return padded_seq_len((f // pt) * (h // ph) * (w // pw))
+        return padded_seq_len((f // pt) * (h // ph) * (w // pw),
+                              self.sp_size)
 
     # -- generation ---------------------------------------------------------
 
@@ -220,9 +274,10 @@ class WanT2V:
             context_lens = torch.cat([lens_c, lens_n])
             _sync(dev)
             timings["t5_encode_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            self.unload_t5()
-            timings["t5_unload_s"] = time.perf_counter() - t0
+            if self.t5_auto_unload:
+                t0 = time.perf_counter()
+                self.unload_t5()
+                timings["t5_unload_s"] = time.perf_counter() - t0
         if context_lens is not None:
             longest = max(1, int(torch.as_tensor(context_lens).max()))
             bucket = int(math.ceil(longest / 128) * 128)
@@ -231,7 +286,7 @@ class WanT2V:
                 context_null = context_null[:, :bucket]
         return context, context_null, context_lens
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def generate(
         self,
         input_prompt: str,
@@ -260,7 +315,7 @@ class WanT2V:
         takes as long (PERF.md)."""
         cfg = self.config
         dev = self.device
-        seed = seed if seed >= 0 else int(np.random.randint(0, 2 ** 31))
+        seed = request_seed(seed, self.mesh)
         timings = {}
         context, context_null, context_lens = self.text_context(
             input_prompt, n_prompt, context, context_null, context_lens,
@@ -278,7 +333,7 @@ class WanT2V:
             seq_len=seq_len, shift=shift, solver=sample_solver,
             steps=sampling_steps, guide_scale=guide_scale,
             num_train_timesteps=cfg.num_train_timesteps, cfg_mode=cfg_mode,
-            context_lens=context_lens)
+            context_lens=context_lens, mesh=self.mesh)
         _sync(dev)
         timings["denoise_s"] = time.perf_counter() - t0
         timings["steps"] = sampling_steps
@@ -303,16 +358,19 @@ def _t_batch(t, n: int, device) -> torch.Tensor:
 def cfg_model_step(model: WanModel, x, t, ctx2, rope_sin, rope_cos,
                    ctx_lens=None, *, policy: DTypePolicy, seq_len: int,
                    guide_scale: float, cfg_mode: str = "fused", y=None,
-                   clip_fea=None):
+                   clip_fea=None, attn_impl: str = "auto",
+                   token_sharding=None):
     """One classifier-free-guidance model call (JAX _cfg_model_step and
     _i2v_cfg_model_step): 'fused' stacks cond / uncond on the batch,
     'sequential' runs two forwards (half the activation peak). `t` is a
     float or a 0-d tensor. i2v: y [1, C, F, H, W] and clip_fea [1, 257, D]
     condition both halves, or come stacked cond / uncond ([2, ...], JAX
     `_i2v_cfg_model_step`'s y2 and clip2, whose 'sequential' mode gives
-    the cond half to both forwards)."""
+    the cond half to both forwards). `attn_impl` / `token_sharding`: the
+    mesh plan (`mesh_plan`)."""
     fwd = dict(seq_len=seq_len, rope_sin=rope_sin, rope_cos=rope_cos,
-               policy=policy, y=y, clip_fea=clip_fea)
+               policy=policy, y=y, clip_fea=clip_fea, attn_impl=attn_impl,
+               token_sharding=token_sharding)
     b = x.shape[0]
     if cfg_mode == "fused":
         x2 = torch.cat([x, x], dim=0)
@@ -338,14 +396,16 @@ def cfg_model_step(model: WanModel, x, t, ctx2, rope_sin, rope_cos,
     return v_uncond + guide_scale * (v_cond - v_uncond)
 
 
-@torch.inference_mode()
+@torch.no_grad()
 def sample(model: WanModel, noise, context, context_null, *,
            policy: DTypePolicy, seq_len: int, shift: float, solver: str,
            steps: int, guide_scale: float, num_train_timesteps: int = 1000,
            cfg_mode: str = "fused", context_lens=None, y=None,
-           clip_fea=None) -> torch.Tensor:
+           clip_fea=None, mesh=None) -> torch.Tensor:
     """Denoising loop from the caller's noise [1, C, F, H, W] (fp32); with
-    y and clip_fea, the i2v loop (JAX _i2v_sample)."""
+    y and clip_fea, the i2v loop (JAX _i2v_sample). With `mesh`, every
+    model call runs the mesh plan under `use_mesh`."""
+    attn_impl, token_sharding, _ = mesh_plan(mesh)
     cfg: WanModelConfig = model.cfg
     pt, ph, pw = cfg.patch_size
     grid = (noise.shape[2] // pt, noise.shape[3] // ph, noise.shape[4] // pw)
@@ -358,10 +418,14 @@ def sample(model: WanModel, noise, context, context_null, *,
     ts = sol.timesteps
     x = noise
     state = sol.init_state(noise)
-    for i in range(steps):
-        v = cfg_model_step(model, x, float(np.float32(ts[i])), ctx2,
-                           rope_sin, rope_cos, ctx_lens, policy=policy,
-                           seq_len=seq_len, guide_scale=float(guide_scale),
-                           cfg_mode=cfg_mode, y=y, clip_fea=clip_fea)
-        x, state = sol.step(state, v, x, i)
+    with use_mesh(mesh):
+        for i in range(steps):
+            v = cfg_model_step(model, x, float(np.float32(ts[i])), ctx2,
+                               rope_sin, rope_cos, ctx_lens, policy=policy,
+                               seq_len=seq_len,
+                               guide_scale=float(guide_scale),
+                               cfg_mode=cfg_mode, y=y, clip_fea=clip_fea,
+                               attn_impl=attn_impl,
+                               token_sharding=token_sharding)
+            x, state = sol.step(state, v, x, i)
     return x

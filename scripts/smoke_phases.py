@@ -12,7 +12,10 @@ then runs the named phases in order, each with fresh launch counts:
 else on one built for it), 24 (`cli.evaluate`; with phase 23's keypoint
 processor when 23 is named too), 25 (Qwen2.5-3B), 26 (the XLM-R text
 tower), 27 (the exported CFG steps, on phase 5's pipeline built for it),
-28 (`cli.generate --profile --use_prompt_extend`, anomaly_detection). Phases 19-22 run after phase 8
+28 (`cli.generate --profile --use_prompt_extend`, anomaly_detection), 29
+(the sequence-parallel per-rank programs, the one-rank NCCL mesh request
+and the multi-card / gloo checks, on phase 5's pipeline built for it).
+Phases 19-22 run after phase 8
 (the checkpoint directory, teacher data and distill output they read). To compare two commits on one card, unpack the
 other one (`git archive <commit> | tar -x -C DIR`) and run both in one
 call, in turns (parent, change, change, parent). Exits nonzero where a
@@ -33,7 +36,7 @@ def main(argv=None) -> None:
         os.path.abspath(__file__))))
     p.add_argument("phases", nargs="+", type=int,
                    choices=(14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26,
-                            27, 28))
+                            27, 28, 29))
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -66,7 +69,8 @@ def main(argv=None) -> None:
            25: cs.phase_qwen,
            26: cs.phase_xlmr,
            27: lambda: cs.phase_export(every, cs.t2v_pipe()),
-           28: lambda: cs.phase_tools(every)}
+           28: lambda: cs.phase_tools(every),
+           29: lambda: cs.run_sp_phase(every, cs.t2v_pipe(), {})}
     import shutil
     for phase in [p for p in args.phases if p < 19 or p > 22]:
         t0 = time.perf_counter()

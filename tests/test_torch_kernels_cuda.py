@@ -904,3 +904,42 @@ def test_quantize_keeps_audio_adapters_on_card(cuda_device):
         assert blk.self_attn.q.w_q.is_cuda
         for name in ("q", "k", "v", "o"):
             assert type(getattr(blk.audio_attn, name)) is torch.nn.Linear
+
+
+@pytest.mark.cuda
+def test_ring_forward_hop_over_4_virtual_ranks(cuda_device):
+    """The ring's per-rank program (ops/ring_attention.py), replayed for 4
+    virtual ranks on one card: each rank's query quarter through
+    `ring_forward_hop` over every K / V quarter in ring order, K1 with the
+    LSE on each hop and the fp32 merge from the second hop on, equals one
+    K1 call over the whole;
+    the last quarter holds only masked keys for one sample (its hop LSE is
+    the kernel's -1e30 on every row)."""
+    from omnihuman_tpu_torch.ops.ring_attention import ring_forward_hop
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    sp, lq = 4, 320
+
+    def rnd():
+        return torch.randn(2, sp * lq, 3, 128, generator=g,
+                           device=cuda_device).to(torch.bfloat16)
+
+    q, k, v = rnd(), rnd(), rnd()
+    kl = torch.tensor([sp * lq - 5, 2 * lq + 17], dtype=torch.int32,
+                      device=cuda_device)
+    want = flash_attention_cuda(q, k, v, k_lens=kl)
+    outs = []
+    for r in range(sp):
+        qs = q[:, r * lq:(r + 1) * lq].contiguous()
+        o = lse = None
+        for i in range(sp):
+            src = (r + i) % sp
+            chunk = slice(src * lq, (src + 1) * lq)
+            o, lse = ring_forward_hop(
+                qs, k[:, chunk].contiguous(), v[:, chunk].contiguous(),
+                (kl - src * lq).clamp(0, lq), o, lse, (r * lq, src * lq),
+                scale=128 ** -0.5)
+        outs.append(o.to(torch.bfloat16))
+    got = torch.cat(outs, dim=1)
+    assert torch.isfinite(got.float()).all()
+    tol = 2 ** -6 * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol

@@ -382,11 +382,13 @@ def test_cli_pose_video_drives_zero_heatmaps(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv", [
     ("train_omni", ["--sp_size", "2"], "item 19"),
     ("train_omni", ["--fsdp_size", "2"], "item 19"),
-    ("omni_inference", ["--sp_size", "2"], "item 19"),
-    ("omni_inference", ["--fsdp_size", "2"], "item 19")])
+    ("omni_inference", ["--sp_size", "2"], "torchrun --nproc_per_node 2"),
+    ("omni_inference", ["--fsdp_size", "2"], "torchrun --nproc_per_node 2")])
 def test_cli_refuses_paths_not_ported(argv):
-    """Each flag whose path is not ported exits naming its ROADMAP item
-    (--checkpoint and --ckpt_dir work since the omni trainer landed:
+    """The training CLI's mesh flags exit naming ROADMAP item 19; the
+    inference CLI's parse, and one process asked for sizes above 1 exits
+    with the torchrun command that starts enough (--checkpoint and
+    --ckpt_dir work since the omni trainer landed:
     tests/test_torch_omni_data.py)."""
     import importlib
     cli, flags, item = argv
