@@ -264,17 +264,44 @@ Right after phase 27, on phase 5's pipeline:
      with one card that is logged as not run, and two processes probe
      whether gloo carries CUDA tensors for batch_isend_irecv and
      all_to_all_single. The phase logs its wall time.
+ 30. sequence-parallel training (after phase 22). (a) The backward
+     programs at flagship training width on one card (B=1, N=12, D=128,
+     bf16, 32,768 tokens, 32,760 valid), for sp 2 and 4: every virtual
+     rank's ring (the forward hops for the merged out / LSE, then
+     `ring_backward_hop`: one K2 launch a hop with the global LSE and
+     delta, dQ in one fp32 accumulator, dK / dV summed per chunk in fp32)
+     concatenated against one K2 call over the whole (2^-6 of each
+     gradient's peak), rank 0's hops timed against 1/sp of the whole call
+     and the bound; every rank's Ulysses backward (K2 at N/sp heads over
+     all tokens) and sp_cross backward (K2 at Lq/sp against 512 text
+     keys, dK / dV summed over the ranks) held and timed the same way,
+     each beside SDPA's backward at its shape. (b) A one-rank NCCL group
+     and `TrainMeshPlan(create_mesh(MeshConfig(1, 1, 1)))`: two distill
+     steps at t2v-1.3B width and 1,560 tokens and one OmniHuman step at
+     3,584 tokens (1.3B width, fp32 parameters, every condition) against
+     the same steps unsharded (loss and grad norm rtol 1e-3, gradients
+     within 3x the relative L2 between two unsharded runs, which K2's
+     run-dependent dQ sum order sets apart, equal launch counts; counts
+     zeroed before the mesh steps and read after them); an 81-frame distill step on the mesh
+     timed against phase 10's, with its peak memory; the mesh state saved
+     and restored unsharded bit-equal. (c) With two or more cards,
+     `torchrun` runs this script's --train-worker mode at sp 2 (fsdp 2 on
+     four cards) against (b)'s losses (rtol 2e-2); with one card that is
+     logged as not run. The phase logs its wall time.
 
 The line before last is a JSON object {"kernels": [...]}; its
 `launches_by_path` holds each path's launches (phase 19's t2v request,
 20's and 21's first CLI runs, 22's pass, 23's `--pose_video` request,
 27's exported flagship step ("export"), 28's profiled request
-("profile") and 29's one-rank mesh request ("sp_serve") among them); the
-last line is {"ok": true, "device": {...}}.
+("profile"), 29's one-rank mesh request ("sp_serve") and 30's mesh
+training steps ("sp_train") among them); the last line is {"ok": true,
+"device": {...}}.
 
     torchrun --standalone --nproc_per_node N chip_smoke.py --sp-worker OUT
+    torchrun --standalone --nproc_per_node N chip_smoke.py --train-worker OUT
 
-is phase 29 (c)'s worker: one rank of the mesh pipeline at sp N.
+are phase 29 (c)'s worker (one rank of the mesh pipeline at sp N) and
+phase 30 (c)'s (one rank of two mesh distill steps).
 """
 
 from __future__ import annotations
@@ -1258,6 +1285,7 @@ def phase_flagship_distill_step(state, opt):
     step()                                            # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
     t0 = time.perf_counter()
     loss = step()
     sec = time.perf_counter() - t0
@@ -1267,7 +1295,8 @@ def phase_flagship_distill_step(state, opt):
     log(f"[10] distill step at 81 frames (latents [1,16,21,60,104], "
         f"{FLAGSHIP['tokens']} tokens, seq_len {seq_len}, per-block remat, "
         f"batch 1): {sec:.2f} s, loss {loss:.6g}, peak device memory "
-        f"{peak:.1f} GiB")
+        f"{peak:.1f} GiB ({held:.1f} held before the step, "
+        f"{peak - held:.1f} its own)")
 
     profile_split(step, "10")
     return sec
@@ -4085,6 +4114,562 @@ def run_sp_phase(all_kernels, pipe, paths):
         f"under 90 s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 30: sequence-parallel training
+
+
+def _k2_row(tag, fn, rows_q, rows_k, pairs, n, d, lib_shape=None,
+            plain=None):
+    """Time `fn` (CUDA events, median of 7) beside the five-product bound,
+    `plain` (its plain version, one timed run) and, for (B, Lq, Lk,
+    heads) `lib_shape`, SDPA's backward at that unmasked shape (a
+    yardstick the port never calls); log one K2 row. Returns (ms, bound
+    ms)."""
+    import torch
+    import torch.nn.functional as F
+    ms = bench_ms(fn)
+    bound, by = backward_bound(rows_q, rows_k, pairs, n, d)
+    plain_ms = (None if plain is None else
+                round(bench_ms(plain, reps=1, warmup=0), 1))
+    lib_ms = None
+    if lib_shape is not None:
+        b, lq, lk, heads = lib_shape
+        g = torch.Generator(device="cuda").manual_seed(30)
+        qt, kt, vt = (torch.randn((b, heads, l, d), generator=g,
+                                  device="cuda", dtype=torch.bfloat16
+                                  ).requires_grad_(True)
+                      for l in (lq, lk, lk))
+        ot = F.scaled_dot_product_attention(qt, kt, vt)
+        dt = torch.randn_like(ot)
+        lib_ms = round(bench_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dt, retain_graph=True)), 3)
+        del qt, kt, vt, ot, dt
+    log(f"[30] K2 {tag}: {ms:.3f} ms, bound {bound:.3f} ms ({by}, "
+        f"{100 * bound / ms:.1f}%), plain {plain_ms} ms, SDPA backward "
+        f"{lib_ms} ms")
+    return ms, bound
+
+
+def phase_sp_train_programs():
+    """[30a] The sequence-parallel backward programs at flagship training
+    width on one card (B=1, N=12, D=128, bf16, 32,768 tokens, 32,760
+    valid): for every virtual rank of sp 2 and 4, the ring forward
+    (`ring_forward_hop`) for the merged out / LSE, then `ring_backward_hop`
+    over every K / V chunk in ring order (one K2 launch each, delta from
+    the global O, dQ in one fp32 accumulator, dK / dV summed per chunk in
+    fp32), concatenated and held against one K2 call over the whole;
+    rank 0's hops timed against 1/sp of the whole call and the bound;
+    every rank's Ulysses backward (K2 over all tokens at N/sp heads) and
+    sp_cross backward (K2 at Lq/sp against 512 text keys, dK / dV summed
+    over the ranks) held and timed the same way, each beside SDPA's
+    backward at its shape."""
+    import torch
+    from omnihuman_tpu_torch.ops import ring_attention as ra
+    from omnihuman_tpu_torch.ops.flash_attention import (
+        bwd_delta, flash_attention_cuda, flash_bwd_cuda, flash_bwd_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3030)
+    b, n, d = 1, 12, 128
+    L, valid = FLAGSHIP["seq_len"], FLAGSHIP["tokens"]
+
+    def rnd(l, heads=n):
+        return torch.randn((b, l, heads, d), generator=gen, device=dev
+                           ).to(torch.bfloat16)
+
+    q, k, v, do = rnd(L), rnd(L), rnd(L), rnd(L)
+    kl = torch.tensor([valid], dtype=torch.int32, device=dev)
+    out, lse = flash_attention_cuda(q, k, v, k_lens=kl, return_lse=True)
+    whole = flash_bwd_cuda(q, k, v, out, lse, do, k_lens=kl)
+    whole_ms = bench_ms(lambda: flash_bwd_cuda(q, k, v, out, lse, do,
+                                               k_lens=kl))
+    whole_bound = backward_bound(L, L, L * valid, n, d)[0]
+    log(f"[30] whole K2 call (32,768 tokens, k_len 32,760, with its "
+        f"wrapper): {whole_ms:.3f} ms, bound {whole_bound:.3f} ms")
+
+    def check(tag, got, want):
+        errs = []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = (g.float() - w.float()).abs().max().item()
+            tol = 2 ** -6 * w.float().abs().max().item()
+            if not torch.isfinite(g.float()).all() or err > tol:
+                fail(f"[30] {tag} {name}: max abs err {err} > {tol} "
+                     f"(2^-6 of the peak) against the whole K2 call")
+            errs.append(err)
+        return max(errs)
+
+    scale = d ** -0.5
+    for sp in SP_SIZES:
+        lq = L // sp
+        sl = [slice(r * lq, (r + 1) * lq) for r in range(sp)]
+        dqs = []
+        dk = [torch.zeros((b, lq, n, d), dtype=torch.float32, device=dev)
+              for _ in range(sp)]
+        dv = [torch.zeros_like(x) for x in dk]
+        for r in range(sp):
+            qs, dos = q[:, sl[r]].contiguous(), do[:, sl[r]].contiguous()
+            hops = []
+            o = lse_r = None
+            for i in range(sp):
+                src = (r + i) % sp
+                hop = (src, k[:, sl[src]].contiguous(),
+                       v[:, sl[src]].contiguous(),
+                       (kl - src * lq).clamp(0, lq))
+                hops.append(hop)
+                o, lse_r = ra.ring_forward_hop(
+                    qs, hop[1], hop[2], hop[3], o, lse_r, (r * lq, src * lq),
+                    scale=scale)
+            out_r = o.to(torch.bfloat16)
+            delta = bwd_delta(out_r, dos)
+            dq = torch.zeros(qs.shape, dtype=torch.float32, device=dev)
+            for src, kc, vc, klc in hops:
+                dk_i, dv_i = ra.ring_backward_hop(
+                    qs, kc, vc, out_r, dos, lse_r, delta, klc, dq,
+                    (r * lq, src * lq), scale=scale)
+                dk[src] += dk_i.float()
+                dv[src] += dv_i.float()
+            dqs.append(dq.to(torch.bfloat16))
+            if r:
+                continue
+            # rank 0's program: delta once, then per hop K2 and the fp32
+            # accumulation of the travelling dK / dV
+            scratch = torch.zeros_like(dq)
+            delta_ms = bench_ms(lambda: bwd_delta(out_r, dos))
+            rank_ms, bound_sum = delta_ms, 0.0
+            for i, (src, kc, vc, klc) in enumerate(hops):
+                pairs = lq * int(klc.item())
+                k2_ms, bound = _k2_row(
+                    f"ring hop sp {sp} hop {i} (Lq = Lk = {lq}, k_len "
+                    f"{int(klc.item())})",
+                    lambda: ra.ring_backward_hop(
+                        qs, kc, vc, out_r, dos, lse_r, delta, klc, scratch,
+                        (0, src * lq), scale=scale),
+                    lq, lq, pairs, n, d,
+                    lib_shape=(b, lq, lq, n) if i == 0 else None,
+                    plain=(lambda: ra.ring_backward_hop(
+                        qs, kc, vc, out_r, dos, lse_r, delta, klc, scratch,
+                        (0, src * lq), scale=scale, impl="dense"))
+                    if i == 0 else None)
+                acc_ms = bench_ms(lambda: dk[src].add(dk_i.float()))
+                rank_ms += k2_ms + 2 * acc_ms
+                bound_sum += bound
+            log(f"[30] ring backward sp {sp}: rank 0's program "
+                f"{rank_ms:.3f} ms (delta {delta_ms:.3f} ms, K2 and the "
+                f"dK / dV adds) against 1/{sp} of the whole call "
+                f"{whole_ms / sp:.3f} ms (x{rank_ms / (whole_ms / sp):.2f})"
+                f" and its bound {bound_sum:.3f} ms (the whole's / {sp}: "
+                f"{whole_bound / sp:.3f} ms)")
+            del scratch
+        got = (torch.cat(dqs, dim=1), torch.cat(dk, dim=1).to(torch.bfloat16),
+               torch.cat(dv, dim=1).to(torch.bfloat16))
+        err = check(f"ring sp {sp}", got, whole)
+        log(f"[30] ring backward sp {sp}: {sp} ranks x {sp} K2 hops "
+            f"concatenated vs the whole K2 call: max abs err {err:.3g}")
+        del got, dqs, dk, dv
+
+        # Ulysses: each rank's backward is one K2 call over all tokens at
+        # its N/sp heads (the exchanges are their own adjoints; their
+        # buffer layouts are phase 29's)
+        nh = n // sp
+        parts = []
+        for r in range(sp):
+            hs = slice(r * nh, (r + 1) * nh)
+            qh, kh, vh, doh = (x[:, :, hs].contiguous()
+                               for x in (q, k, v, do))
+            o_h, lse_h = flash_attention_cuda(qh, kh, vh, k_lens=kl,
+                                              return_lse=True)
+            parts.append(flash_bwd_cuda(qh, kh, vh, o_h, lse_h, doh,
+                                        k_lens=kl))
+        err = check(f"ulysses sp {sp}", [torch.cat([p_[i] for p_ in parts],
+                                                   dim=2)
+                                         for i in range(3)], whole)
+        u_ms, _ = _k2_row(
+            f"ulysses sp {sp} ({nh} heads, L {L}, k_len {valid})",
+            lambda: flash_bwd_cuda(qh, kh, vh, o_h, lse_h, doh, k_lens=kl),
+            L, L, L * valid, nh, d, lib_shape=(b, L, L, nh),
+            plain=lambda: flash_bwd_plain(qh, kh, vh, o_h, lse_h, doh,
+                                          k_lens=kl))
+        log(f"[30] ulysses backward sp {sp}: {sp} ranks' K2 calls vs the "
+            f"whole: max abs err {err:.3g}; {u_ms:.3f} ms against 1/{sp} of "
+            f"the whole call {whole_ms / sp:.3f} ms")
+        del parts, qh, kh, vh, doh, o_h, lse_h
+
+        # sp_cross: each rank's queries against all 512 text keys
+        lc = 512
+        kt, vt = rnd(lc), rnd(lc)
+        o_c, lse_c = flash_attention_cuda(q, kt, vt, return_lse=True)
+        whole_c = flash_bwd_cuda(q, kt, vt, o_c, lse_c, do)
+        dq_c = []
+        dk_c = torch.zeros(kt.shape, dtype=torch.float32, device=dev)
+        dv_c = torch.zeros_like(dk_c)
+        for r in range(sp):
+            qs, dos = q[:, sl[r]].contiguous(), do[:, sl[r]].contiguous()
+            o_s, lse_s = flash_attention_cuda(qs, kt, vt, return_lse=True)
+            g = flash_bwd_cuda(qs, kt, vt, o_s, lse_s, dos)
+            dq_c.append(g[0])
+            dk_c += g[1].float()
+            dv_c += g[2].float()
+        err = check(f"sp_cross sp {sp}", (torch.cat(dq_c, dim=1),
+                                          dk_c.to(torch.bfloat16),
+                                          dv_c.to(torch.bfloat16)), whole_c)
+        c_ms, _ = _k2_row(
+            f"sp_cross sp {sp} (Lq {lq}, Lc {lc})",
+            lambda: flash_bwd_cuda(qs, kt, vt, o_s, lse_s, dos),
+            lq, lc, lq * lc, n, d, lib_shape=(b, lq, lc, n),
+            plain=lambda: flash_bwd_plain(qs, kt, vt, o_s, lse_s, dos))
+        log(f"[30] sp_cross backward sp {sp}: dQ rows and the ranks' summed "
+            f"dK / dV vs the whole: max abs err {err:.3g}; {c_ms:.3f} ms a "
+            f"rank")
+        del kt, vt, o_c, lse_c, whole_c, dq_c, dk_c, dv_c, g
+    del q, k, v, do, out, lse, whole
+    torch.cuda.empty_cache()
+
+
+class _GradRecorder:
+    """An optimizer for the phase's comparisons: keeps the whole gradients
+    it is given (bf16 or fp32 copies on the card) and their `global_norm`,
+    then runs `inner` (or nothing)."""
+
+    def __init__(self, inner=None):
+        self.inner, self.grads, self.norm = inner, None, None
+
+    def init(self, params):
+        return self.inner.init(params) if self.inner else {}
+
+    def step(self, params, grads, state):
+        from omnihuman_tpu_torch.apt.optim import global_norm
+        from omnihuman_tpu_torch.parallel.partition import full
+        self.grads = [full(g).detach().clone() for g in grads.values()]
+        self.norm = float(global_norm(grads.values()))
+        if self.inner:
+            self.inner.step(params, grads, state)
+
+
+def _rel_l2_list(a, b) -> float:
+    num = sum(float((x.float() - y.float()).square().sum())
+              for x, y in zip(a, b))
+    den = sum(float(y.float().square().sum()) for y in b)
+    return (num / den) ** 0.5
+
+
+def _distill_setup(plan):
+    """t2v-1.3B student (bf16, seed 0, random head) with a recording AdamW
+    state, sharded on `plan` (a TrainMeshPlan)."""
+    import torch
+    from omnihuman_tpu_torch.apt.distill import (
+        init_distill_state, make_optimizer)
+    from omnihuman_tpu_torch.configs import T2V_1_3B
+    from omnihuman_tpu_torch.models.wan_dit import build_wan_model
+    model = build_wan_model(T2V_1_3B.model, "cuda", torch.bfloat16, seed=0,
+                            trainable=True)
+    _random_head(model)
+    plan.shard_tree(model)
+    rec = _GradRecorder(make_optimizer())
+    return init_distill_state(model, rec), rec
+
+
+def _distill_batches(frames_lat=1):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(3031 + frames_lat)
+    lat = (1, 16, frames_lat, 60, 104)
+    return [{"noise": torch.randn(lat, generator=gen, device="cuda"),
+             "context": torch.randn((1, 512, 4096), generator=gen,
+                                    device="cuda"),
+             "v_teacher": torch.randn(lat, generator=gen, device="cuda")}
+            for _ in range(2)]
+
+
+def _omni_setup(plan):
+    """OmniHuman at t2v-1.3B width (fp32 parameters, seed 0, random head),
+    a gradient-capturing optimizer, sharded on `plan`; and one batch of
+    3,584 packed tokens (13 latent frames of 32x32 plus the reference, 49
+    audio rows, 308 heatmaps at 64x64) with its draws."""
+    import torch
+    from omnihuman_tpu_torch.configs import T2V_1_3B
+    from omnihuman_tpu_torch.omni.model import (
+        OmniModelConfig, build_omni_model)
+    from omnihuman_tpu_torch.omni.trainer import init_omni_train_state
+    ocfg = OmniModelConfig(base=T2V_1_3B.model, audio_dim=1024,
+                           num_keypoints=308, num_frames=13)
+    model = build_omni_model(ocfg, "cuda", torch.float32, seed=0,
+                             trainable=True)
+    _random_head(model.base)
+    plan.shard_tree(model)
+    rec = _GradRecorder()
+    gen = torch.Generator(device="cuda").manual_seed(3032)
+    lat = (1, 16, 13, 32, 32)
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    batch = {"frames": rn(*lat), "context": rn(1, 512, 4096),
+             "audio": rn(1, 49, 1024),
+             "pose": (rn(1, 308, 13, 64, 64) * 0.1).to(torch.bfloat16),
+             "reference": rn(1, 16, 1, 32, 32)}
+    masks = {k: torch.ones(1, device="cuda")
+             for k in ("audio", "pose", "reference")}
+    draws = (masks, torch.full((1,), 0.4, device="cuda"), rn(*lat))
+    return init_omni_train_state(model, rec), rec, batch, draws
+
+
+def phase_sp_train_mesh(all_kernels, flagship_s=None):
+    """[30b] The training steps on a one-rank NCCL mesh, MeshConfig(1, 1,
+    1) built explicitly (the ring and sp_cross at sp 1, FSDP2 over one
+    rank, the root resharded after each forward): two distill steps at
+    t2v-1.3B width and 1,560 tokens and one OmniHuman step at 3,584
+    tokens, each held against the same step unsharded (loss, every
+    gradient within 3x the spread of two unsharded runs, launch counts:
+    K2 adds dQ in a run-dependent order); launch counts zeroed just
+    before the mesh steps and read just after them. Then a distill step
+    at 81 frames on
+    the mesh, timed against phase 10's unsharded step, with its peak
+    memory; the mesh state saved (rank 0 gathers and writes) and restored
+    into an unsharded state, bit-equal. Returns (the counts, the mesh
+    distill steps' losses)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.fsdp import FSDPModule
+    from omnihuman_tpu_torch.apt.distill import (
+        distill_train_step, init_distill_state, make_optimizer)
+    from omnihuman_tpu_torch.apt.generate import latent_rope
+    from omnihuman_tpu_torch.configs import T2V_1_3B
+    from omnihuman_tpu_torch.models.wan_dit import build_wan_model
+    from omnihuman_tpu_torch.omni.trainer import omni_train_step
+    from omnihuman_tpu_torch.parallel import MeshConfig, create_mesh
+    from omnihuman_tpu_torch.parallel.partition import full
+    from omnihuman_tpu_torch.parallel.train_mesh import (
+        NO_MESH, TrainMeshPlan)
+    from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
+
+    cfg = T2V_1_3B
+    batches = _distill_batches()
+    geo = latent_rope(cfg.model, batches[0]["noise"].shape, "cuda")
+
+    def distill_steps(plan, want=None):
+        state, rec = _distill_setup(plan)
+        runs = []
+        for i, batch in enumerate(batches):
+            before = _count(all_kernels)
+            held = _reset_peak()
+            _, m = distill_train_step(state, batch, optimizer=rec,
+                                      policy=cfg.policy, plan=plan, **geo)
+            runs.append(_step_record(m, rec, before, held))
+            if want is not None:
+                _hold(f"distill step {i + 1} (1,560 tokens)", runs[-1],
+                      want[i])
+        return state, runs
+
+    def omni_step(plan, want=None):
+        state, rec, batch, (masks, t, noise) = _omni_setup(plan)
+        before = _count(all_kernels)
+        held = _reset_peak()
+        _, m = omni_train_step(state, batch, masks, t, noise, optimizer=rec,
+                               policy=cfg.policy, plan=plan)
+        run = _step_record(m, rec, before, held)
+        if want is not None:
+            _hold("omni step (3,584 tokens)", run, want)
+        del state, rec, batch
+        return run
+
+    def spread(runs, again):
+        """Two unsharded runs differ too (K2 adds dQ in a run-dependent
+        order): the relative L2 between them, kept on the first run."""
+        for w, a in zip(runs, again):
+            w["spread"] = _rel_l2_list(a["grads"], w["grads"])
+
+    def _reset_peak():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def _step_record(m, rec, before, held):
+        """The step's metrics, gradients, launches and its own peak: the
+        device memory it allocated above what was held before it (the
+        phase keeps other runs' gradients meanwhile)."""
+        now = _count(all_kernels)
+        return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                    grads=rec.grads,
+                    peak=(torch.cuda.max_memory_allocated() - held) / 2 ** 30,
+                    counts={k: v - before[k] for k, v in now.items()})
+
+    def _hold(what, g, w):
+        rel = _rel_l2_list(g.pop("grads"), w.pop("grads"))
+        tol = max(1e-4, 3 * w["spread"])
+        log(f"[30] {what}, one-rank mesh vs unsharded: loss "
+            f"{g['loss']:.6g} vs {w['loss']:.6g}, grad norm "
+            f"{g['grad_norm']:.6g} vs {w['grad_norm']:.6g}, gradients "
+            f"relative L2 {rel:.3g} (two unsharded runs: {w['spread']:.3g};"
+            f" tol {tol:.3g}, 3x that), launches {g['counts']} vs "
+            f"{w['counts']}, the step's own peak (above what was held "
+            f"before it) {g['peak']:.2f} vs {w['peak']:.2f} GiB")
+        if (abs(g["loss"] - w["loss"]) > 1e-3 * abs(w["loss"])
+                or abs(g["grad_norm"] - w["grad_norm"])
+                > 1e-3 * w["grad_norm"] or not rel <= tol):
+            fail(f"[30] the mesh {what} differs from the unsharded one")
+        if g["counts"] != w["counts"] or not all(
+                g["counts"][kn.name] for kn in all_kernels[:3]):
+            fail(f"[30] the mesh {what} launched other kernels")
+
+    # the unsharded steps first, twice, so the mesh's counts are read
+    # alone and its gradients held to the unsharded runs' own spread
+    state, want = distill_steps(NO_MESH)
+    del state
+    state, again = distill_steps(NO_MESH)
+    spread(want, again)
+    del state, again          # the second run's gradients: 5.2 GB
+    want_omni = omni_step(NO_MESH)
+    spread([want_omni], [omni_step(NO_MESH)])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        plan = TrainMeshPlan(create_mesh(MeshConfig(1, 1, 1)),
+                             torch.device("cuda", 0))
+        _zero(all_kernels)
+        mstate, got = distill_steps(plan, want)
+        if not isinstance(mstate.model, FSDPModule):
+            fail("[30] the mesh student is not sharded by FSDP2")
+        omni_step(plan, want_omni)
+        counts = _count(all_kernels)
+        losses = [g["loss"] for g in got]
+        del got, want, want_omni
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 81 frames on the mesh, as phase 10 times it unsharded
+        big = _distill_batches(21)[0]
+        bgeo = latent_rope(cfg.model, big["noise"].shape, "cuda",
+                           sp=plan.sp)
+        opt = make_optimizer()
+
+        def step():
+            _, m = distill_train_step(mstate, big, optimizer=opt,
+                                      policy=cfg.policy, plan=plan, **bgeo)
+            return float(m["loss"])
+
+        step()
+        held = _reset_peak()
+        t0 = time.perf_counter()
+        loss = step()
+        sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        own = peak - held / 2 ** 30
+        if loss != loss:
+            fail("[30] 81-frame mesh distill step loss is NaN")
+        versus = ("phase 10 not run" if flagship_s is None else
+                  f"against phase 10's unsharded {flagship_s:.2f} s "
+                  f"(x{sec / flagship_s:.3f})")
+        log(f"[30] distill step at 81 frames on the one-rank mesh "
+            f"({FLAGSHIP['tokens']} tokens, seq_len {bgeo['seq_len']}): "
+            f"{sec:.2f} s {versus}, peak device memory {peak:.1f} GiB "
+            f"({held / 2 ** 30:.1f} held before the step, {own:.1f} its "
+            f"own)")
+        del big, bgeo
+
+        # the mesh state through a checkpoint into an unsharded state
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(os.path.join(WORK, "sp_ckpt"))
+        mgr.save(mstate.step, mstate)
+        save_s = time.perf_counter() - t0
+        model = build_wan_model(cfg.model, "cuda", torch.bfloat16, seed=None,
+                                trainable=True)
+        fresh = mgr.restore(target=init_distill_state(model,
+                                                      make_optimizer()))
+
+        def whole(tree):
+            if isinstance(tree, dict):
+                return {k: whole(v) for k, v in tree.items()}
+            return full(tree.detach()) if torch.is_tensor(tree) else tree
+
+        n_bytes = same_tree(fresh.state_dict(), whole(mstate.state_dict()),
+                            "mesh state")
+        log(f"[30] mesh checkpoint ({n_bytes / 2 ** 30:.2f} GiB) saved in "
+            f"{save_s:.1f} s and restored unsharded bit-equal in "
+            f"{time.perf_counter() - t0 - save_s:.1f} s")
+        del mstate, fresh, model, opt
+        return counts, losses
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(os.path.join(WORK, "sp_ckpt"), ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_sp_train_multi(want_losses):
+    """[30c] With two or more cards: `torchrun` runs this script's
+    --train-worker mode, two distill steps at 1,560 tokens from phase
+    30b's weights and batches at sp 2 (and fsdp 2 with four cards), whose
+    losses are held to the one-rank mesh's (rtol 2e-2). With one card
+    that is logged as not run."""
+    import torch
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"[30] (c) not run: {count} card; NCCL holds one rank a GPU")
+        return
+    n = 4 if count >= 4 else 2
+    out = os.path.join(WORK, "sp_train.json")
+    os.makedirs(WORK, exist_ok=True)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={n}", os.path.abspath(__file__),
+         "--train-worker", out], cwd=HERE, capture_output=True, text=True,
+        timeout=600)
+    if r.returncode != 0:
+        fail(f"[30] torchrun train worker failed:\n{r.stderr[-3000:]}")
+    got = json.load(open(out))
+    log(f"[30] (c) {got['plan']} on {n} cards: losses {got['losses']} vs "
+        f"the one-rank mesh's {want_losses}; "
+        f"{time.perf_counter() - t0:.1f} s with start-up")
+    for a, b in zip(got["losses"], want_losses):
+        if abs(a - b) > 2e-2 * abs(b):
+            fail("[30] the multi-card steps' losses differ")
+
+
+def train_worker(out: str) -> None:
+    """--train-worker OUT, one rank under torchrun: two distill steps at
+    1,560 tokens on a (data -1, fsdp 2 with 4+ ranks else 1, sp 2) mesh
+    from phase 30b's weights and batches; rank 0 writes the losses."""
+    import torch.distributed as dist
+    from omnihuman_tpu_torch.apt.distill import distill_train_step
+    from omnihuman_tpu_torch.apt.generate import latent_rope
+    from omnihuman_tpu_torch.configs import T2V_1_3B
+    from omnihuman_tpu_torch.parallel.train_mesh import TrainMeshPlan
+    world = int(os.environ["WORLD_SIZE"])
+    plan = TrainMeshPlan.from_sizes(2 if world >= 4 else 1, 2)
+    state, rec = _distill_setup(plan)
+    batches = _distill_batches()
+    geo = latent_rope(T2V_1_3B.model, batches[0]["noise"].shape, "cuda",
+                      sp=plan.sp)
+    losses = []
+    for batch in batches:
+        _, m = distill_train_step(state, plan.put_batch(batch),
+                                  optimizer=rec, policy=T2V_1_3B.policy,
+                                  plan=plan, **geo)
+        losses.append(float(m["loss"]))
+    if dist.get_rank() == 0:
+        with open(out, "w") as f:
+            json.dump({"plan": plan.describe(), "losses": losses}, f)
+    dist.destroy_process_group()
+
+
+def run_sp_train_phase(all_kernels, paths, flagship_s=None):
+    """Phase 30 (a, b, c), timed; `flagship_s` is phase 10's step."""
+    import torch
+    t0 = time.perf_counter()
+    try:
+        phase_sp_train_programs()
+        paths["sp_train"], losses = phase_sp_train_mesh(all_kernels,
+                                                        flagship_s)
+        phase_sp_train_multi(losses)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[30] phase wall time {time.perf_counter() - t0:.1f} s (planned "
+        f"under 120 s)")
+
+
 def run_slice_12_phases(all_kernels, paths):
     """Phases 25, 26 and 28, each timed (27 runs after phase 6, on phase
     5's pipeline)."""
@@ -4106,13 +4691,13 @@ def run_slice_12_phases(all_kernels, paths):
 def run_training_phases(flash_kernels, all_kernels, paths):
     """Phases 8-11 (the attention kernels K1 / K2 only), then 19-22 on
     phase 8's files (all five kernels); their models and states are
-    dropped on return."""
+    dropped on return. Returns phase 10's step seconds."""
     import torch
     try:
         counts, npz = phase_training_main_path(flash_kernels)
         paths.update(counts)
         state, opt = phase_distill_vs_plain(npz, flash_kernels)
-        phase_flagship_distill_step(state, opt)
+        flagship_s = phase_flagship_distill_step(state, opt)
         phase_apt_steps(state, npz, flash_kernels)
         del state, opt
         gc.collect()
@@ -4120,6 +4705,7 @@ def run_training_phases(flash_kernels, all_kernels, paths):
         run_slice_10_phases(npz, all_kernels, paths)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    return flagship_s
 
 
 def run_slice_10_phases(npz, all_kernels, paths, phases=(19, 20, 21, 22)):
@@ -4150,6 +4736,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--sp-worker"]:       # one rank under torchrun
         sys.path.insert(0, HERE)
         return sp_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--train-worker"]:    # one rank under torchrun
+        sys.path.insert(0, HERE)
+        return train_worker(sys.argv[2])
     if not os.path.isdir(os.path.join(HERE, "omnihuman_tpu_torch")):
         fail("omnihuman_tpu_torch/ is not beside chip_smoke.py: run this "
              "from the root of a checkout of the repository")
@@ -4186,9 +4775,10 @@ def main() -> None:
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    run_training_phases(flash_kernels, all_kernels, paths)
+    flagship_s = run_training_phases(flash_kernels, all_kernels, paths)
     gc.collect()
     torch.cuda.empty_cache()
+    run_sp_train_phase(all_kernels, paths, flagship_s)
     paths.update(phase_vae_full((VAE_CONV, VAE_UPSAMPLE)))
     paths["i2v"] = phase_i2v(all_kernels, kernels)
     paths["one_step"] = phase_one_step(all_kernels, kernels)

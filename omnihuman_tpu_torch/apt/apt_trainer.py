@@ -18,7 +18,13 @@ The random draws (the discriminator's timestep, the R1 noise) come from a
 torch.Generator in `apt_d_step` / `apt_g_step`; `d_step_with_draws` /
 `g_step_with_draws` take them as tensors, so a caller can give the port
 the draws of another implementation. The states are updated in place and
-returned.
+returned. With a training mesh (`plan`, parallel/train_mesh.py) both steps
+run the ring on this rank's token shard and take their gradients through
+`plan.grads`; the G step freezes the discriminator's probes and head
+while it runs, so its backward gives them no gradient (the D step's cut
+already runs the backbone under no_grad, and the generator there too).
+The discriminator's probes and head are not sharded: whole on every rank,
+their gradients are averaged by one all-reduce.
 """
 
 from __future__ import annotations
@@ -29,14 +35,16 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from omnihuman_tpu_torch.apt.distill import (
-    copy_params, to_device, trainable_params)
+from omnihuman_tpu_torch.apt.distill import copy_params, trainable_params
 from omnihuman_tpu_torch.apt.model import (
     APTDiscriminator, apt_discriminator_forward, apt_generator_forward,
     ema_update, timestep_shift)
 from omnihuman_tpu_torch.apt.optim import Masked, MultiSteps, Optimizer, RMSprop
 from omnihuman_tpu_torch.configs.wan import DTypePolicy
 from omnihuman_tpu_torch.models.wan_dit import WanModel
+from omnihuman_tpu_torch.parallel.partition import local, place_like
+from omnihuman_tpu_torch.parallel.train_mesh import (
+    NO_MESH, TrainMeshPlan, frozen)
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -88,10 +96,9 @@ class APTState:
                     "generator parameters")
         copy_params(d_trainable_params(self.disc), sd["d_params"],
                     "discriminator parameters")
-        dev = next(self.g_model.parameters()).device
-        self.g_opt = to_device(sd["g_opt"], dev)
-        self.d_opt = to_device(sd["d_opt"], dev)
-        self.ema_params = to_device(sd["ema_params"], dev)
+        self.g_opt = place_like(sd["g_opt"], self.g_opt)
+        self.d_opt = place_like(sd["d_opt"], self.d_opt)
+        self.ema_params = place_like(sd["ema_params"], self.ema_params)
         self.step = int(sd["step"])
 
 
@@ -148,10 +155,12 @@ def _softplus_gan_losses(real_logits, fake_logits) -> torch.Tensor:
 def d_step_with_draws(state: APTState, batch: Tensors, t_norm, r1_noise, *,
                       apt_cfg: SeaweedAPTConfig, video: bool, seq_len: int,
                       rope_sin, rope_cos, d_optimizer: Optimizer,
-                      policy: DTypePolicy = DTypePolicy()
+                      policy: DTypePolicy = DTypePolicy(),
+                      plan: TrainMeshPlan = NO_MESH
                       ) -> Tuple[APTState, Dict]:
     """Discriminator update (apt_trainer.py:113-137) with the timestep
-    draw t_norm [B] in [0, 1) and the R1 noise (real's shape) given.
+    draw t_norm [B] in [0, 1) and the R1 noise (real's shape) given; on a
+    mesh, this data rank's slice of each (`plan.put_batch`).
 
     batch: {"real": [B,C,F,H,W] latents, "context": [B,L,text_dim],
             "noise": [B,C,F,H,W]}"""
@@ -159,56 +168,60 @@ def d_step_with_draws(state: APTState, batch: Tensors, t_norm, r1_noise, *,
     sigma = apt_cfg.r1_sigma_video if video else apt_cfg.r1_sigma_image
     t_shifted = timestep_shift(t_norm, s) * apt_cfg.num_train_timesteps
     fwd = dict(seq_len=seq_len, rope_sin=rope_sin, rope_cos=rope_cos,
-               policy=policy)
-    with torch.no_grad():
-        fake = apt_generator_forward(
-            state.g_model, batch["noise"], batch["context"],
-            final_timestep=apt_cfg.num_train_timesteps, **fwd)
-
-    def disc(x):
-        return apt_discriminator_forward(state.disc, x, t_shifted,
-                                         batch["context"], **fwd)
-
-    real_logits = disc(batch["real"])
-    d_loss = _softplus_gan_losses(real_logits, disc(fake))
-    r1 = torch.mean(torch.square(      # approximated R1, D(x) reused
-        real_logits - disc(batch["real"] + sigma * r1_noise)))
-    total = d_loss + apt_cfg.lambda_r1 * r1
+               policy=policy, attn_impl=plan.attn_impl,
+               token_sharding=plan.token_sharding)
     params = d_trainable_params(state.disc)
-    grads = dict(zip(params, torch.autograd.grad(total,
-                                                 list(params.values()))))
+    with plan.mesh_context():
+        with torch.no_grad():
+            fake = apt_generator_forward(
+                state.g_model, batch["noise"], batch["context"],
+                final_timestep=apt_cfg.num_train_timesteps, **fwd)
+
+        def disc(x):
+            return apt_discriminator_forward(state.disc, x, t_shifted,
+                                             batch["context"], **fwd)
+
+        real_logits = disc(batch["real"])
+        d_loss = _softplus_gan_losses(real_logits, disc(fake))
+        r1 = torch.mean(torch.square(      # approximated R1, D(x) reused
+            real_logits - disc(batch["real"] + sigma * r1_noise)))
+        total = d_loss + apt_cfg.lambda_r1 * r1
+        grads = plan.grads(total, params)
     d_optimizer.step(params, grads, state.d_opt)
-    return state, {"d_loss": d_loss.detach(), "r1_loss": r1.detach(),
-                   "d_total": total.detach()}
+    return state, {k: plan.mean_over_data(v.detach()) for k, v in (
+        ("d_loss", d_loss), ("r1_loss", r1), ("d_total", total))}
 
 
 def g_step_with_draws(state: APTState, batch: Tensors, t_norm, *,
                       apt_cfg: SeaweedAPTConfig, video: bool, seq_len: int,
                       rope_sin, rope_cos, g_optimizer: Optimizer,
-                      policy: DTypePolicy = DTypePolicy(), remat=True
+                      policy: DTypePolicy = DTypePolicy(), remat=True,
+                      plan: TrainMeshPlan = NO_MESH
                       ) -> Tuple[APTState, Dict]:
     """Generator update (apt_trainer.py:139-157) with the timestep draw
     given. The gradient flows through the discriminator's frozen backbone
-    into the generated sample (stop_features=False). remat: True = per
-    block, int g = grouped two-level."""
+    into the generated sample (stop_features=False); the probes and the
+    head are frozen meanwhile. remat: True = per block, int g = grouped
+    two-level."""
     s = apt_cfg.shift_video if video else apt_cfg.shift_image
     t_shifted = timestep_shift(t_norm, s) * apt_cfg.num_train_timesteps
     fwd = dict(seq_len=seq_len, rope_sin=rope_sin, rope_cos=rope_cos,
-               policy=policy, remat=remat)
+               policy=policy, remat=remat, attn_impl=plan.attn_impl,
+               token_sharding=plan.token_sharding)
     params = trainable_params(state.g_model)
-    fake = apt_generator_forward(
-        state.g_model, batch["noise"], batch["context"],
-        final_timestep=apt_cfg.num_train_timesteps, **fwd)
-    fake_logits = apt_discriminator_forward(
-        state.disc, fake, t_shifted, batch["context"], stop_features=False,
-        **fwd)
-    g_loss = torch.mean(F.softplus(-fake_logits))
-    grads = dict(zip(params, torch.autograd.grad(g_loss,
-                                                 list(params.values()))))
+    with plan.mesh_context(), frozen(state.disc):
+        fake = apt_generator_forward(
+            state.g_model, batch["noise"], batch["context"],
+            final_timestep=apt_cfg.num_train_timesteps, **fwd)
+        fake_logits = apt_discriminator_forward(
+            state.disc, fake, t_shifted, batch["context"],
+            stop_features=False, **fwd)
+        g_loss = torch.mean(F.softplus(-fake_logits))
+        grads = plan.grads(g_loss, params)
     g_optimizer.step(params, grads, state.g_opt)
     ema_update(state.ema_params, params, apt_cfg.ema_decay)
     state.step += 1
-    return state, {"g_loss": g_loss.detach()}
+    return state, {"g_loss": plan.mean_over_data(g_loss.detach())}
 
 
 def _uniform(b: int, generator: Optional[torch.Generator], device):
@@ -216,23 +229,32 @@ def _uniform(b: int, generator: Optional[torch.Generator], device):
 
 
 def apt_d_step(state: APTState, batch: Tensors,
-               generator: Optional[torch.Generator] = None, **kw
+               generator: Optional[torch.Generator] = None,
+               plan: TrainMeshPlan = NO_MESH, **kw
                ) -> Tuple[APTState, Dict]:
     """`d_step_with_draws` with t_norm ~ U[0, 1) and the R1 noise ~ N(0, 1)
-    drawn from the (CPU) `generator`."""
+    drawn from the (CPU) `generator` for the global `batch`; on a mesh,
+    the batch and the draws are then cut to this data rank's slice, so the
+    ranks of a data group train on the same samples and draws."""
     real = batch["real"]
     t_norm = _uniform(real.shape[0], generator, real.device)
     noise = torch.randn(real.shape, generator=generator).to(real.device)
-    return d_step_with_draws(state, batch, t_norm, noise, **kw)
+    mine = plan.put_batch(dict(batch, t_norm=t_norm, r1_noise=noise))
+    t_norm, noise = mine.pop("t_norm"), mine.pop("r1_noise")
+    return d_step_with_draws(state, mine, t_norm, noise, plan=plan, **kw)
 
 
 def apt_g_step(state: APTState, batch: Tensors,
-               generator: Optional[torch.Generator] = None, **kw
+               generator: Optional[torch.Generator] = None,
+               plan: TrainMeshPlan = NO_MESH, **kw
                ) -> Tuple[APTState, Dict]:
-    """`g_step_with_draws` with t_norm ~ U[0, 1) drawn from `generator`."""
+    """`g_step_with_draws` with t_norm ~ U[0, 1) drawn from `generator` for
+    the global `batch`, both then cut to this data rank's slice."""
     noise = batch["noise"]
-    return g_step_with_draws(
-        state, batch, _uniform(noise.shape[0], generator, noise.device), **kw)
+    mine = plan.put_batch(dict(batch, t_norm=_uniform(
+        noise.shape[0], generator, noise.device)))
+    t_norm = mine.pop("t_norm")
+    return g_step_with_draws(state, mine, t_norm, plan=plan, **kw)
 
 
 @torch.no_grad()
@@ -243,6 +265,6 @@ def start_video_phase(state: APTState, fresh_disc: APTDiscriminator,
     fresh discriminator and fresh optimizers at the video learning rates
     (apt_trainer.py:202-232)."""
     for n, p in trainable_params(state.g_model).items():
-        p.copy_(state.ema_params[n])
+        local(p).copy_(local(state.ema_params[n]))
     return init_apt_state(state.g_model, fresh_disc, apt_cfg.g_lr_video,
                           apt_cfg.d_lr_video, accumulation_steps)

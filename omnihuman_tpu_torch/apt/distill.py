@@ -12,7 +12,10 @@ bf16 parameters at lr 5e-6 most updates are below half a bf16 ulp, so
 most weights do not move: ROADMAP C records it as a fault of the
 reference, and the port copies it). Every attention of the forward and
 its recompute goes through the flash kernel with the LSE, and the backward
-through the flash backward kernels, when the model lives on a GPU.
+through the flash backward kernels, when the model lives on a GPU. With a
+training mesh (`plan`, parallel/train_mesh.py) the step runs the ring on
+this rank's token shard, takes its gradients the way FSDP2 supports and
+averages them over the mesh; the logged loss is the global batch's.
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ from omnihuman_tpu_torch.apt.model import ema_update
 from omnihuman_tpu_torch.apt.optim import AdamW, MultiSteps, Optimizer, global_norm
 from omnihuman_tpu_torch.configs.wan import DTypePolicy
 from omnihuman_tpu_torch.models.wan_dit import WanModel
+from omnihuman_tpu_torch.parallel.partition import (
+    copy_whole_into, place_like)
+from omnihuman_tpu_torch.parallel.train_mesh import NO_MESH, TrainMeshPlan
 
 Tensors = Dict[str, torch.Tensor]
 T_MAX = 1000.0     # the student's one timestep
@@ -53,31 +59,23 @@ class DistillState:
                 "step": self.step}
 
     def load_state_dict(self, sd: Dict) -> None:
-        params = trainable_params(self.model)
-        copy_params(params, sd["params"], "parameters")
-        dev = next(iter(params.values())).device
-        self.opt_state = to_device(sd["opt_state"], dev)
-        self.ema_params = to_device(sd["ema_params"], dev)
+        """Load a checkpoint's whole tensors; on a mesh each rank keeps its
+        shards (`place_like`)."""
+        copy_params(trainable_params(self.model), sd["params"], "parameters")
+        self.opt_state = place_like(sd["opt_state"], self.opt_state)
+        self.ema_params = place_like(sd["ema_params"], self.ema_params)
         self.step = int(sd["step"])
 
 
 @torch.no_grad()
 def copy_params(params: Tensors, saved: Tensors, what: str) -> None:
     """Copy a checkpoint's tensors into the live parameters of the same
-    names (cast to their dtype and device)."""
+    names (cast to their dtype and device; a sharded parameter takes its
+    own slice)."""
     if set(saved) != set(params):
         raise ValueError(f"checkpoint {what} do not match the model")
     for n, p in params.items():
-        p.copy_(saved[n])
-
-
-def to_device(tree, device):
-    """A checkpoint's state tree (dicts of tensors and values) on `device`."""
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    return tree
+        copy_whole_into(p, saved[n])
 
 
 def make_optimizer(lr: float = 5e-6,
@@ -102,8 +100,10 @@ def init_distill_state(model: WanModel, optimizer: Optimizer) -> DistillState:
 
 def distill_loss(model: WanModel, batch: Tensors, *, seq_len: int,
                  rope_sin, rope_cos, policy: DTypePolicy,
-                 remat=True) -> torch.Tensor:
+                 remat=True, attn_impl: str = "auto",
+                 token_sharding=None) -> torch.Tensor:
     """MSE(v_student(noise, t=T), v_teacher) (distilled_trainer.py:241-316).
+    attn_impl / token_sharding: the mesh plan's (`TrainMeshPlan`).
 
     batch: {"noise": [B,C,F,H,W], "context": [B,text_len,text_dim],
             "v_teacher": [B,C,F,H,W]}"""
@@ -111,24 +111,32 @@ def distill_loss(model: WanModel, batch: Tensors, *, seq_len: int,
     t = torch.full((noise.shape[0],), T_MAX, dtype=torch.float32,
                    device=noise.device)
     v = model(noise, t, batch["context"], seq_len=seq_len, rope_sin=rope_sin,
-              rope_cos=rope_cos, policy=policy, remat=remat)
+              rope_cos=rope_cos, policy=policy, remat=remat,
+              attn_impl=attn_impl, token_sharding=token_sharding)
     return torch.mean(torch.square(v - batch["v_teacher"].float()))
 
 
 def distill_train_step(state: DistillState, batch: Tensors, *,
                        optimizer: Optimizer, seq_len: int, rope_sin,
                        rope_cos, policy: DTypePolicy = DTypePolicy(),
-                       ema_decay: float = 0.995, remat=True) -> Tuple[DistillState, Dict]:
+                       ema_decay: float = 0.995, remat=True,
+                       plan: TrainMeshPlan = NO_MESH
+                       ) -> Tuple[DistillState, Dict]:
     """One optimization step; the state is updated in place and returned.
     Metrics are 0-dim tensors on the model's device: {"loss",
-    "grad_norm"} (the norm of the raw gradients, before clipping)."""
+    "grad_norm"} (the norm of the raw gradients, before clipping). On a
+    `plan` with a mesh, `batch` is this data rank's slice
+    (`plan.put_batch`)."""
     params = trainable_params(state.model)
-    loss = distill_loss(state.model, batch, seq_len=seq_len,
-                        rope_sin=rope_sin, rope_cos=rope_cos, policy=policy,
-                        remat=remat)
-    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    with plan.mesh_context():
+        loss = distill_loss(state.model, batch, seq_len=seq_len,
+                            rope_sin=rope_sin, rope_cos=rope_cos,
+                            policy=policy, remat=remat,
+                            attn_impl=plan.attn_impl,
+                            token_sharding=plan.token_sharding)
+        grads = plan.grads(loss, params)
     optimizer.step(params, grads, state.opt_state)
     ema_update(state.ema_params, params, ema_decay)
     state.step += 1
-    return state, {"loss": loss.detach(),
+    return state, {"loss": plan.mean_over_data(loss.detach()),
                    "grad_norm": global_norm(grads.values())}

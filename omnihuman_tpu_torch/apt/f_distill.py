@@ -17,7 +17,13 @@ The order of one step is JAX's: D is updated first on detached features,
 then the density ratio and the student's GAN term read the updated D. The
 teacher's cond and uncond forwards run as one batch-2 forward
 (`apt/generate.py:teacher_cfg_velocity`), where JAX runs two. The student
-and the discriminator are updated in place.
+and the discriminator are updated in place. With a training mesh (`plan`,
+parallel/train_mesh.py) the teacher's CFG runs under no_grad on the
+mesh's serving path, the student's forward on this rank's token shard,
+both updates take their gradients through `plan.grads` (the student's
+with the discriminator frozen), and the density-ratio weights are
+normalised by their mean over the global batch. The MLP discriminator is
+not sharded.
 """
 
 from __future__ import annotations
@@ -29,12 +35,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from omnihuman_tpu_torch.apt.distill import (
-    copy_params, to_device, trainable_params)
+from omnihuman_tpu_torch.apt.distill import copy_params, trainable_params
 from omnihuman_tpu_torch.apt.generate import teacher_cfg_velocity
 from omnihuman_tpu_torch.apt.optim import AdamW, Optimizer
 from omnihuman_tpu_torch.configs.wan import DTypePolicy
 from omnihuman_tpu_torch.models.wan_dit import WanModel
+from omnihuman_tpu_torch.parallel.partition import place_like
+from omnihuman_tpu_torch.parallel.train_mesh import (
+    NO_MESH, TrainMeshPlan, frozen)
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -130,9 +138,8 @@ class FDistillState:
                     "student parameters")
         copy_params(dict(self.disc.named_parameters()), sd["d_params"],
                     "discriminator parameters")
-        dev = next(self.student.parameters()).device
-        self.opt_state = to_device(sd["opt_state"], dev)
-        self.d_opt_state = to_device(sd["d_opt_state"], dev)
+        self.opt_state = place_like(sd["opt_state"], self.opt_state)
+        self.d_opt_state = place_like(sd["d_opt_state"], self.d_opt_state)
         self.step = int(sd["step"])
 
 
@@ -163,60 +170,64 @@ def f_distill_train_step(
     t_max: float = 1000.0,
     feature_fn: Callable = default_feature_fn,
     remat=True,
+    plan: TrainMeshPlan = NO_MESH,
 ) -> Tuple[FDistillState, Dict]:
     """One f-distill step (f_distilled_trainer.py:175-300); the state is
     updated in place and returned with 0-dim metric tensors {"loss",
     "f_div_loss", "g_loss", "d_loss", "density_ratio_mean",
     "weight_mean"}. remat: the student's graded forward (True = per
-    block, an int = grouped)."""
+    block, an int = grouped). On a `plan` with a mesh, `batch` is this
+    data rank's slice and the metrics are the global batch's."""
     h_fn = get_f_divergence_fn(f_divergence)
     noise, ctx = batch["noise"], batch["context"]
     b = noise.shape[0]
     t = torch.full((b,), t_max, dtype=torch.float32, device=noise.device)
     fwd = dict(seq_len=seq_len, rope_sin=rope_sin, rope_cos=rope_cos,
-               policy=policy)
-
-    # the frozen teacher's CFG velocity (":186-204")
-    v_teacher = teacher_cfg_velocity(
-        teacher, noise, ctx, batch["context_null"], t_value=t_max,
-        cfg_scale=cfg_scale, **fwd)
-
-    # the discriminator update on detached features (":236-259")
+               policy=policy, attn_impl=plan.attn_impl,
+               token_sharding=plan.token_sharding)
+    mean = plan.mean_over_data
     disc = state.disc
-    if use_discriminator:
-        with torch.no_grad():
-            sf = feature_fn(state.student(noise, t, ctx, **fwd))
-        tf = feature_fn(v_teacher)
-        d_params = dict(disc.named_parameters())
-        d_loss = (torch.mean(F.softplus(-disc(tf)))
-                  + torch.mean(F.softplus(disc(sf))))
-        d_grads = dict(zip(d_params, torch.autograd.grad(
-            d_loss, list(d_params.values()))))
-        d_optimizer.step(d_params, d_grads, state.d_opt_state)
-        d_loss = d_loss.detach()
-        with torch.no_grad():    # r = exp(D(sf)) through the updated D
-            ratio = torch.clamp(torch.exp(disc(sf)), 0.01, 100.0)
-    else:
-        d_loss = torch.zeros((), device=noise.device)
-        ratio = torch.ones((b, 1), device=noise.device)
+    with plan.mesh_context():
+        # the frozen teacher's CFG velocity (":186-204")
+        v_teacher = teacher_cfg_velocity(
+            teacher, noise, ctx, batch["context_null"], t_value=t_max,
+            cfg_scale=cfg_scale, **fwd)
 
-    weights = h_fn(ratio)
-    weights = weights / (torch.mean(weights) + 1e-8)
-    w_exp = weights.reshape(b, 1, 1, 1, 1)
+        # the discriminator update on detached features (":236-259")
+        if use_discriminator:
+            with torch.no_grad():
+                sf = feature_fn(state.student(noise, t, ctx, **fwd))
+            tf = feature_fn(v_teacher)
+            d_params = dict(disc.named_parameters())
+            d_loss = (torch.mean(F.softplus(-disc(tf)))
+                      + torch.mean(F.softplus(disc(sf))))
+            d_grads = plan.grads(d_loss, d_params)
+            d_optimizer.step(d_params, d_grads, state.d_opt_state)
+            d_loss = mean(d_loss.detach())
+            with torch.no_grad():    # r = exp(D(sf)) through the updated D
+                ratio = torch.clamp(torch.exp(disc(sf)), 0.01, 100.0)
+        else:
+            d_loss = torch.zeros((), device=noise.device)
+            ratio = torch.ones((b, 1), device=noise.device)
 
-    # the student update (":267-281")
-    params = trainable_params(state.student)
-    v_student = state.student(noise, t, ctx, remat=remat, **fwd)
-    f_div = torch.mean(torch.square(w_exp * (v_teacher - v_student)))
-    gan = torch.zeros((), device=noise.device)
-    if use_discriminator:
-        gan = torch.mean(F.softplus(-disc(feature_fn(v_student))))
-    loss = beta * f_div + alpha * gan
-    grads = dict(zip(params, torch.autograd.grad(loss,
-                                                 list(params.values()))))
+        weights = h_fn(ratio)
+        weights = weights / (mean(torch.mean(weights)) + 1e-8)
+        w_exp = weights.reshape(b, 1, 1, 1, 1)
+
+        # the student update (":267-281")
+        params = trainable_params(state.student)
+        with frozen(disc):
+            v_student = state.student(noise, t, ctx, remat=remat, **fwd)
+            f_div = torch.mean(torch.square(w_exp * (v_teacher - v_student)))
+            gan = torch.zeros((), device=noise.device)
+            if use_discriminator:
+                gan = torch.mean(F.softplus(-disc(feature_fn(v_student))))
+            loss = beta * f_div + alpha * gan
+            grads = plan.grads(loss, params)
     optimizer.step(params, grads, state.opt_state)
     state.step += 1
-    return state, {"loss": loss.detach(), "f_div_loss": f_div.detach(),
-                   "g_loss": gan.detach(), "d_loss": d_loss,
-                   "density_ratio_mean": torch.mean(ratio),
-                   "weight_mean": torch.mean(weights)}
+    return state, {"loss": mean(loss.detach()),
+                   "f_div_loss": mean(f_div.detach()),
+                   "g_loss": mean(gan.detach()), "d_loss": d_loss,
+                   "density_ratio_mean": mean(torch.mean(ratio)),
+                   "weight_mean": mean(torch.mean(weights))}

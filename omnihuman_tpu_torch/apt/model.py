@@ -28,6 +28,7 @@ from torch import nn
 from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanModelConfig
 from omnihuman_tpu_torch.models.wan_dit import WanModel, _linear
 from omnihuman_tpu_torch.ops.norms import layer_norm
+from omnihuman_tpu_torch.parallel.partition import local
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -51,13 +52,16 @@ def timestep_shift(t: torch.Tensor, s: float) -> torch.Tensor:
 
 def apt_generator_forward(model: WanModel, z, context, *, seq_len: int,
                           rope_sin, rope_cos, final_timestep: float = 1000.0,
-                          policy: DTypePolicy = DTypePolicy(), remat=False
+                          policy: DTypePolicy = DTypePolicy(), remat=False,
+                          attn_impl: str = "auto", token_sharding=None
                           ) -> torch.Tensor:
-    """One-step generation: x = z - v(z, T_final) (model.py:199-221)."""
+    """One-step generation: x = z - v(z, T_final) (model.py:199-221).
+    attn_impl / token_sharding: the mesh plan's (`WanModel.body`)."""
     t = torch.full((z.shape[0],), final_timestep, dtype=torch.float32,
                    device=z.device)
     v = model(z, t, context, seq_len=seq_len, rope_sin=rope_sin,
-              rope_cos=rope_cos, policy=policy, remat=remat)
+              rope_cos=rope_cos, policy=policy, remat=remat,
+              attn_impl=attn_impl, token_sharding=token_sharding)
     return z - v
 
 
@@ -157,7 +161,8 @@ def _probe_forward(p: Probe, x: torch.Tensor, num_heads: int) -> torch.Tensor:
 def apt_discriminator_forward(disc: APTDiscriminator, x, t, context, *,
                               seq_len: int, rope_sin, rope_cos,
                               policy: DTypePolicy = DTypePolicy(),
-                              stop_features: bool = True, remat=False):
+                              stop_features: bool = True, remat=False,
+                              attn_impl: str = "auto", token_sharding=None):
     """Scalar real/fake logit [B, 1] (model.py:123-186) at the (already
     shifted) raw timestep t [B].
 
@@ -165,10 +170,13 @@ def apt_discriminator_forward(disc: APTDiscriminator, x, t, context, *,
     no_grad) - right for the D update, where only the probes and head
     train. The G update passes False, so the generator's adversarial
     gradient flows through the frozen backbone into its input (the
-    reference's no_grad there zeroes it); pass remat=True with it."""
+    reference's no_grad there zeroes it); pass remat=True with it.
+    attn_impl / token_sharding: the mesh plan's; the taps come back
+    gathered, so the probes and the head see every token on every rank."""
     taps = disc.taps
     fwd = dict(seq_len=seq_len, rope_sin=rope_sin, rope_cos=rope_cos,
-               policy=policy, remat=remat, collect_layers=taps)
+               policy=policy, remat=remat, collect_layers=taps,
+               attn_impl=attn_impl, token_sharding=token_sharding)
     if stop_features:
         with torch.no_grad():
             _, feats = disc.backbone(x, t, context, **fwd)
@@ -193,7 +201,9 @@ def approximated_r1_loss(disc_fn, real_samples, noise,
 @torch.no_grad()
 def ema_update(ema: Tensors, params: Tensors, decay: float = 0.995) -> None:
     """ema <- ema * decay + p * (1 - decay) in place: computed in fp32 and
-    rounded once to the EMA's dtype, as the fused JAX update rounds."""
+    rounded once to the EMA's dtype, as the fused JAX update rounds. On a
+    mesh each rank updates its own shard of a sharded parameter."""
     for n, e in ema.items():
-        e.copy_(e.float() * decay + params[n].to(e.dtype).float()
+        e = local(e)
+        e.copy_(e.float() * decay + local(params[n]).to(e.dtype).float()
                 * (1.0 - decay))

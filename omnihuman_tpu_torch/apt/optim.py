@@ -20,6 +20,12 @@ port keeps their arithmetic and their dtypes rather than torch.optim's:
 An optimizer works on dicts {name: tensor}: `init(params)` returns its
 state (tensors and Python ints, so `torch.save` stores it), and
 `step(params, grads, state)` updates the parameters and the state in place.
+
+On a training mesh (parallel/train_mesh.py) the parameters FSDP2 shards,
+their gradients and the states made from them are DTensors: the
+elementwise updates run on each rank's local shard, and `global_norm`
+(and so the clip) sums the shards' squares over their mesh and counts
+every whole parameter once.
 """
 
 from __future__ import annotations
@@ -28,14 +34,31 @@ from typing import Callable, Dict, Iterable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from omnihuman_tpu_torch.parallel.partition import local as _local
 
 Tensors = Dict[str, torch.Tensor]
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over all tensors, in fp32 (a 0-dim tensor)."""
+    """sqrt(sum of squares) over all tensors, in fp32 (a 0-dim tensor). A
+    DTensor adds the squares of every rank's shard (one all-reduce per
+    mesh); a plain tensor, whole on every rank, counts once."""
+    whole, shards = [], {}
+    for t in tensors:
+        if isinstance(t, DTensor):
+            shards.setdefault(t.device_mesh, []).append(t.to_local())
+        else:
+            whole.append(t)
     norms = [torch.linalg.vector_norm(t, dtype=torch.float32)
-             for t in tensors]
+             for t in whole]
+    for mesh, parts in shards.items():
+        sq = torch.stack([torch.linalg.vector_norm(
+            t, dtype=torch.float32) for t in parts]).square().sum()
+        dist.all_reduce(sq, group=mesh.get_group())
+        norms.append(sq.sqrt())
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -87,8 +110,9 @@ class AdamW(Optimizer):
         bc1 = _bias_correction(self.b1, count)
         bc2 = _bias_correction(self.b2, count)
         for n, p in params.items():
-            g = grads[n].float() * scale
-            mu, nu = state["mu"][n], state["nu"][n]
+            p = _local(p)
+            g = _local(grads[n]).float() * scale
+            mu, nu = _local(state["mu"][n]), _local(state["nu"][n])
             mu_f = self.b1 * mu.float() + (1 - self.b1) * g
             nu_f = self.b2 * nu.float() + (1 - self.b2) * g.square()
             mu.copy_(mu_f)
@@ -111,7 +135,8 @@ class RMSprop(Optimizer):
     @torch.no_grad()
     def step(self, params: Tensors, grads: Tensors, state: Dict) -> None:
         for n, p in params.items():
-            g, nu = grads[n].float(), state["nu"][n]
+            p = _local(p)
+            g, nu = _local(grads[n]).float(), _local(state["nu"][n])
             nu_f = self.decay * nu.float() + (1 - self.decay) * g.square()
             nu.copy_(nu_f)
             p.copy_(p.float() - self.lr * (torch.rsqrt(nu_f + self.eps) * g))
@@ -138,8 +163,8 @@ class MultiSteps(Optimizer):
         n_acc = state["mini_step"]
         acc = state["acc_grads"]
         for n, g in grads.items():
-            a = acc[n].float()
-            acc[n].copy_(a + (g.float() - a) / (n_acc + 1))
+            a = _local(acc[n])
+            a.copy_(a.float() + (_local(g).float() - a.float()) / (n_acc + 1))
         if n_acc + 1 < self.every_k:
             state["mini_step"] = n_acc + 1
             return

@@ -118,14 +118,14 @@ def main(argv=None):
     multi = args.sp_size > 1 or args.fsdp_size > 1
     if multi and args.one_step:
         sys.exit("--one_step on a mesh needs the W-sharded VAE decode "
-                 "(ROADMAP queue A, item 19); run it on one device")
+                 "(ROADMAP queue A, item 19, part 3); run it on one device")
     if multi and args.export_step:
         sys.exit("--export_step exports the single-device step; drop "
                  "--sp_size / --fsdp_size")
     if args.precision == "int8" and args.fsdp_size > 1:
         sys.exit("--precision int8 with --fsdp_size > 1: FSDP2 does not "
                  "shard the int8 weights (buffers) yet (ROADMAP queue A, "
-                 "item 19)")
+                 "item 19, part 3)")
     import torch.distributed as dist
     owned = not dist.is_initialized()
     try:

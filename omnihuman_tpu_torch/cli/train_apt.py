@@ -6,7 +6,11 @@ apt_trainer.py __main__, :379-489; JAX cli/train_apt.py). A YAML
         --checkpoint_dir Wan2.1-T2V-1.3B/ --consistency_path distill_out/ \\
         --data_path dummy_data_480x832.npz --output_dir apt_out/
 
-Runs on one GPU unless `--device cpu` is given. The Wan DiT of
+Runs on one GPU unless `--device cpu` is given; --fsdp_size / --sp_size
+above 1 train on a (data, fsdp, sp) mesh under torchrun, as
+`cli.train_distill` does (the generator and the frozen backbone sharded by
+FSDP2; every rank draws the global batch and keeps its data slice). The
+Wan DiT of
 `--checkpoint_dir` (`*.safetensors`; random from init seed 0 without it,
 bf16) is the discriminator's frozen backbone; the generator starts from
 the EMA of the distill checkpoint in `--consistency_path`, or from a copy
@@ -99,15 +103,12 @@ def main(argv=None):
     from omnihuman_tpu_torch.configs import WAN_CONFIGS
     from omnihuman_tpu_torch.models.wan_dit import build_wan_model
     from omnihuman_tpu_torch.parallel.train_mesh import (
-        check_single_device, resolve_remat)
-    from omnihuman_tpu_torch.pipelines.text2video import resolve_device
+        TrainMeshPlan, resolve_remat)
     from omnihuman_tpu_torch.utils.checkpoint import (
         CheckpointManager, restore_ema_into)
     from omnihuman_tpu_torch.utils.convert import load_wan_dit_checkpoint
     from omnihuman_tpu_torch.utils.logging import MetricsLogger, logger
 
-    check_single_device(args.fsdp_size, args.sp_size)
-    device = resolve_device(args.device)
     cfg = WAN_CONFIGS[args.task]
     apt_cfg = tr.SeaweedAPTConfig(**{k: v for k, v in (
         ("image_updates", args.image_updates),
@@ -119,6 +120,12 @@ def main(argv=None):
     bsz = args.batch_size or 1
     accum = max(1, args.grad_accumulation)
     remat = resolve_remat(args.remat_group, cfg.model.num_layers)
+    plan = TrainMeshPlan.from_sizes(
+        args.fsdp_size, args.sp_size, args.device,
+        module="omnihuman_tpu_torch.cli.train_apt")
+    plan.check_batch(bsz)
+    logger.info(f"training plan: {plan.describe()}")
+    device = plan.device
 
     # the frozen backbone of every discriminator (the teacher)
     backbone = build_wan_model(cfg.model, device, torch.bfloat16, seed=0)
@@ -131,6 +138,8 @@ def main(argv=None):
                     f"({args.consistency_path})")
     else:
         logger.info("no --consistency_path: generator <- teacher copy")
+    plan.shard_tree(backbone)
+    plan.shard_tree(g_model)
 
     def fresh_disc(seed_offset: int):
         return init_apt_discriminator(backbone, torch.Generator(
@@ -157,8 +166,9 @@ def main(argv=None):
         video = phase == "video"
         g_lr = apt_cfg.g_lr_video if video else apt_cfg.g_lr_image
         d_lr = apt_cfg.d_lr_video if video else apt_cfg.d_lr_image
-        kw = dict(apt_cfg=apt_cfg, video=video, policy=cfg.policy,
-                  **latent_rope(cfg.model, data["noise"].shape, device))
+        kw = dict(apt_cfg=apt_cfg, video=video, policy=cfg.policy, plan=plan,
+                  **latent_rope(cfg.model, data["noise"].shape, device,
+                                sp=plan.sp))
         g_opt = tr.make_rmsprop(g_lr, accum)
         d_opt = tr.make_d_optimizer(d_lr, state.disc, accum)
         n = data["noise"].shape[0]

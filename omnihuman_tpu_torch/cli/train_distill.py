@@ -6,9 +6,16 @@ flags left unset.
         --data_path data/dummy_data_480x832.npz --output_dir ckpt/ \\
         --num_epochs 10 --batch_size 1
 
-Runs on one GPU unless `--device cpu` is given; --fsdp_size / --sp_size
-other than 1 are refused (multi-GPU training is a later slice). The
-student starts from `--checkpoint_dir` (reference `*.safetensors`) or from
+Runs on one GPU unless `--device cpu` is given. --fsdp_size / --sp_size
+above 1 train on a (data, fsdp, sp) mesh, one process per GPU under
+torchrun (parallel/train_mesh.py), e.g.
+
+    torchrun --standalone --nproc_per_node 4 \\
+        -m omnihuman_tpu_torch.cli.train_distill --fsdp_size 2 --sp_size 2 ...
+
+(gloo processes with `--device cpu`); the batch must divide by the data
+degree, rank 0 prints and writes the checkpoints. The student starts
+from `--checkpoint_dir` (reference `*.safetensors`) or from
 random weights made from a fixed init seed (0), in bf16 like the JAX
 trainer. A checkpoint is saved every `--save_interval` steps and at the
 end of every epoch. `main` returns (state, history): the final
@@ -20,6 +27,8 @@ from __future__ import annotations
 
 import argparse
 import time
+
+MODULE = "omnihuman_tpu_torch.cli.train_distill"
 
 
 def main(argv=None):
@@ -57,24 +66,30 @@ def main(argv=None):
         create_dataloader, latent_rope, load_teacher_data)
     from omnihuman_tpu_torch.configs import WAN_CONFIGS
     from omnihuman_tpu_torch.models.wan_dit import build_wan_model
+    from omnihuman_tpu_torch.parallel.mesh import is_writer
     from omnihuman_tpu_torch.parallel.train_mesh import (
-        check_single_device, resolve_remat)
-    from omnihuman_tpu_torch.pipelines.text2video import resolve_device
+        TrainMeshPlan, resolve_remat)
     from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
     from omnihuman_tpu_torch.utils.convert import load_wan_dit_checkpoint
 
-    check_single_device(args.fsdp_size, args.sp_size)
-    device = resolve_device(args.device)
     cfg = WAN_CONFIGS[args.task]
     remat = resolve_remat(args.remat_group, cfg.model.num_layers)
+    plan = TrainMeshPlan.from_sizes(args.fsdp_size, args.sp_size,
+                                    args.device, module=MODULE)
+    plan.check_batch(bsz)
+    device = plan.device
+    say = print if is_writer() else (lambda *a, **k: None)
+    say(f"training plan: {plan.describe()}", flush=True)
     model = build_wan_model(cfg.model, device, torch.bfloat16, seed=0,
                             trainable=True)
     if args.checkpoint_dir:
         load_wan_dit_checkpoint(model, args.checkpoint_dir)
+    plan.shard_tree(model)
     data = load_teacher_data(args.data_path)
     dl = create_dataloader(data, batch_size=bsz, device=device)
 
-    geometry = latent_rope(cfg.model, data["noise"].shape, device)
+    geometry = latent_rope(cfg.model, data["noise"].shape, device,
+                           sp=plan.sp)
 
     opt = make_optimizer(lr=lr)
     state = init_distill_state(model, opt)
@@ -83,8 +98,8 @@ def main(argv=None):
     def save(metadata=None):
         t0 = time.perf_counter()
         ckpt.save(step, state, metadata=metadata)
-        print(f"checkpoint of step {step} saved in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        say(f"checkpoint of step {step} saved in "
+            f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     history = []
     step = 0
@@ -92,21 +107,22 @@ def main(argv=None):
         for batch in dl():
             t0 = time.perf_counter()
             state, m = distill_train_step(
-                state, batch, optimizer=opt, policy=cfg.policy,
-                ema_decay=ema_decay, remat=remat, **geometry)
+                state, plan.put_batch(batch), optimizer=opt,
+                policy=cfg.policy, ema_decay=ema_decay, remat=remat,
+                plan=plan, **geometry)
             loss, g_norm = float(m["loss"]), float(m["grad_norm"])
             step += 1
             history.append(dict(step=step, epoch=epoch, loss=loss,
                                 grad_norm=g_norm,
                                 seconds=time.perf_counter() - t0))
             if step % 5 == 0:
-                print(f"epoch {epoch} step {step} loss {loss:.5f} "
+                say(f"epoch {epoch} step {step} loss {loss:.5f} "
                       f"grad_norm {g_norm:.4g}", flush=True)
             if step % save_interval == 0:
                 save()
         save(metadata={"epoch": epoch})
     ckpt.wait()
-    print(f"done: {step} steps", flush=True)
+    say(f"done: {step} steps", flush=True)
     return state, history
 
 

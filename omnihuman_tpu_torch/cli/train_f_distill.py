@@ -6,7 +6,10 @@ A YAML `--config` fills the flags left unset.
         --checkpoint_dir Wan2.1-T2V-1.3B/ --data_path dummy_data_480x832.npz \\
         --output_dir ckpt/ --num_epochs 10 --f_divergence jensen-shannon
 
-Runs on one GPU unless `--device cpu` is given. The teacher (frozen) and
+Runs on one GPU unless `--device cpu` is given; --fsdp_size / --sp_size
+above 1 train on a (data, fsdp, sp) mesh under torchrun, as
+`cli.train_distill` does (the teacher and the student sharded by FSDP2,
+the teacher's CFG on the mesh's serving path). The teacher (frozen) and
 the student (its copy) start from `--checkpoint_dir`'s `*.safetensors` or
 from random weights made from a fixed init seed (0), in bf16 like the JAX
 trainer; both stay resident, and each step computes the teacher's CFG
@@ -80,20 +83,25 @@ def main(argv=None):
     from omnihuman_tpu_torch.configs import WAN_CONFIGS
     from omnihuman_tpu_torch.models.wan_dit import build_wan_model
     from omnihuman_tpu_torch.parallel.train_mesh import (
-        check_single_device, resolve_remat)
-    from omnihuman_tpu_torch.pipelines.text2video import resolve_device
+        TrainMeshPlan, resolve_remat)
     from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
     from omnihuman_tpu_torch.utils.convert import load_wan_dit_checkpoint
     from omnihuman_tpu_torch.utils.logging import MetricsLogger, logger
 
-    check_single_device(args.fsdp_size, args.sp_size)
-    device = resolve_device(args.device)
     cfg = WAN_CONFIGS[args.task]
     remat = resolve_remat(args.remat_group, cfg.model.num_layers)
+    plan = TrainMeshPlan.from_sizes(
+        args.fsdp_size, args.sp_size, args.device,
+        module="omnihuman_tpu_torch.cli.train_f_distill")
+    plan.check_batch(args.batch_size)
+    logger.info(f"training plan: {plan.describe()}")
+    device = plan.device
     teacher = build_wan_model(cfg.model, device, torch.bfloat16, seed=0)
     if args.checkpoint_dir:
         load_wan_dit_checkpoint(teacher, args.checkpoint_dir)
     student = copy.deepcopy(teacher).train().requires_grad_(True)
+    plan.shard_tree(teacher)
+    plan.shard_tree(student)
 
     data = load_teacher_data(args.data_path)
     bsz = args.batch_size
@@ -130,7 +138,8 @@ def main(argv=None):
         use_discriminator=args.use_discriminator,
         t_max=float(cfg.num_train_timesteps),
         feature_fn=functools.partial(fd.default_feature_fn, dim=feat_dim),
-        remat=remat, **latent_rope(cfg.model, data["noise"].shape, device))
+        remat=remat, plan=plan,
+        **latent_rope(cfg.model, data["noise"].shape, device, sp=plan.sp))
 
     history = []
     step = start_step
@@ -148,8 +157,9 @@ def main(argv=None):
                 continue
             t0 = time.perf_counter()
             b = batch["noise"].shape[0]
-            batch = {"noise": batch["noise"], "context": batch["context"],
-                     "context_null": neg_ctx[None].expand(b, -1, -1)}
+            batch = plan.put_batch({
+                "noise": batch["noise"], "context": batch["context"],
+                "context_null": neg_ctx[None].expand(b, -1, -1)})
             state, m = fd.f_distill_train_step(state, teacher, batch,
                                                **step_kw)
             rec = {k: float(v) for k, v in m.items()}

@@ -17,7 +17,11 @@ umT5 encodes the captions, the VAE encodes the frames and the reference
 frame (streaming), the audio features are stacked (one per PIXEL frame,
 as in JAX) and the pose heatmaps cut to the latent frame rate in bf16.
 Runs on the GPU unless `--device cpu` is given; --fsdp_size / --sp_size
-other than 1 exit (ROADMAP queue A, item 19).
+above 1 train on a (data, fsdp, sp) mesh under torchrun, as
+`cli.train_distill` does (omni/trainer.py: FSDP2 on the omni model, the
+ring on the packed tokens, each data rank's slice of the global batch;
+every rank encodes the global batch with its own whole VAE and umT5, and
+the pose heatmaps stay whole); rank 0 writes the files.
 
 `main` reads videos through `OmniHumanDataset` (OpenCV) and reports bad
 ones to the `ProblematicVideoTracker`; `run(args, data_iter_factory)`
@@ -87,22 +91,24 @@ def load_setup(args) -> OmniTrainSetup:
     from omnihuman_tpu_torch.omni.model import (
         OmniModelConfig, build_omni_model, load_base_dit)
     from omnihuman_tpu_torch.omni.trainer import OmniHumanTrainer, StageConfig
+    from omnihuman_tpu_torch.parallel.mesh import is_writer
     from omnihuman_tpu_torch.parallel.train_mesh import (
-        check_single_device, resolve_remat)
-    from omnihuman_tpu_torch.pipelines.text2video import resolve_device
+        TrainMeshPlan, resolve_remat)
     from omnihuman_tpu_torch.utils.config_io import load_yaml, save_snapshot
     from omnihuman_tpu_torch.utils.logging import MetricsLogger, logger
 
-    try:
-        check_single_device(args.fsdp_size, args.sp_size)
-    except ValueError as e:
-        sys.exit(str(e))
+    plan = TrainMeshPlan.from_sizes(
+        args.fsdp_size, args.sp_size, args.device,
+        module="omnihuman_tpu_torch.cli.train_omni")
     cfg = load_yaml(args.config)
+    plan.check_batch(cfg.get_path("training.batch_size", 1))
+    logger.info(f"training plan: {plan.describe()}")
     data_dir = args.data_dir or cfg.get_path("data.data_dir", "data/videos")
     out_dir = args.output_dir or cfg.get_path("training.output_dir",
                                               "checkpoints/omni")
-    save_snapshot(cfg, out_dir)
-    device = resolve_device(args.device)
+    if is_writer():
+        save_snapshot(cfg, out_dir)
+    device = plan.device
 
     mc = cfg.get_path("model", {})
     if args.task:
@@ -166,7 +172,8 @@ def load_setup(args) -> OmniTrainSetup:
         checkpoint_interval=cfg.get_path("training.checkpoint_interval",
                                          1000),
         log_interval=cfg.get_path("training.log_interval", 100),
-        policy=policy, metric_writer=lambda m, s: metrics.log(m, step=s))
+        policy=policy, metric_writer=lambda m, s: metrics.log(m, step=s),
+        plan=plan)
 
     frame_size = tuple(cfg.get_path("data.frame_size", (256, 256)))
     # heatmaps at pixel / 4 = 2x the latent grid: the pose guider reduces
@@ -236,12 +243,15 @@ def run(args, data_iter_factory: Callable[[int], Iterator[List[Dict]]],
 def main(argv=None) -> OmniTrainSetup:
     from omnihuman_tpu_torch.omni.dataset import OmniHumanDataset
     from omnihuman_tpu_torch.omni.tracker import ProblematicVideoTracker
+    from omnihuman_tpu_torch.parallel.mesh import is_writer
     from omnihuman_tpu_torch.utils.logging import logger
 
     args = build_parser().parse_args(argv)
     setup = load_setup(args)
     cfg = setup.cfg
-    tracker = ProblematicVideoTracker(f"{setup.out_dir}/bad_videos")
+    # rank 0 records the bad videos (every rank reads the same ones)
+    tracker = (ProblematicVideoTracker(f"{setup.out_dir}/bad_videos")
+               if is_writer() else None)
 
     def factory(stage_idx: int) -> Iterator[List[Dict]]:
         ds = OmniHumanDataset(
@@ -258,7 +268,8 @@ def main(argv=None) -> OmniTrainSetup:
         return (b["samples"] for b in ds.batches(bs))
 
     run(args, factory, setup)
-    tracker.save_summary()
+    if tracker is not None:
+        tracker.save_summary()
     logger.info("training complete")
     return setup
 

@@ -23,8 +23,15 @@ times an fp32 weight promotes to an fp32 GEMM, as in JAX
 (`models/wan_dit.py:_linear`); attention runs in bf16. On the card every
 attention forward, its remat recompute and its backward run the K1 / K2
 kernels (ops/flash_attention.py).
-One GPU: the JAX trainer's mesh plan (FSDP, ring attention) is ROADMAP
-queue A, item 19.
+
+The mesh plan (JAX `:185-244`, parallel/train_mesh.py): `OmniHumanTrainer
+(plan=)` shards the model with FSDP2 before its AdamW state is made, runs
+the step with the ring self-attention and sp_cross on this rank's 1/sp of
+the packed tokens (padded to a multiple of sp, `seq_align`), takes each
+data rank's slice of the global batch (`plan.put_batch`) and averages the
+gradients over the mesh. The draws are made for the global batch on every
+rank from the same generator and then sliced, so every rank of a data
+group trains on the same t, noise and masks.
 """
 
 from __future__ import annotations
@@ -41,6 +48,8 @@ from omnihuman_tpu_torch.apt.optim import AdamW, global_norm
 from omnihuman_tpu_torch.configs.wan import DTypePolicy
 from omnihuman_tpu_torch.omni.model import (
     OmniModel, OmniModelConfig, omni_model_forward)
+from omnihuman_tpu_torch.parallel.partition import copy_whole_into
+from omnihuman_tpu_torch.parallel.train_mesh import NO_MESH, TrainMeshPlan
 from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
 from omnihuman_tpu_torch.utils.logging import logger
 
@@ -104,6 +113,7 @@ class OmniTrainState:
 
 
 def _copy_into(dst: Tensors, src: Tensors, where: str) -> None:
+    """dst[n] <- src[n] for every name (a sharded dst takes its slice)."""
     if set(dst) != set(src):
         missing, extra = set(dst) - set(src), set(src) - set(dst)
         raise ValueError(f"{where}: missing {sorted(missing)[:5]}, "
@@ -113,7 +123,7 @@ def _copy_into(dst: Tensors, src: Tensors, where: str) -> None:
         if s.shape != t.shape or s.dtype != t.dtype:
             raise ValueError(f"{where}/{n}: {tuple(s.shape)} {s.dtype} != "
                              f"{tuple(t.shape)} {t.dtype}")
-        t.copy_(s)
+        copy_whole_into(t, s)
 
 
 def make_lr_schedule(kind: str, base_lr: float, total_steps: int,
@@ -185,8 +195,12 @@ def omni_flow_matching_loss(model: OmniModel, batch: Dict, masks: Tensors,
                             t: torch.Tensor, noise: torch.Tensor, *,
                             policy: DTypePolicy = DTypePolicy(),
                             target: str = "velocity",
-                            remat=True) -> torch.Tensor:
+                            remat=True, attn_impl: str = "auto",
+                            token_sharding=None,
+                            seq_align: int = 1) -> torch.Tensor:
     """mean((v - target)^2 * (1 - t)) at x_t = (1 - t) x + t noise.
+    attn_impl / token_sharding / seq_align: the mesh plan's
+    (`omni_model_forward`).
 
     batch: "frames" (clean latents [B, C, F, H, W]), "context", and
     optionally "audio", "pose", "reference"."""
@@ -198,7 +212,8 @@ def omni_flow_matching_loss(model: OmniModel, batch: Dict, masks: Tensors,
     pred = omni_model_forward(
         model, noisy, t * 1000.0, batch["context"], audio=batch.get("audio"),
         pose=batch.get("pose"), ref_latent=batch.get("reference"),
-        cond_mask=masks, policy=policy, remat=remat)
+        cond_mask=masks, policy=policy, remat=remat, attn_impl=attn_impl,
+        token_sharding=token_sharding, seq_align=seq_align)
     tgt = noise - frames if target == "velocity" else frames
     return torch.mean(torch.square(pred - tgt) * (1.0 - tb))
 
@@ -206,22 +221,26 @@ def omni_flow_matching_loss(model: OmniModel, batch: Dict, masks: Tensors,
 def omni_train_step(state: OmniTrainState, batch: Dict, masks: Tensors,
                     t: torch.Tensor, noise: torch.Tensor, *,
                     optimizer: AdamW, policy: DTypePolicy = DTypePolicy(),
-                    target: str = "velocity", remat=True
+                    target: str = "velocity", remat=True,
+                    plan: TrainMeshPlan = NO_MESH
                     ) -> Tuple[OmniTrainState, Dict]:
     """One update from the given draws; the state changes in place and is
     returned with {"loss", "grad_norm"} (0-dim device tensors; the norm of
     the raw gradients, in fp32). Parameters the batch does not reach (the
     audio adapters without audio, the pose guider without pose) get zero
-    gradients, as in JAX, so AdamW still decays them."""
+    gradients, as in JAX, so AdamW still decays them. On a `plan` with a
+    mesh, the batch and the draws are this data rank's slices and the
+    loss is the global batch's."""
     params = state.params()
-    loss = omni_flow_matching_loss(state.model, batch, masks, t, noise,
-                                   policy=policy, target=target, remat=remat)
-    grads = dict(zip(params, torch.autograd.grad(
-        loss, list(params.values()), allow_unused=True,
-        materialize_grads=True)))
+    with plan.mesh_context():
+        loss = omni_flow_matching_loss(
+            state.model, batch, masks, t, noise, policy=policy,
+            target=target, remat=remat, attn_impl=plan.attn_impl,
+            token_sharding=plan.token_sharding, seq_align=plan.sp)
+        grads = plan.grads(loss, params, allow_unused=True)
     optimizer.step(params, grads, state.opt_state)
     state.step += 1
-    return state, {"loss": loss.detach(),
+    return state, {"loss": plan.mean_over_data(loss.detach()),
                    "grad_norm": global_norm(grads.values())}
 
 
@@ -246,15 +265,18 @@ class OmniHumanTrainer:
                  log_interval: int = 100,
                  policy: DTypePolicy = DTypePolicy(),
                  metric_writer: Optional[Callable[[Dict, int], None]] = None,
-                 remat=True):
-        """remat: True per block, an int g grouped by g blocks."""
+                 remat=True, plan: TrainMeshPlan = NO_MESH):
+        """remat: True per block, an int g grouped by g blocks. plan: the
+        training mesh (module docstring); the model is sharded here."""
         self.cfg = cfg
         self.stages = stages
         total = sum(s.num_steps for s in stages)
         self.optimizer = make_omni_optimizer(
             make_lr_schedule(scheduler_type, learning_rate, total),
             weight_decay, max_grad_norm)
-        self.state = init_omni_train_state(model, self.optimizer)
+        self.plan = plan
+        self.state = init_omni_train_state(plan.shard_tree(model),
+                                           self.optimizer)
         self.device = next(model.parameters()).device
         self.ckpt = CheckpointManager(checkpoint_dir)
         self.checkpoint_interval = checkpoint_interval
@@ -276,14 +298,18 @@ class OmniHumanTrainer:
         # losses stay on the device between log points
         pending: List[torch.Tensor] = []
         last: Dict = {}
+        put = self.plan.put_batch
         for i in range(start_step, stage.num_steps):
             batch = next(data_iter)
             masks, t, noise = draw_step_inputs(
                 generator, batch["frames"].shape, stage.condition_ratios,
                 self.device)
+            draws = put({"t": t, "noise": noise, **masks})
+            t, noise = draws.pop("t"), draws.pop("noise")
             self.state, metrics = omni_train_step(
-                self.state, batch, masks, t, noise, optimizer=self.optimizer,
-                policy=self.policy, remat=self.remat)
+                self.state, put(batch), draws, t, noise,
+                optimizer=self.optimizer, policy=self.policy,
+                remat=self.remat, plan=self.plan)
             pending.append(metrics["loss"])
             if i % self.log_interval == 0:
                 last = {"loss": float(torch.stack(pending).mean()),

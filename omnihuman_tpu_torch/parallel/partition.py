@@ -27,7 +27,10 @@ from __future__ import annotations
 import re
 from typing import Dict, Optional, Tuple
 
+import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from omnihuman_tpu_torch.parallel.mesh import AXIS_FSDP
 
@@ -96,7 +99,13 @@ def shard_params(model: nn.Module, mesh,
     """FSDP2 over `mesh["fsdp"]`: `fully_shard` on each block of every
     `blocks` list, then on the root, each parameter on its
     `infer_param_specs(min_size=)` dimension at the axis size. Returns the
-    model, changed in place."""
+    model, changed in place.
+
+    The root reshards after every forward too (FSDP2 keeps a root's
+    parameters gathered after a forward by default, and while they are,
+    `named_parameters()` gives the gathered copies): between calls the
+    module holds its shards, so what an optimizer updates after forwards
+    that ran without a backward is the shards."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
     fsdp = mesh[AXIS_FSDP]
@@ -115,18 +124,30 @@ def shard_params(model: nn.Module, mesh,
                 fully_shard(blk, mesh=fsdp, shard_placement_fn=placement,
                             ignored_params=ignored)
     fully_shard(model, mesh=fsdp, shard_placement_fn=placement,
-                ignored_params=ignored)
+                ignored_params=ignored, reshard_after_forward=True)
     return model
 
 
 # ---------------------------------------------------------------------------
 # the token axis over `sp` (JAX annotates it with `with_sharding_constraint`
 # and GSPMD slices and gathers; here each rank keeps its own rows)
+#
+# The gradient convention of the mesh: every rank of an sp group computes
+# the same loss from the gathered outputs, and the gather's backward SUMS
+# the ranks' gradients of its output (a reduce-scatter), so each rank's
+# gradient of a token shard, and the sum over the ranks of their
+# gradients of a replicated tensor (a parameter), is sp times the true
+# one. The training step then AVERAGES every parameter's gradient over
+# sp (and over data and fsdp, parallel/train_mesh.py). That holds for
+# parameters used before the gather (the blocks), after it (the APT
+# probes read gathered taps) and on both sides of a second shard / gather
+# pair (APT's G step feeds the gathered sample into the discriminator).
 
 def shard_tokens(x, sp_mesh, dim: int = 1):
     """This rank's contiguous 1/sp of `x` along `dim` (rank-major, as
     `NamedSharding(mesh, P(None, "sp"))` lays tokens out). `sp_mesh` is
-    the 1-D `mesh["sp"]`; None or size 1 returns x."""
+    the 1-D `mesh["sp"]`; None or size 1 returns x. A slice, so its
+    backward puts the gradient in this rank's rows and zeros elsewhere."""
     if sp_mesh is None or sp_mesh.size() == 1:
         return x
     sp, rank = sp_mesh.size(), sp_mesh.get_local_rank()
@@ -138,16 +159,71 @@ def shard_tokens(x, sp_mesh, dim: int = 1):
 
 def gather_tokens(x, sp_mesh, dim: int = 1):
     """The inverse of `shard_tokens`: every rank's rows of `x` along `dim`,
-    in rank order, by one `all_gather_into_tensor` over the sp group."""
-    import torch
-    import torch.distributed as dist
+    in rank order, by one all-gather over the sp group; its backward
+    reduce-scatters (sums) the gradient (`_GatherTokens`)."""
     if sp_mesh is None or sp_mesh.size() == 1:
         return x
-    sp = sp_mesh.size()
-    xt = x.movedim(dim, 0).contiguous()
-    out = xt.new_empty((sp * xt.shape[0],) + tuple(xt.shape[1:]))
-    # all_gather_single is the newer torch's name of all_gather_into_tensor
-    gather = getattr(dist, "all_gather_single", None) or \
-        dist.all_gather_into_tensor
-    gather(out, xt, group=sp_mesh.get_group())
-    return torch.movedim(out, 0, dim)
+    return _GatherTokens.apply(x, sp_mesh.get_group(), dim)
+
+
+class _GatherTokens(torch.autograd.Function):
+    """all-gather along `dim` over `group`; backward: the sum over the
+    ranks of the output's gradient, this rank's rows of it."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim: int):
+        ctx.group, ctx.dim = group, dim
+        xt = x.movedim(dim, 0).contiguous()
+        out = xt.new_empty((dist.get_world_size(group) * xt.shape[0],)
+                           + tuple(xt.shape[1:]))
+        dist.all_gather_into_tensor(out, xt, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        gt = g.movedim(ctx.dim, 0).contiguous()
+        out = gt.new_empty((gt.shape[0] // dist.get_world_size(ctx.group),)
+                           + tuple(gt.shape[1:]))
+        dist.reduce_scatter_tensor(out, gt, group=ctx.group)
+        return out.movedim(0, ctx.dim), None, None
+
+
+# ---------------------------------------------------------------------------
+# whole tensors and FSDP2's shards (DTensor parameters, their gradients and
+# the optimizer states made like them)
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (the storage itself), or t."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def full(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of a DTensor (an all-gather: every rank of its mesh
+    must call it), or t."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def place_like(saved, live):
+    """A checkpoint's tree (dicts of whole tensors and values) laid out as
+    the live state `live`: a tensor whose live counterpart is a DTensor
+    becomes that DTensor's placement of it (each rank keeps its own
+    slice, no collective), any other moves to the live tensor's device;
+    values are kept."""
+    if isinstance(saved, torch.Tensor):
+        if isinstance(live, DTensor):
+            return distribute_tensor(saved.to(live.device), live.device_mesh,
+                                     live.placements, src_data_rank=None)
+        return saved.to(live.device)
+    if isinstance(saved, dict):
+        return {k: place_like(v, live[k]) for k, v in saved.items()}
+    return saved
+
+
+@torch.no_grad()
+def copy_whole_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst <- the whole tensor src (cast to dst's dtype): a DTensor dst
+    takes its own slice."""
+    if isinstance(dst, DTensor):
+        dst.to_local().copy_(place_like(src, dst).to_local())
+    else:
+        dst.copy_(src)

@@ -138,7 +138,8 @@ class WanT2V:
             raise ValueError(
                 "precision 'int8' with fsdp > 1: FSDP2 shards parameters, "
                 "and the int8 weights are Int8Linear buffers, which it "
-                "leaves whole on every rank (ROADMAP queue A, item 19)")
+                "leaves whole on every rank (ROADMAP queue A, item 19, "
+                "part 3)")
         self.config = config
         self.param_dtype = param_dtype
         self.precision = precision

@@ -12,6 +12,15 @@ is written to a temporary directory and renamed into place, so a crash
 never leaves a half-written step behind. Saving is synchronous; `wait` and
 `close` are there for the JAX interface. Past `max_to_keep` steps, the
 oldest are deleted.
+
+On a training mesh (a joined process group) every rank calls `save`: the
+DTensor shards of a state are gathered into whole tensors (every rank
+takes part in each gather), rank 0 writes the single-GPU file layout and
+the others wait for it. Every rank `restore`s from the file, and a
+state's `load_state_dict` keeps each rank's own shards
+(parallel/partition.py `place_like`), so a step written on one mesh
+resumes on another, or in one process, and the reverse (orbax's
+restore-then-reshard in JAX).
 """
 
 from __future__ import annotations
@@ -22,15 +31,23 @@ import shutil
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
+
+from omnihuman_tpu_torch.parallel.mesh import is_writer
+from omnihuman_tpu_torch.parallel.partition import copy_whole_into, full
 
 
-def _to_cpu(tree):
+def _to_cpu(tree, keep: bool = True):
+    """The tree with every tensor whole (DTensors gathered) on the host;
+    with keep False (a rank that does not write) the gathers still run
+    but the tensors are dropped."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
+        whole = full(tree.detach())
+        return whole.cpu() if keep else None
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
+        return {k: _to_cpu(v, keep) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_cpu(v) for v in tree)
+        return type(tree)(_to_cpu(v, keep) for v in tree)
     return tree
 
 
@@ -48,11 +65,19 @@ class CheckpointManager:
     def save(self, step: int, state: Any,
              metadata: Optional[Dict] = None) -> None:
         sd = state.state_dict() if hasattr(state, "state_dict") else state
+        writer = is_writer()
+        host = _to_cpu(sd, keep=writer)
+        if writer:
+            self._write(step, host, metadata)
+        if dist.is_initialized():
+            dist.barrier()
+
+    def _write(self, step: int, sd: Dict, metadata: Optional[Dict]) -> None:
         final = self._path(step)
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save(_to_cpu(sd), os.path.join(tmp, "state.pt"))
+        torch.save(sd, os.path.join(tmp, "state.pt"))
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump({"metadata": metadata}, f)
         shutil.rmtree(final, ignore_errors=True)
@@ -121,5 +146,5 @@ def restore_ema_into(model: torch.nn.Module, directory: str) -> int:
         raise ValueError(f"{directory}: the EMA parameters do not match the "
                          f"model's")
     for name, p in params.items():
-        p.copy_(ema[name])
+        copy_whole_into(p, ema[name])
     return step

@@ -143,12 +143,17 @@ def profile_trace(log_dir: str):
 
 
 class MetricsLogger:
-    """log(metrics, step) / finish(): wandb when available, else JSONL."""
+    """log(metrics, step) / finish(): wandb when available, else JSONL. On
+    a process group only the writing rank (rank 0) logs; the others'
+    loggers do nothing."""
 
     def __init__(self, project: str = "omnihuman-tpu",
                  run_name: Optional[str] = None, out_dir: str = "."):
+        from omnihuman_tpu_torch.parallel.mesh import is_writer
         self._wandb = None
         self._file = None
+        if not is_writer():
+            return
         why = "not configured (WANDB_MODE / WANDB_API_KEY unset)"
         if os.environ.get("WANDB_MODE") or os.environ.get("WANDB_API_KEY"):
             try:
@@ -166,6 +171,8 @@ class MetricsLogger:
     def log(self, metrics: dict, step: Optional[int] = None) -> None:
         if self._wandb is not None:
             self._wandb.log(metrics, step=step)
+            return
+        if self._file is None:
             return
         rec = {"step": step, "ts": time.time(),
                **{k: float(v) for k, v in metrics.items()

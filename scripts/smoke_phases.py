@@ -14,7 +14,9 @@ processor when 23 is named too), 25 (Qwen2.5-3B), 26 (the XLM-R text
 tower), 27 (the exported CFG steps, on phase 5's pipeline built for it),
 28 (`cli.generate --profile --use_prompt_extend`, anomaly_detection), 29
 (the sequence-parallel per-rank programs, the one-rank NCCL mesh request
-and the multi-card / gloo checks, on phase 5's pipeline built for it).
+and the multi-card / gloo checks, on phase 5's pipeline built for it), 30
+(the sequence-parallel backward programs and the one-rank mesh training
+steps; the 81-frame step is logged without phase 10's time).
 Phases 19-22 run after phase 8
 (the checkpoint directory, teacher data and distill output they read). To compare two commits on one card, unpack the
 other one (`git archive <commit> | tar -x -C DIR`) and run both in one
@@ -36,7 +38,7 @@ def main(argv=None) -> None:
         os.path.abspath(__file__))))
     p.add_argument("phases", nargs="+", type=int,
                    choices=(14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26,
-                            27, 28, 29))
+                            27, 28, 29, 30))
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -70,7 +72,8 @@ def main(argv=None) -> None:
            26: cs.phase_xlmr,
            27: lambda: cs.phase_export(every, cs.t2v_pipe()),
            28: lambda: cs.phase_tools(every),
-           29: lambda: cs.run_sp_phase(every, cs.t2v_pipe(), {})}
+           29: lambda: cs.run_sp_phase(every, cs.t2v_pipe(), {}),
+           30: lambda: cs.run_sp_train_phase(every, {})}
     import shutil
     for phase in [p for p in args.phases if p < 19 or p > 22]:
         t0 = time.perf_counter()

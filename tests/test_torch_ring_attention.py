@@ -210,11 +210,3 @@ def test_no_mesh_takes_the_single_device_route():
         got = flash_attention(q, k, v, dtype=torch.float32,
                               implementation=impl)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-
-
-@pytest.mark.parametrize("fn", ["ring_attention", "ulysses_attention",
-                                "sp_cross_attention"])
-def test_autograd_is_refused_naming_item_19(fn):
-    q = torch.zeros(1, 4, 2, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        getattr(ra, fn)(q, q, q, None)

@@ -99,11 +99,16 @@ def test_teacher_data_then_train_distill_with_checkpoint(dit_dir, tmp_path,
     assert all(p.requires_grad for p in trainable_params(model).values())
 
 
-@pytest.mark.parametrize("argv, match", [
-    (["--fsdp_size", "2"], "item 19"), (["--sp_size", "4"], "item 19"),
-    (["--remat_group", "4"], "divide")])
-def test_train_distill_refuses_what_one_gpu_cannot_run(argv, match):
-    with pytest.raises(ValueError, match=match):
+@pytest.mark.parametrize("argv, error, match", [
+    (["--fsdp_size", "2"], SystemExit, "torchrun --nproc_per_node 2 "
+     "-m omnihuman_tpu_torch.cli.train_distill"),
+    (["--sp_size", "4"], SystemExit, "torchrun --nproc_per_node 4 "),
+    (["--remat_group", "4"], ValueError, "divide")])
+def test_train_distill_refuses_what_one_gpu_cannot_run(argv, error, match):
+    """One process asked for a mesh exits with the torchrun command that
+    starts one process per GPU (tests/test_torch_sp_train.py runs it); a
+    remat group that does not divide the layers is an error."""
+    with pytest.raises(error, match=match):
         train_distill.main(["--task", "tiny-test", "--device", "cpu"] + argv)
 
 

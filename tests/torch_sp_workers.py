@@ -1,5 +1,5 @@
 """Multi-process gloo runs of the port's sequence-parallel / FSDP code for
-tests/test_torch_{ring_attention,mesh,sp_model}.py.
+tests/test_torch_{ring_attention,mesh,sp_model,sp_grad,sp_train,sp_cli}.py.
 
 `Ranks(world, case, payload, tmp_path)` starts `world` processes (one
 `torch.multiprocessing` spawn), each joining a gloo group through a
@@ -228,4 +228,258 @@ def mesh_cases(p):
     return out
 
 
-CASES = {"attention": attention_cases, "dit": dit_cases, "mesh": mesh_cases}
+# ---------------------------------------------------------------------------
+# tests/test_torch_sp_grad.py: the attention gradients at sp 2 and 4
+
+
+def attention_grad_cases(p):
+    from omnihuman_tpu_torch.ops.ring_attention import (
+        ring_attention, sp_cross_attention, ulysses_attention)
+    from omnihuman_tpu_torch.parallel import MeshConfig, create_mesh
+    from omnihuman_tpu_torch.parallel.partition import shard_tokens
+    f32 = torch.float32
+    lens, klens = _t(p["lens"]), _t(p["klens"])
+    out = {}
+    for sp in (2, 4):
+        mesh = create_mesh(MeshConfig(-1, 1, sp))
+
+        def local(name, shard=True):
+            x = _t(p[name])
+            return shard_tokens(x, mesh["sp"]) if shard else x
+
+        def grads(fn, names, shards, do):
+            xs = [local(n, s).clone().requires_grad_(True)
+                  for n, s in zip(names, shards)]
+            (fn(*xs) * local(do)).sum().backward()
+            return [x.grad for x in xs]
+
+        for impl in ("flash", "dense"):
+            for tag, kw in p["ring_masks"].items():
+                out[f"sp{sp}_ring_{impl}_{tag}"] = grads(
+                    lambda q, k, v: ring_attention(
+                        q, k, v, mesh, seq_lens=lens, compute_dtype=f32,
+                        impl=impl, **kw),
+                    ("q", "k", "v"), (True,) * 3, "do")
+            out[f"sp{sp}_ulysses_{impl}"] = grads(
+                lambda q, k, v: ulysses_attention(
+                    q, k, v, mesh, seq_lens=lens, compute_dtype=f32,
+                    impl=impl),
+                ("qh", "kh", "vh"), (True,) * 3, "doh")
+        for tag, kw in p["cross_masks"].items():
+            out[f"sp{sp}_sp_cross_{tag}"] = grads(
+                lambda q, k, v: sp_cross_attention(
+                    q, k, v, mesh, k_lens=klens, compute_dtype=f32, **kw),
+                ("q", "kc", "vc"), (True, False, False), "do")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_sp_train.py: the training steps on (2, 1, 2) and (1, 2, 2)
+
+
+class Recorder:
+    """An optimizer that keeps the whole gradients it is given and their
+    mesh-wide norm, then runs `inner` (or nothing)."""
+
+    def __init__(self, inner=None):
+        self.inner, self.grads, self.norm = inner, None, None
+
+    def init(self, params):
+        return self.inner.init(params) if self.inner else {}
+
+    def step(self, params, grads, state):
+        from omnihuman_tpu_torch.apt.optim import global_norm
+        from omnihuman_tpu_torch.parallel.partition import full
+        self.grads = {n: full(g).detach().clone() for n, g in grads.items()}
+        self.norm = global_norm(grads.values())
+        if self.inner:
+            self.inner.step(params, grads, state)
+
+
+def _floats(m):
+    return {k: float(v) for k, v in m.items()}
+
+
+def _wan(sd, trainable=True):
+    from omnihuman_tpu_torch.configs.wan import TINY_TEST
+    from omnihuman_tpu_torch.models.wan_dit import build_wan_model
+    model = build_wan_model(TINY_TEST.model, "cpu", torch.float32, seed=None,
+                            trainable=trainable)
+    model.load_state_dict(sd)
+    return model
+
+
+def train_steps(p, plan, tag):
+    """One distill, APT D and G, f-distill and omni step on `plan` (every
+    parameter with a divisible dimension sharded: min_size 1), fp32; the
+    whole gradients, the loss and the grad norm of each. With `tag`
+    "fsdp", the distill state is also saved (rank 0 writes) and a
+    single-process checkpoint restored."""
+    import functools
+    from omnihuman_tpu_torch.apt import apt_trainer as tr
+    from omnihuman_tpu_torch.apt import f_distill as fd
+    from omnihuman_tpu_torch.apt.distill import (
+        distill_train_step, init_distill_state, make_optimizer)
+    from omnihuman_tpu_torch.apt.generate import latent_rope
+    from omnihuman_tpu_torch.apt.model import init_apt_discriminator
+    from omnihuman_tpu_torch.configs.wan import DTypePolicy, TINY_TEST
+    from omnihuman_tpu_torch.omni.model import build_omni_model
+    from omnihuman_tpu_torch.omni.trainer import (
+        init_omni_train_state, make_lr_schedule, make_omni_optimizer,
+        omni_train_step)
+    from omnihuman_tpu_torch.utils.checkpoint import (
+        CheckpointManager, _to_cpu)
+    from torch.distributed.tensor import DTensor
+    f32 = DTypePolicy(compute=torch.float32)
+    shard = functools.partial(plan.shard_tree, min_size=1)
+    batch = {k: _t(v) for k, v in p["distill_batch"].items()}
+    geo = latent_rope(TINY_TEST.model, batch["noise"].shape, "cpu",
+                      sp=plan.sp)
+    res = {"seq_len": geo["seq_len"]}
+
+    model = shard(_wan(p["wan_sd"]))
+    res["dtensors"] = sum(isinstance(x, DTensor) for x in model.parameters())
+    rec = Recorder(make_optimizer())
+    state = init_distill_state(model, rec)
+    state, m = distill_train_step(state, plan.put_batch(batch), optimizer=rec,
+                                  policy=f32, plan=plan, **geo)
+    res["distill"] = dict(_floats(m), grads=rec.grads, norm=float(rec.norm))
+    if tag == "fsdp":
+        CheckpointManager(p["ckpt_out"]).save(1, state)
+        res["state"] = _to_cpu(state.state_dict())
+        fresh = init_distill_state(shard(_wan(p["wan_sd"])),
+                                   make_optimizer())
+        CheckpointManager(p["ckpt_in"]).restore(target=fresh)
+        res["restored"] = _to_cpu(fresh.state_dict())
+        res["restored_dtensor"] = isinstance(
+            fresh.opt_state["inner"]["mu"]["blocks.0.ffn.0.weight"]
+            if "inner" in fresh.opt_state else
+            fresh.opt_state["mu"]["blocks.0.ffn.0.weight"], DTensor)
+
+    apt = {k: _t(v) for k, v in p["apt_batch"].items()}
+    backbone = shard(_wan(p["teacher_sd"], trainable=False))
+    disc = init_apt_discriminator(backbone, torch.Generator().manual_seed(7))
+    g_rec, d_rec = Recorder(), Recorder()
+    astate = tr.init_apt_state(shard(_wan(p["wan_sd"])), disc, 5e-6, 5e-6)
+    kw = dict(apt_cfg=tr.SeaweedAPTConfig(), video=False, policy=f32,
+              plan=plan, **geo)
+    astate, dm = tr.apt_d_step(astate, apt, torch.Generator().manual_seed(11),
+                               d_optimizer=d_rec, **kw)
+    astate, gm = tr.apt_g_step(astate, apt, torch.Generator().manual_seed(12),
+                               g_optimizer=g_rec, **kw)
+    res["apt_d"] = dict(_floats(dm), grads=d_rec.grads, norm=float(d_rec.norm))
+    res["apt_g"] = dict(_floats(gm), grads=g_rec.grads, norm=float(g_rec.norm))
+
+    fb = {k: _t(v) for k, v in p["fd_batch"].items()}
+    teacher = shard(_wan(p["teacher_sd"], trainable=False))
+    mlp = fd.MLPDiscriminator(p["feat"])
+    mlp.load_state_dict(p["mlp_sd"])
+    s_rec, m_rec = Recorder(), Recorder()
+    fstate = fd.init_f_distill_state(shard(_wan(p["wan_sd"])), mlp, s_rec,
+                                     m_rec)
+    fstate, fm = fd.f_distill_train_step(
+        fstate, teacher, plan.put_batch(fb), optimizer=s_rec,
+        d_optimizer=m_rec, policy=f32, plan=plan,
+        feature_fn=functools.partial(fd.default_feature_fn, dim=p["feat"]),
+        **p["fd_kw"], **geo)
+    res["f_distill"] = dict(_floats(fm), grads=s_rec.grads,
+                            d_grads=m_rec.grads)
+
+    o = p["omni"]
+    omodel = build_omni_model(o["cfg"], "cpu", torch.float32, seed=None,
+                              trainable=True)
+    omodel.load_state_dict(o["sd"])
+    o_rec = Recorder(make_omni_optimizer(make_lr_schedule("cosine", 1e-3,
+                                                          10)))
+    ostate = init_omni_train_state(shard(omodel), o_rec)
+    draws = plan.put_batch({k: _t(v) for k, v in o["draws"].items()})
+    t, noise = draws.pop("t"), draws.pop("noise")
+    ostate, om = omni_train_step(
+        ostate, plan.put_batch({k: _t(v) for k, v in o["batch"].items()}),
+        draws, t, noise, optimizer=o_rec, policy=f32, plan=plan)
+    res["omni"] = dict(_floats(om), grads=o_rec.grads, norm=float(o_rec.norm))
+    return res
+
+
+def train_step_cases(p):
+    from omnihuman_tpu_torch.parallel import MeshConfig, create_mesh
+    from omnihuman_tpu_torch.parallel.train_mesh import TrainMeshPlan
+    out = {}
+    for tag, shape in (("data", (2, 1, 2)), ("fsdp", (1, 2, 2))):
+        plan = TrainMeshPlan(create_mesh(MeshConfig(*shape)),
+                             torch.device("cpu"))
+        out[tag] = train_steps(p, plan, tag)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_sp_cli.py: the four training CLIs on (1, 2, 2)
+
+
+def train_cli_cases(p):
+    import sys
+    sys.modules["transformers"] = None     # the hash tokenizer: no import
+    from omnihuman_tpu_torch.cli import (
+        train_apt, train_distill, train_f_distill, train_omni)
+    from omnihuman_tpu_torch.utils import checkpoint as ck
+    writes = []
+    write = ck.CheckpointManager._write
+
+    def recording(self, step, sd, metadata):
+        writes.append((os.path.basename(self.directory), step))
+        return write(self, step, sd, metadata)
+
+    ck.CheckpointManager._write = recording
+    mesh = ["--task", "tiny-test", "--device", "cpu", "--fsdp_size", "2",
+            "--sp_size", "2"]
+    data = ["--checkpoint_dir", p["dit"], "--data_path", p["npz"],
+            "--batch_size", "2", "--save_interval", "1"]
+    d = p["out"]
+    out = {}
+    state, hist = train_distill.main(
+        mesh + data + ["--output_dir", os.path.join(d, "distill"),
+                       "--num_epochs", "1", "--remat_group", "2"])
+    out["distill"] = {"history": hist, "state": ck._to_cpu(state.state_dict())}
+    _, hist = train_f_distill.main(
+        mesh + data + ["--output_dir", os.path.join(d, "f_distill"),
+                       "--num_epochs", "1"])
+    out["f_distill"] = hist
+    _, hist = train_apt.main(
+        mesh + data + ["--output_dir", os.path.join(d, "apt"),
+                       "--consistency_path", os.path.join(d, "distill"),
+                       "--image_updates", "1", "--video_updates", "1"])
+    out["apt"] = hist
+    args = train_omni.build_parser().parse_args(
+        ["--config", p["omni_yaml"]] + mesh)
+    setup = train_omni.run(args, _omni_samples(p["omni_geometry"]))
+    out["omni_step"] = setup.trainer.state.step
+    out["writes"] = writes
+    return out
+
+
+def _omni_samples(geo):
+    """factory(stage) -> endless one-sample-per-rank batches of 2 samples
+    as OmniHumanDataset gives them (frames [3, T, H, W] in [-1, 1], the
+    first frame as the reference, audio rows per pixel frame), the same on
+    every rank."""
+    def factory(stage_idx):
+        rng = np.random.default_rng(stage_idx)
+        t_px, size, audio_dim = geo
+        while True:
+            batch = []
+            for _ in range(2):
+                frames = rng.uniform(-1, 1, (3, t_px, size, size)).astype(
+                    np.float32)
+                batch.append({"frames": frames, "metadata": {"start": 0},
+                              "conditions": {
+                                  "text": "a person talking",
+                                  "reference": frames[:, :1],
+                                  "audio": rng.normal(size=(
+                                      t_px, audio_dim)).astype(np.float32)}})
+            yield batch
+    return factory
+
+
+CASES = {"attention": attention_cases, "dit": dit_cases, "mesh": mesh_cases,
+         "attention_grads": attention_grad_cases,
+         "train_steps": train_step_cases, "train_clis": train_cli_cases}
