@@ -163,10 +163,10 @@ output), after phase 11:
      attention (relative, tolerance 5e-2); one timed step at 81 frames
      (32,760 tokens), its peak memory and a torch.profiler split;
  21. `cli.train_apt` at full width: the generator booted from the distill
-     EMA, 2 image updates on phase 8's npz (1,560 tokens) and 2 video
-     updates on a 2-sample 81-frame npz made with the teacher's CFG
+     EMA, 2 image updates on phase 8's npz (1,560 tokens) and 1 video
+     update on a 2-sample 81-frame npz made with the teacher's CFG
      (32,760 tokens); seconds per D / G update, peak memory, the saves,
-     checkpoints [2, 4] with their exact metadata, 237 / 237 K1 and 114
+     checkpoints [2, 3] with their exact metadata, 237 / 237 K1 and 114
      K2 an update; then a resume after the video final is deleted, which
      reruns the video phase;
  22. `cli.eval_ema` on phase 8's directory with the distill EMA, 2
@@ -207,7 +207,7 @@ Right after phase 6, on phase 5's pipeline:
      `cfg_model_step` on the same inputs (bit-equal expected, else relative
      L2 under 1e-3): its K1 launches through the custom op (30 long-K, 30
      short-K), seconds to export, save and load, ms a step exported and
-     eager (median of 7); then the i2v step at the i2v-14B width cut to 2
+     eager (median of 3); then the i2v step at the i2v-14B width cut to 2
      layers (17 frames, 8,192 tokens) against eager, 2 + 4 K1 launches.
 
 Then, at the end:
@@ -254,10 +254,8 @@ Right after phase 27, on phase 5's pipeline:
      umT5, umT5 resident): phase 5's first request as latents against
      phase 5's pipeline's (bit-equal expected, 1e-3 relative L2 allowed),
      launch counts zeroed before the request and read after its video's
-     decode (120 K1 long-K, 120 short-K, K3 and K4 in the decode); phase
-     5's request timed under the pipelines' no_grad and inside
-     inference_mode, alternated; a second mesh request timed, and one of
-     each pipeline profiled (device time by kernel group, the mesh's
+     decode (120 K1 long-K, 120 short-K, K3 and K4 in the decode); a
+     second mesh request timed, and one of each pipeline profiled (device time by kernel group, the mesh's
      largest extra kernels). (c) With two or more cards,
      `torchrun` runs this script's --sp-worker mode at sp min(4, cards)
      against (b)'s latents (5e-2 relative L2) and `cli.generate --sp_size`;
@@ -289,24 +287,51 @@ Right after phase 27, on phase 5's pipeline:
      four cards) against (b)'s losses (rtol 2e-2); with one card that is
      logged as not run. The phase logs its wall time.
 
+Right after phase 15, on its videos:
+ 31. the spatial halo exchange. (a) The W-sharded VAE on virtual ranks on
+     one card (`parallel.spatial.VirtualRanks`: every rank's program on its
+     own thread, halos cut from the neighbours' tensors): the 81-frame
+     480x832 decode (latent [1, 16, 21, 60, 104]) at R = 2, 4, 8 and the
+     encode of such a clip at R = 2, 4, every rank running K3 on each
+     resblock conv and K4 on each upsample of its halo-extended shard
+     (R x 588 K3 and R x 63 K4 a decode, R x 420 K3 an encode), the
+     assembled output against the unsharded pass (bit-equal through every
+     conv stage; the gathered attention rounds differently: relative L2
+     under 1e-2, max abs under 2^-4 of the peak), each rank's program
+     replayed alone from the recorded halos and timed against 1/R of the
+     unsharded pass; K3 and K4 at each R's widest shard shapes against
+     their plain versions beside their bounds. (b) A one-rank NCCL mesh:
+     `SeaweedWanAPTGenerator` on phase 5's pipeline built on the mesh
+     (the decode on the W-sharded path) on phase 15's prompts against
+     phase 15's batch (relative L2 under 1e-3; 30 / 30 K1, 588 K3, 63 K4),
+     and phase 30's omni training step with the pose guider on its
+     H-sharded path against the whole heatmaps (within 3x the spread of
+     two runs). (c) With two or more cards, `torchrun` runs this script's
+     --spatial-worker mode: the decode W-sharded over every card through
+     NCCL against one card's; with one card that is logged as not run.
+     The phase logs its wall time.
+
 The line before last is a JSON object {"kernels": [...]}; its
 `launches_by_path` holds each path's launches (phase 19's t2v request,
 20's and 21's first CLI runs, 22's pass, 23's `--pose_video` request,
 27's exported flagship step ("export"), 28's profiled request
-("profile"), 29's one-rank mesh request ("sp_serve") and 30's mesh
-training steps ("sp_train") among them); the last line is {"ok": true,
-"device": {...}}.
+("profile"), 29's one-rank mesh request ("sp_serve"), 30's mesh
+training steps ("sp_train"), 31's W-sharded passes ("vae_decode_w2" ...)
+and mesh one-step batch ("spatial_one_step") among them), and K3's and
+K4's `w_shard_rows` hold phase 31's shard shapes; the last line is
+{"ok": true, "device": {...}}.
 
     torchrun --standalone --nproc_per_node N chip_smoke.py --sp-worker OUT
     torchrun --standalone --nproc_per_node N chip_smoke.py --train-worker OUT
+    torchrun --standalone --nproc_per_node N chip_smoke.py --spatial-worker OUT
 
-are phase 29 (c)'s worker (one rank of the mesh pipeline at sp N) and
-phase 30 (c)'s (one rank of two mesh distill steps).
+are phase 29 (c)'s worker (one rank of the mesh pipeline at sp N), phase
+30 (c)'s (one rank of two mesh distill steps) and phase 31 (c)'s (one
+rank of the W-sharded decode).
 """
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import gc
 import json
@@ -331,6 +356,14 @@ NUM_LAYERS = 30
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def timed_phase(tag, fn, *args, **kw):
+    """fn(*args, **kw), its wall time logged under [tag]."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    log(f"[{tag}] phase wall time {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def fail(msg: str) -> None:
@@ -834,14 +867,16 @@ def phase_flagship_step(pipe):
     profile_split(step, "6")
 
 
-def kernel_split(fn):
+def kernel_split(fn, cpu: bool = False):
     """(groups {name: ms}, total ms, kernel events) of the device kernels
     one run of `fn` launches (torch.profiler / CUPTI): K1, K2, cuBLAS and
-    the rest."""
+    the rest. The host's ops are recorded only with `cpu` (their ranges,
+    such as FSDP2's, then show with the device time under them): recording
+    them costs a training step's profile tens of seconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + ([ProfilerActivity.CPU] if cpu else [])) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
@@ -1074,7 +1109,10 @@ def _zero(kernels):
 
 def phase_training_main_path(kernels):
     """teacher_data, then train_distill, through their CLI main()s; returns
-    {path: {kernel: launches}} and the path of the teacher data."""
+    {path: {kernel: launches}}, the path of the teacher data and the DiT
+    written as the checkpoint, frozen on the card: the one t2v-1.3B build
+    that phases 9, 20 and 21 share (phase 9 trains a copy of it, 20 and 21
+    read it as the teacher)."""
     import torch
     from safetensors.torch import save_file
     from omnihuman_tpu_torch.cli import teacher_data, train_distill
@@ -1093,7 +1131,6 @@ def phase_training_main_path(kernels):
             generator=torch.Generator(device="cuda").manual_seed(5))
     save_file({k: v.cpu() for k, v in model.state_dict().items()},
               os.path.join(dit_dir, "diffusion_pytorch_model.safetensors"))
-    del model
     log(f"[8] random t2v-1.3B DiT (seed 0, random head) written as a "
         f"reference checkpoint in {time.perf_counter() - t0:.1f} s")
 
@@ -1159,7 +1196,7 @@ def phase_training_main_path(kernels):
     del state, restored, live
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, npz
+    return counts, npz, model
 
 
 def _param_grads(model, batch, seq_len, sin, cos, policy):
@@ -1171,10 +1208,11 @@ def _param_grads(model, batch, seq_len, sin, cos, policy):
     return loss.detach(), torch.autograd.grad(loss, params)
 
 
-def phase_distill_vs_plain(npz, kernels):
+def phase_distill_vs_plain(npz, kernels, dit):
     """One distill loss + gradient at full width, 1,560 tokens, with the
-    kernels and with plain attention; then the share of elements one AdamW
-    step changes. Returns the model for the later phases."""
+    kernels and with plain attention, on a trainable copy of phase 8's DiT
+    (the checkpoint's weights); then the share of elements one AdamW step
+    changes. Returns the model for the later phases."""
     import torch
     from unittest import mock
     from omnihuman_tpu_torch.apt.distill import (
@@ -1183,15 +1221,11 @@ def phase_distill_vs_plain(npz, kernels):
     from omnihuman_tpu_torch.apt.generate import (
         create_dataloader, load_teacher_data)
     from omnihuman_tpu_torch.configs import T2V_1_3B
-    from omnihuman_tpu_torch.models.wan_dit import build_wan_model
     from omnihuman_tpu_torch.ops import flash_attention as fa
     from omnihuman_tpu_torch.ops.rope import rope_angles_3d
-    from omnihuman_tpu_torch.utils.convert import load_wan_dit_checkpoint
 
     cfg = T2V_1_3B
-    model = build_wan_model(cfg.model, "cuda", torch.bfloat16, seed=None,
-                            trainable=True)
-    load_wan_dit_checkpoint(model, os.path.join(WORK, "dit"))
+    model = copy.deepcopy(dit).train().requires_grad_(True)
     batch = next(create_dataloader(load_teacher_data(npz), batch_size=1,
                                    shuffle=False, device="cuda")())
     sin, cos = rope_angles_3d((1, 30, 52), 128, seq_len=1560, device="cuda")
@@ -1247,8 +1281,7 @@ def phase_distill_vs_plain(npz, kernels):
 
     sec = timed_step()
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         timed_step()
     kernel_ms = sum(e.self_device_time_total for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
@@ -1391,22 +1424,138 @@ def _bound(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_vae_kernels():
-    """K3 / K4 against their plain versions at the full-width shapes.
-    Returns the JSON rows of the largest call of each."""
+def _vae_rnd(seed):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return lambda *shape, scale=1.0: torch.randn(
+        shape, generator=gen, device="cuda") * scale
+
+
+def k3_case(t, h, w, cin, cout, tag="12", rnd=None):
+    """K3 against its plain version at one shape (random bf16 inputs,
+    tolerance 2^-6 of the output's peak), timed beside its pre-pass, the
+    plain version, cuDNN's conv3d of the activated input and the bound;
+    logged under `tag`. Returns the JSON row."""
     import torch
     import torch.nn.functional as F
     from omnihuman_tpu_torch.ops import vae_kernels as vk
-
-    dev = torch.device("cuda")
     cl = torch.channels_last_3d
-    gen = torch.Generator(device=dev).manual_seed(1212)
+    rnd = rnd or _vae_rnd(1212)
+    res_on = cin == cout       # conv2 of an identity block
+    x = rnd(1, cin, t, h, w).to(torch.bfloat16).contiguous(memory_format=cl)
+    cache = rnd(1, cin, 2, h, w).to(torch.bfloat16).contiguous(
+        memory_format=cl)
+    gamma = rnd(cin, scale=0.2) + 1.0
+    wt = rnd(3, 3, 3, cin, cout, scale=(27 * cin) ** -0.5)
+    w2 = vk.pack_conv_weights(wt)
+    wk = vk.conv_weights_kmajor(w2)    # made once a VAE pass
+    bias = rnd(cout, scale=0.05)
+    res = (rnd(1, cout, t, h, w).to(torch.bfloat16).contiguous(
+        memory_format=cl) if res_on else None)
+    got, cnew = vk.fused_act_causal_conv3d_cuda(x, cache, gamma, w2, bias,
+                                                res, wk)
+    torch.cuda.synchronize()
+    want, cwant = vk.fused_act_causal_conv3d_plain(x, cache, gamma, w2,
+                                                   bias, res)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 2 ** -6 * want.float().abs().max().item()
+    cerr = (cnew.float() - cwant.float()).abs().max().item()
+    ctol = 2 ** -6 * cwant.float().abs().max().item()
+    if not torch.isfinite(got.float()).all() or err > tol or cerr > ctol:
+        fail(f"K3 vs plain at {(t, h, w, cin, cout)}: output err {err} "
+             f"(tol {tol}), cache err {cerr} (tol {ctol})")
+    n_out, hw = t * h * w, h * w
+    flops = 2.0 * 27 * cin * cout * n_out
+    nbytes = 2.0 * (n_out * cin + 2 * 2 * hw * cin + 27 * cin * cout
+                    + n_out * cout * (2 if res_on else 1)) \
+        + 4.0 * (cin + cout)
+    bound, by = _bound(flops, nbytes)
+    ms = bench_ms(lambda: vk.fused_act_causal_conv3d_cuda(
+        x, cache, gamma, w2, bias, res, wk))
+    # the pre-pass alone (its plain version: act_cache_plain)
+    pre_ms = bench_ms(lambda: vk.act_cache_cuda(x, cache, gamma))
+    plain_ms = bench_ms(lambda: vk.fused_act_causal_conv3d_plain(
+        x, cache, gamma, w2, bias, res), reps=3, warmup=1)
+    # yardstick only: cuDNN's conv of the already-activated input
+    xin = torch.cat([cache, vk.activate_plain(x, gamma)], dim=2
+                    ).contiguous(memory_format=cl)
+    wl = wt.permute(4, 3, 0, 1, 2).to(torch.bfloat16).contiguous(
+        memory_format=cl)
+    bl = bias.to(torch.bfloat16)
+    lib_ms = bench_ms(lambda: F.conv3d(xin, wl, bl, padding=(0, 1, 1)))
+    log(f"[{tag}] K3 T={t} {h}x{w} {cin}->{cout}"
+        f"{' +residual' if res_on else ''}: max_abs_err {err:.3g} (tol "
+        f"{tol:.3g}), cache err {cerr:.3g}; kernel {ms:.3f} ms (pre-pass "
+        f"{pre_ms:.3f}, conv {ms - pre_ms:.3f}), bound "
+        f"{bound:.3f} ms ({by}, {100 * bound / ms:.1f}%), plain "
+        f"{plain_ms:.3f} ms, cuDNN conv3d {lib_ms:.3f} ms")
+    del x, cache, res, got, cnew, want, cwant, xin
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms)
 
-    def rnd(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale
 
-    # ptxas of K3's kernels: registers, spills, shared memory
+def k4_case(t, h, w, cin, cout, tag="12", rnd=None):
+    """K4 against its plain version at one low-res shape, timed with its
+    wrapper and alone beside the plain version, cuDNN's conv2d of the
+    upsampled frames and the bound; logged under `tag`. Returns the JSON
+    row."""
+    import torch
+    import torch.nn.functional as F
+    from omnihuman_tpu_torch.ops import vae_kernels as vk
+    cl = torch.channels_last_3d
+    rnd = rnd or _vae_rnd(1212)
+    x = rnd(1, cin, t, h, w).to(torch.bfloat16).contiguous(memory_format=cl)
+    wt = rnd(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+    w4 = vk.pack_upsample_weights(wt.to(torch.bfloat16))
+    wk = vk.upsample_weights_kmajor(w4)    # made once a VAE pass
+    bias = rnd(cout, scale=0.05)
+    got = vk.fused_upsample_conv2d_cuda(x, w4, bias, wk)
+    torch.cuda.synchronize()
+    want = vk.fused_upsample_conv2d_plain(x, w4, bias)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 2 ** -6 * want.float().abs().max().item()
+    if not torch.isfinite(got.float()).all() or err > tol:
+        fail(f"K4 vs plain at {(t, h, w, cin, cout)}: err {err} > {tol}")
+    n_in = t * h * w
+    flops = 2.0 * 4 * 4 * cin * cout * n_in
+    nbytes = 2.0 * (n_in * cin + 16 * cin * cout + 4 * n_in * cout) \
+        + 4.0 * cout
+    bound, by = _bound(flops, nbytes)
+    ms = bench_ms(lambda: vk.fused_upsample_conv2d_cuda(x, w4, bias, wk))
+    # the kernel alone, on a preallocated output
+    out = torch.empty_like(got)
+    kernel_ms = bench_ms(lambda: vk.vae_upsample_launch(x, wk, bias, out))
+    plain_ms = bench_ms(lambda: vk.fused_upsample_conv2d_plain(
+        x, w4, bias), reps=3, warmup=1)
+    # yardstick only: cuDNN's 3x3 conv of the upsampled frames
+    xu = F.interpolate(x, scale_factor=(1, 2, 2), mode="nearest")
+    xu = xu.transpose(1, 2).reshape(t, cin, 2 * h, 2 * w).contiguous(
+        memory_format=torch.channels_last)
+    wl = wt.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    bl = bias.to(torch.bfloat16)
+    lib_ms = bench_ms(lambda: F.conv2d(xu, wl, bl, padding=1))
+    log(f"[{tag}] K4 T={t} {h}x{w} -> {2 * h}x{2 * w} {cin}->{cout}: "
+        f"max_abs_err {err:.3g} (tol {tol:.3g}); kernel {ms:.3f} ms "
+        f"({kernel_ms:.3f} alone), bound {bound:.3f} ms ({by}, "
+        f"{100 * bound / kernel_ms:.1f}% alone), plain {plain_ms:.3f} "
+        f"ms, cuDNN conv2d {lib_ms:.3f} ms")
+    del x, got, want, xu, out
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
+
+
+def phase_vae_kernels():
+    """K3 / K4 against their plain versions at the full-width shapes.
+    Returns the JSON rows of the largest call of each."""
     from omnihuman_tpu_torch.ops import cuda_build
+    from omnihuman_tpu_torch.ops import vae_kernels as vk
+
+    rnd = _vae_rnd(1212)
+    # ptxas of K3's kernels: registers, spills, shared memory
     for line in cuda_build.build_log(vk.VAE_CONV.source).splitlines():
         if "entry function" in line:
             log(f"[12] ptxas {line.split(chr(39))[1][:90]}")
@@ -1414,109 +1563,15 @@ def phase_vae_kernels():
               or "arning" in line):
             log(f"[12]   {line.strip()}")
     rows = {}
-    for t, h, w, cin, cout in K3_SHAPES:
-        res_on = cin == cout       # conv2 of an identity block
-        x = rnd(1, cin, t, h, w).to(torch.bfloat16).contiguous(
-            memory_format=cl)
-        cache = rnd(1, cin, 2, h, w).to(torch.bfloat16).contiguous(
-            memory_format=cl)
-        gamma = rnd(cin, scale=0.2) + 1.0
-        wt = rnd(3, 3, 3, cin, cout, scale=(27 * cin) ** -0.5)
-        w2 = vk.pack_conv_weights(wt)
-        wk = vk.conv_weights_kmajor(w2)    # made once a VAE pass
-        bias = rnd(cout, scale=0.05)
-        res = (rnd(1, cout, t, h, w).to(torch.bfloat16).contiguous(
-            memory_format=cl) if res_on else None)
-        got, cnew = vk.fused_act_causal_conv3d_cuda(x, cache, gamma, w2,
-                                                    bias, res, wk)
-        torch.cuda.synchronize()
-        want, cwant = vk.fused_act_causal_conv3d_plain(x, cache, gamma, w2,
-                                                       bias, res)
-        err = (got.float() - want.float()).abs().max().item()
-        tol = 2 ** -6 * want.float().abs().max().item()
-        cerr = (cnew.float() - cwant.float()).abs().max().item()
-        ctol = 2 ** -6 * cwant.float().abs().max().item()
-        if not torch.isfinite(got.float()).all() or err > tol or cerr > ctol:
-            fail(f"K3 vs plain at {(t, h, w, cin, cout)}: output err {err} "
-                 f"(tol {tol}), cache err {cerr} (tol {ctol})")
-        n_out, hw = t * h * w, h * w
-        flops = 2.0 * 27 * cin * cout * n_out
-        nbytes = 2.0 * (n_out * cin + 2 * 2 * hw * cin + 27 * cin * cout
-                        + n_out * cout * (2 if res_on else 1)) \
-            + 4.0 * (cin + cout)
-        bound, by = _bound(flops, nbytes)
-        ms = bench_ms(lambda: vk.fused_act_causal_conv3d_cuda(
-            x, cache, gamma, w2, bias, res, wk))
-        # the pre-pass alone (its plain version: act_cache_plain)
-        pre_ms = bench_ms(lambda: vk.act_cache_cuda(x, cache, gamma))
-        plain_ms = bench_ms(lambda: vk.fused_act_causal_conv3d_plain(
-            x, cache, gamma, w2, bias, res), reps=3, warmup=1)
-        # yardstick only: cuDNN's conv of the already-activated input
-        xin = torch.cat([cache, vk.activate_plain(x, gamma)], dim=2
-                        ).contiguous(memory_format=cl)
-        wl = wt.permute(4, 3, 0, 1, 2).to(torch.bfloat16).contiguous(
-            memory_format=cl)
-        bl = bias.to(torch.bfloat16)
-        lib_ms = bench_ms(lambda: F.conv3d(xin, wl, bl, padding=(0, 1, 1)))
-        log(f"[12] K3 T={t} {h}x{w} {cin}->{cout}"
-            f"{' +residual' if res_on else ''}: max_abs_err {err:.3g} (tol "
-            f"{tol:.3g}), cache err {cerr:.3g}; kernel {ms:.3f} ms (pre-pass "
-            f"{pre_ms:.3f}, conv {ms - pre_ms:.3f}), bound "
-            f"{bound:.3f} ms ({by}, {100 * bound / ms:.1f}%), plain "
-            f"{plain_ms:.3f} ms, cuDNN conv3d {lib_ms:.3f} ms")
-        if (t, h, w, cin, cout) == K3_ROW:
-            rows["k3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound, bound_by=by, library_ms=lib_ms)
-        del x, cache, res, got, cnew, want, cwant, xin
-        torch.cuda.empty_cache()
-
+    for shape in K3_SHAPES:
+        row = k3_case(*shape, rnd=rnd)
+        if shape == K3_ROW:
+            rows["k3"] = row
     ptxas_facts(vk.VAE_UPSAMPLE.source, "12", "K4")
-    for t, h, w, cin, cout in K4_SHAPES:
-        x = rnd(1, cin, t, h, w).to(torch.bfloat16).contiguous(
-            memory_format=cl)
-        wt = rnd(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
-        w4 = vk.pack_upsample_weights(wt.to(torch.bfloat16))
-        wk = vk.upsample_weights_kmajor(w4)    # made once a VAE pass
-        bias = rnd(cout, scale=0.05)
-        got = vk.fused_upsample_conv2d_cuda(x, w4, bias, wk)
-        torch.cuda.synchronize()
-        want = vk.fused_upsample_conv2d_plain(x, w4, bias)
-        err = (got.float() - want.float()).abs().max().item()
-        tol = 2 ** -6 * want.float().abs().max().item()
-        if not torch.isfinite(got.float()).all() or err > tol:
-            fail(f"K4 vs plain at {(t, h, w, cin, cout)}: err {err} > {tol}")
-        n_in = t * h * w
-        flops = 2.0 * 4 * 4 * cin * cout * n_in
-        nbytes = 2.0 * (n_in * cin + 16 * cin * cout + 4 * n_in * cout) \
-            + 4.0 * cout
-        bound, by = _bound(flops, nbytes)
-        ms = bench_ms(lambda: vk.fused_upsample_conv2d_cuda(x, w4, bias,
-                                                            wk))
-        # the kernel alone, on a preallocated output
-        out = torch.empty_like(got)
-        kernel_ms = bench_ms(lambda: vk.vae_upsample_launch(x, wk, bias,
-                                                            out))
-        plain_ms = bench_ms(lambda: vk.fused_upsample_conv2d_plain(
-            x, w4, bias), reps=3, warmup=1)
-        # yardstick only: cuDNN's 3x3 conv of the upsampled frames
-        xu = F.interpolate(x, scale_factor=(1, 2, 2), mode="nearest")
-        xu = xu.transpose(1, 2).reshape(t, cin, 2 * h, 2 * w).contiguous(
-            memory_format=torch.channels_last)
-        wl = wt.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last)
-        bl = bias.to(torch.bfloat16)
-        lib_ms = bench_ms(lambda: F.conv2d(xu, wl, bl, padding=1))
-        log(f"[12] K4 T={t} {h}x{w} -> {2 * h}x{2 * w} {cin}->{cout}: "
-            f"max_abs_err {err:.3g} (tol {tol:.3g}); kernel {ms:.3f} ms "
-            f"({kernel_ms:.3f} alone), bound {bound:.3f} ms ({by}, "
-            f"{100 * bound / kernel_ms:.1f}% alone), plain {plain_ms:.3f} "
-            f"ms, cuDNN conv2d {lib_ms:.3f} ms")
-        if (t, h, w, cin, cout) == K4_ROW:
-            rows["k4"] = dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
-                              plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                              library_ms=lib_ms)
-        del x, got, want, xu, out
-        torch.cuda.empty_cache()
+    for shape in K4_SHAPES:
+        row = k4_case(*shape, rnd=rnd)
+        if shape == K4_ROW:
+            rows["k4"] = row
     return rows
 
 
@@ -1649,18 +1704,14 @@ def phase_i2v(kernels, flash_kernels):
 
 
 def phase_one_step(kernels, flash_kernels):
-    """SeaweedWanAPTGenerator: t2v-1.3B, 2 prompts x 81 frames."""
+    """SeaweedWanAPTGenerator: t2v-1.3B, 2 prompts x 81 frames, over phase
+    5's pipeline. Returns (the counts, (the videos, the prompts' contexts
+    and lengths) for phase 31 (b))."""
     import torch
-    from omnihuman_tpu_torch.configs import T2V_1_3B
-    from omnihuman_tpu_torch.pipelines.text2video import WanT2V
     from omnihuman_tpu_torch.pipelines.wan_inference import (
         SeaweedWanAPTGenerator)
 
-    pipe = WanT2V(T2V_1_3B, device="cuda", precision="fast", init_seed=0)
-    with torch.no_grad():
-        pipe.model.head.head.weight.normal_(
-            0.0, T2V_1_3B.model.dim ** -0.5,
-            generator=torch.Generator(device="cuda").manual_seed(5))
+    pipe = t2v_pipe()
     gen = SeaweedWanAPTGenerator(pipe)
     w, h = FLAGSHIP["size"]
     pipe.t5                                       # built outside the timing
@@ -1693,10 +1744,12 @@ def phase_one_step(kernels, flash_kernels):
     log(f"[15] launches {counts}, expected {want}")
     if counts != want:
         fail("the one-step path did not go through K1 and K3 / K4")
-    del pipe, gen, videos
+    # phase 31 (b)'s reference: these videos and the prompts' contexts
+    ctx, lens = pipe.encode_text(list(ONE_STEP["prompts"]))
+    del pipe, gen
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, (videos, ctx, lens)
 
 
 # phases 16-17: OmniHuman serving and the int8 precision
@@ -2503,9 +2556,11 @@ def _f_distill_grads(state, teacher, batch, d_snapshot, kw):
     return m["loss"].item(), list(cap.grads.values())
 
 
-def phase_f_distill(npz, kernels):
+def phase_f_distill(npz, kernels, teacher):
     """[20] cli.train_f_distill at t2v-1.3B full width on phase 8's npz,
-    a resume, kernels against plain attention, an 81-frame step."""
+    a resume, kernels against plain attention, an 81-frame step; the
+    steps outside the CLI read phase 8's DiT (`teacher`, the checkpoint's
+    weights) as the teacher."""
     import copy as _copy
     import torch
     from unittest import mock
@@ -2514,12 +2569,10 @@ def phase_f_distill(npz, kernels):
         create_dataloader, load_teacher_data)
     from omnihuman_tpu_torch.cli import train_f_distill
     from omnihuman_tpu_torch.configs import T2V_1_3B
-    from omnihuman_tpu_torch.models.wan_dit import build_wan_model
     from omnihuman_tpu_torch.ops import attention
     from omnihuman_tpu_torch.ops import flash_attention as fa
     from omnihuman_tpu_torch.ops.rope import rope_angles_3d
     from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
-    from omnihuman_tpu_torch.utils.convert import load_wan_dit_checkpoint
 
     dit_dir, out = os.path.join(WORK, "dit"), os.path.join(WORK, "f_distill")
     argv = ["--task", "t2v-1.3B", "--checkpoint_dir", dit_dir, "--data_path",
@@ -2574,9 +2627,6 @@ def phase_f_distill(npz, kernels):
         f"uninterrupted (relative {rel:.3g}; dQ's sum order varies run to "
         f"run); launches {got}")
 
-    teacher = build_wan_model(T2V_1_3B.model, "cuda", torch.bfloat16,
-                              seed=None)
-    load_wan_dit_checkpoint(teacher, dit_dir)
     data = load_teacher_data(npz)
     batch = next(create_dataloader(data, batch_size=1, shuffle=False,
                                    device="cuda")())
@@ -2652,29 +2702,24 @@ def phase_f_distill(npz, kernels):
         f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; "
         f"launches {big_counts}")
     profile_split(step, "20")
-    del state, teacher, opt, d_opt
+    del state, opt, d_opt
     shutil.rmtree(out, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     return counts
 
 
-def _write_video_npz(npz, path):
+def _write_video_npz(npz, path, teacher):
     """Phase 21's video-phase data: 2 samples at 81 frames ([16, 21, 60,
-    104], 32,760 tokens), v_teacher from the checkpoint's DiT with CFG 7.5
-    at t = 999 and phase 8's contexts."""
+    104], 32,760 tokens), v_teacher from the checkpoint's DiT (phase 8's,
+    `teacher`) with CFG 7.5 at t = 999 and phase 8's contexts."""
     import numpy as np
     import torch
     from omnihuman_tpu_torch.apt.generate import (
         load_teacher_data, teacher_cfg_velocity)
     from omnihuman_tpu_torch.configs import T2V_1_3B
-    from omnihuman_tpu_torch.models.wan_dit import build_wan_model
     from omnihuman_tpu_torch.ops.rope import rope_angles_3d
-    from omnihuman_tpu_torch.utils.convert import load_wan_dit_checkpoint
 
-    teacher = build_wan_model(T2V_1_3B.model, "cuda", torch.bfloat16,
-                              seed=None)
-    load_wan_dit_checkpoint(teacher, os.path.join(WORK, "dit"))
     data = load_teacher_data(npz)
     n = APT_VIDEO["samples"]
     gen = torch.Generator(device="cuda").manual_seed(APT_VIDEO["seed"])
@@ -2695,16 +2740,16 @@ def _write_video_npz(npz, path):
              positive_contexts=data["positive_contexts"][:n],
              negative_context=data["negative_context"],
              v_teacher=v.cpu().numpy())
-    del teacher
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def phase_train_apt(npz, kernels):
+def phase_train_apt(npz, kernels, teacher):
     """[21] cli.train_apt at t2v-1.3B full width: 2 image updates on phase
-    8's npz (1,560 tokens), 2 video updates on an 81-frame npz (32,760
-    tokens), the generator booted from the distill EMA; then a resume
-    after the video final is lost."""
+    8's npz (1,560 tokens), 1 video update on an 81-frame npz (32,760
+    tokens; its v_teacher from phase 8's DiT, `teacher`), the generator
+    booted from the distill EMA; then a resume after the video final is
+    lost."""
     import numpy as np
     import torch
     from omnihuman_tpu_torch.cli import train_apt
@@ -2712,7 +2757,7 @@ def phase_train_apt(npz, kernels):
 
     video_npz = os.path.join(WORK, "video_81f.npz")
     t0 = time.perf_counter()
-    _write_video_npz(npz, video_npz)
+    _write_video_npz(npz, video_npz, teacher)
     log(f"[21] 81-frame video npz ({APT_VIDEO['samples']} samples, "
         f"v_teacher by the batch-2 teacher CFG) in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2721,7 +2766,7 @@ def phase_train_apt(npz, kernels):
             os.path.join(WORK, "dit"), "--consistency_path",
             os.path.join(WORK, "distill"), "--data_path", npz,
             "--video_data_path", video_npz, "--output_dir", out,
-            "--image_updates", "2", "--video_updates", "2",
+            "--image_updates", "2", "--video_updates", "1",
             "--save_interval", "2"]
     # an update: D (the generator and 3 discriminator forwards, features
     # cut) and G (generator forward + recompute, discriminator forward and
@@ -2736,7 +2781,7 @@ def phase_train_apt(npz, kernels):
     total = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     counts = _count(kernels)
-    want = _want(kernels, *(4 * n for n in per_update))
+    want = _want(kernels, *(3 * n for n in per_update))
     for h in history:
         tokens = 32760 if h["phase"] else 1560
         log(f"[21] APT {'video' if h['phase'] else 'image'} update "
@@ -2746,26 +2791,26 @@ def phase_train_apt(npz, kernels):
         if not all(np.isfinite(h[k]) for k in ("d_loss", "r1_loss",
                                                "g_loss")):
             fail("an APT loss is not finite")
-    log(f"[21] cli.train_apt: 2 image + 2 video updates in {total:.1f} s "
+    log(f"[21] cli.train_apt: 2 image + 1 video updates in {total:.1f} s "
         f"(with model builds and saves), peak device memory {peak:.1f} GiB; "
         f"saves {saves.text()}; launches {counts}, expected {want}")
     mgr = CheckpointManager(out)
     metas = {s: mgr.restore_metadata(s) for s in mgr.all_steps()}
     if metas != {2: {"phase": "image", "update": 2, "final": True},
-                 4: {"phase": "video", "update": 2, "final": True}}:
+                 3: {"phase": "video", "update": 1, "final": True}}:
         fail(f"APT checkpoints / metadata unexpected: {metas}")
     if counts != want:
         fail("the APT path did not send every attention through K1 and K2")
-    shutil.rmtree(os.path.join(out, "step_00000004"))
+    shutil.rmtree(os.path.join(out, "step_00000003"))
     _zero(kernels)
     _, resumed = train_apt.main(argv + ["--resume"])
     got = _count(kernels)
     log(f"[21] --resume after the video final was lost: updates "
         f"{[(h['phase'], h['update']) for h in resumed]}, steps "
         f"{mgr.all_steps()}, launches {got}")
-    if [(h["phase"], h["update"]) for h in resumed] != [(1.0, 1), (1.0, 2)] \
-            or mgr.all_steps() != [2, 4] or got != _want(
-                kernels, *(2 * n for n in per_update)):
+    if [(h["phase"], h["update"]) for h in resumed] != [(1.0, 1)] \
+            or mgr.all_steps() != [2, 3] or got != _want(
+                kernels, *per_update):
         fail("the APT resume did not rerun the video phase from the image "
              "final")
     shutil.rmtree(out, ignore_errors=True)
@@ -3544,8 +3589,8 @@ def phase_export(all_kernels, pipe):
     if counts != _want(all_kernels, NUM_LAYERS, NUM_LAYERS):
         fail(f"the exported step did not launch K1 {NUM_LAYERS} + "
              f"{NUM_LAYERS} times")
-    ms_exp = bench_ms(exported, reps=7, warmup=1)
-    ms_eager = bench_ms(eager, reps=7, warmup=1)
+    ms_exp = bench_ms(exported, reps=3, warmup=1)
+    ms_eager = bench_ms(eager, reps=3, warmup=1)
     log(f"[27] ms a step at {seq} tokens, text {mc.text_len} keys "
         f"untrimmed: exported {ms_exp:.1f}, eager {ms_eager:.1f} "
         f"({100 * (ms_exp / ms_eager - 1):+.2f}%)")
@@ -3887,19 +3932,6 @@ def phase_sp_serve(all_kernels, pipe):
     from omnihuman_tpu_torch.parallel import MeshConfig, create_mesh
 
     want, want_s, want_t = _sp_request(pipe)
-    # the pipelines serve under torch.no_grad; the same request inside
-    # torch.inference_mode, alternated with it, times the other choice
-    per_step = {"no_grad": [want_t["denoise_s"]], "inference_mode": []}
-    same = True
-    for mode in ("inference_mode", "no_grad", "inference_mode"):
-        with (torch.inference_mode() if mode == "inference_mode"
-              else contextlib.nullcontext()):
-            lat, _, t = _sp_request(pipe)
-        per_step[mode].append(t["denoise_s"])
-        same = same and torch.equal(lat, want)
-    log(f"[29] phase 5's request, denoise ms/step by grad mode: " + ", ".join(
-        f"{m} {[round(x / SMOKE['steps'] * 1e3, 1) for x in v]}"
-        for m, v in per_step.items()) + f"; latents bit-equal: {same}")
     dist.init_process_group(
         "nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
         world_size=1, device_id=torch.device("cuda", 0))
@@ -3956,7 +3988,7 @@ def phase_sp_serve(all_kernels, pipe):
         _, _, again_t = _sp_request(mp)
         prof = {}
         for tag, p_ in (("unsharded", pipe), ("mesh", mp)):
-            prof[tag] = kernel_split(lambda: _sp_request(p_))
+            prof[tag] = kernel_split(lambda: _sp_request(p_), cpu=True)
         log(f"[29] mesh request again: "
             f"{again_t['denoise_s'] / steps * 1e3:.1f} ms/step; device "
             f"kernel time of one request: " + "; ".join(
@@ -4670,6 +4702,312 @@ def run_sp_train_phase(all_kernels, paths, flagship_s=None):
         f"under 120 s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the spatial halo exchange (the W-sharded VAE, the one-step
+# generator and the H-sharded pose guider on a mesh)
+
+SPATIAL = dict(decode_ranks=(2, 4, 8), encode_ranks=(2, 4), seed=3131,
+               workers=None)
+
+
+def _shard_k_shapes(ranks):
+    """The largest K3 / K4 call of one rank's W shard of the 81-frame
+    decode (the widest rank): phase 12's rows at (W / R + 2) columns."""
+    from omnihuman_tpu_torch.parallel.spatial import shard_bounds
+    widest = max(e - s for s, e in shard_bounds(104, ranks))
+    t, h, _, cin, cout = K3_ROW
+    k3 = (t, h, 8 * widest + 2, cin, cout)
+    t, h, _, cin, cout = K4_ROW
+    k4 = (t, h, 4 * widest + 2, cin, cout)
+    return k3, k4
+
+
+def _sharded_pass(tag, run, whole, whole_s, ranks, vae_kernels, count_of):
+    """[31a] `run(spatial)` (a W-sharded decode or encode) on R recorded
+    virtual ranks against the unsharded output, its launches, and every
+    rank's program replayed alone and timed against 1/R of the unsharded
+    pass. Returns the JSON row."""
+    import torch
+    from omnihuman_tpu_torch.parallel.spatial import VirtualRanks
+    vr = VirtualRanks(ranks, record=True)
+    _zero(vae_kernels)
+    got, sec, peak = _timed(lambda: run(vr))
+    counts = _count(vae_kernels)
+    diff = got.float() - whole.float()
+    rel = (diff.norm() / whole.float().norm()).item()
+    max_abs = diff.abs().max().item()
+    peak_abs = whole.float().abs().max().item()
+    want = {kn.name: ranks * n for kn, n in zip(vae_kernels, count_of)}
+    log(f"[31] {tag} on {ranks} virtual ranks: lockstep {sec:.3f} s, peak "
+        f"{peak:.2f} GiB; against the unsharded pass bit-equal "
+        f"{torch.equal(got, whole)}, max abs {max_abs:.3g} (peak "
+        f"{peak_abs:.3g}), relative L2 {rel:.3g}; launches {counts}, "
+        f"expected {want} (every rank's K3 / K4 on its halo-extended shard)")
+    if (tuple(got.shape) != tuple(whole.shape) or not torch.isfinite(
+            got.float()).all() or rel > 1e-2 or max_abs > 2 ** -4 * peak_abs):
+        fail(f"[31] {tag} on {ranks} ranks differs from the unsharded pass")
+    if counts != want:
+        fail(f"[31] {tag} on {ranks} ranks launched {counts}, not {want}")
+    times = []
+    for r in range(ranks):
+        replay = vr.replay(r)
+        run_r = (lambda rp=replay, r=r: run((rp.rewind(), r)))
+        run_r()
+        reps = []
+        for _ in range(3):
+            _, t_r, _ = _timed(run_r)
+            reps.append(t_r)
+        times.append(statistics.median(reps))
+    slowest = max(times)
+    log(f"[31] {tag} per-rank programs replayed alone (median of 3): "
+        + ", ".join(f"{t * 1e3:.1f}" for t in times)
+        + f" ms; slowest x{slowest / (whole_s / ranks):.3f} of 1/{ranks} of "
+        f"the unsharded {whole_s * 1e3:.1f} ms")
+    del got, diff, vr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ranks=ranks, lockstep_s=sec, rel_l2=rel, max_abs=max_abs,
+                rank_ms=[t * 1e3 for t in times], whole_ms=whole_s * 1e3,
+                launches=counts)
+
+
+def phase_spatial_programs():
+    """[31a] The W-sharded VAE on virtual ranks on one card: the 81-frame
+    480x832 decode (latent [1, 16, 21, 60, 104]) at R = 2, 4, 8 and the
+    encode of a clip of that size at R = 2, 4, every rank's program
+    (`vae_decode_shard` / `vae_encode_shard`) running K3 and K4 on its
+    halo-extended shard, the assembled output held against the unsharded
+    pass, each rank replayed alone and timed against 1/R of it; then K3
+    and K4 at each R's widest shard shapes against their plain versions.
+    Returns {"rows": [...], "k3": [...], "k4": [...], "launches": {...}}."""
+    import torch
+    from omnihuman_tpu_torch.configs import T2V_1_3B
+    from omnihuman_tpu_torch.models.vae import (
+        WShard, build_vae, shard_inputs, vae_decode, vae_decode_shard,
+        vae_encode, vae_encode_shard)
+    from omnihuman_tpu_torch.ops.vae_kernels import VAE_CONV, VAE_UPSAMPLE
+    from omnihuman_tpu_torch.parallel.spatial import VirtualRanks
+
+    vae_kernels = (VAE_CONV, VAE_UPSAMPLE)
+    vae = build_vae(T2V_1_3B.vae, "cuda", torch.bfloat16, seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(SPATIAL["seed"])
+    z = torch.randn((1, 16, 21, 60, 104), generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    video = (torch.rand((1, 3, 81, 480, 832), generator=gen, device="cuda")
+             * 2 - 1).to(torch.bfloat16)
+    out = {"rows": [], "k3": [], "k4": [], "launches": {}}
+    with torch.inference_mode():
+        for name, whole_fn, shard_fn, inp, per_latent, ranks_list, n in (
+                ("decode", lambda x, sp=None: vae_decode(
+                    vae, x, clamp=False, conv_impl="cuda", spatial=sp),
+                 lambda x, sp: vae_decode_shard(vae, x, sp, clamp=False,
+                                                conv_impl="cuda"),
+                 z, 1, SPATIAL["decode_ranks"], (588, 63)),
+                ("encode", lambda x, sp=None: vae_encode(
+                    vae, x, conv_impl="cuda", spatial=sp),
+                 lambda x, sp: vae_encode_shard(vae, x, sp,
+                                                conv_impl="cuda"),
+                 video, 8, SPATIAL["encode_ranks"], (420, 0))):
+            whole_fn(inp)                                   # warm-up
+            whole, whole_s, _ = _timed(lambda: whole_fn(inp))
+            _, again_s, _ = _timed(lambda: whole_fn(inp))
+            whole_s = min(whole_s, again_s)
+            for ranks in ranks_list:
+                widths, shards = shard_inputs(inp, ranks, per_latent)
+
+                def run(spatial, widths=widths, shards=shards):
+                    if isinstance(spatial, VirtualRanks):   # the entry point
+                        return whole_fn(inp, spatial)
+                    replay, r = spatial                     # rank r alone
+                    return shard_fn(shards[r], WShard(replay, widths))
+
+                row = _sharded_pass(f"vae_{name} 81 frames", run, whole,
+                                    whole_s, ranks, vae_kernels, n)
+                row["pass"] = name
+                out["rows"].append(row)
+                out["launches"][f"vae_{name}_w{ranks}"] = row["launches"]
+            del whole
+            gc.collect()
+            torch.cuda.empty_cache()
+    del vae, z, video
+    gc.collect()
+    torch.cuda.empty_cache()
+    rnd = _vae_rnd(SPATIAL["seed"])
+    for ranks in SPATIAL["decode_ranks"]:
+        k3, k4 = _shard_k_shapes(ranks)
+        out["k3"].append(dict(k3_case(*k3, tag="31", rnd=rnd), ranks=ranks,
+                              shape=list(k3)))
+        out["k4"].append(dict(k4_case(*k4, tag="31", rnd=rnd), ranks=ranks,
+                              shape=list(k4)))
+    return out
+
+
+def phase_spatial_mesh(all_kernels, one_step_ref):
+    """[31b] A one-rank NCCL process group, MeshConfig(1, 1, 1):
+    `SeaweedWanAPTGenerator` over phase 5's pipeline built on the mesh
+    (the ring and sp_cross at sp 1, FSDP2 over one rank, the decode
+    W-sharded over the world through the halo path) on phase 15's two
+    prompts and contexts, held against phase 15's unsharded batch, launch
+    counts zeroed just before and read just after; then an OmniHuman
+    training step at 3,584 tokens (phase 30's) with the pose guider on its
+    H-sharded path (`pose_sharding` the sp mesh: halos and the gather over
+    one rank), held against the same step with the heatmaps whole, within
+    3x the spread of two whole-pose runs (K2's dQ order). Returns the
+    one-step counts."""
+    import torch
+    import torch.distributed as dist
+    from omnihuman_tpu_torch.configs import T2V_1_3B
+    from omnihuman_tpu_torch.omni.trainer import omni_train_step
+    from omnihuman_tpu_torch.parallel import MeshConfig, create_mesh
+    from omnihuman_tpu_torch.parallel.train_mesh import TrainMeshPlan
+    from omnihuman_tpu_torch.pipelines.wan_inference import (
+        SeaweedWanAPTGenerator)
+
+    want, ctx, lens = one_step_ref
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = create_mesh(MeshConfig(1, 1, 1))
+        mp = t2v_pipe(mesh)
+        gen = SeaweedWanAPTGenerator(mp)
+        w, h = FLAGSHIP["size"]
+        _zero(all_kernels)
+        videos, sec, peak = _timed(lambda: gen.generate_batch(
+            list(ONE_STEP["prompts"]), size=(w, h),
+            frame_num=ONE_STEP["frames"], seed=ONE_STEP["seed"],
+            context=ctx, context_lens=lens))
+        counts = _count(all_kernels)
+        tm = gen.timings
+        diff = videos.float() - want.float()
+        rel = (diff.norm() / want.float().norm()).item()
+        f_lat = f_lat_of(ONE_STEP)
+        expect = [NUM_LAYERS, NUM_LAYERS, 0, 28 * f_lat, 3 * f_lat]
+        log(f"[31] one-step batch on the one-rank mesh: {sec:.2f} s (DiT "
+            f"{tm['dit_s']:.3f} s, W-sharded decode {tm['vae_decode_s']:.3f}"
+            f" s), peak {peak:.1f} GiB; against phase 15's unsharded batch "
+            f"bit-equal {torch.equal(videos, want)}, max abs "
+            f"{diff.abs().max().item():.3g}, relative L2 {rel:.3g} (tol "
+            f"1e-3); launches {counts}, expected {expect}")
+        if rel > 1e-3 or not torch.isfinite(videos.float()).all():
+            fail("[31] the mesh one-step videos differ from phase 15's")
+        if list(counts.values()) != expect:
+            fail("[31] the mesh one-step batch launched other kernels")
+        del mp, gen, videos, diff
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        plan = TrainMeshPlan(mesh, torch.device("cuda", 0))
+        state, rec, batch, (masks, t, noise) = _omni_setup(plan)
+        runs = []
+        for tag, b in (("whole", batch),
+                       ("H path", dict(batch, pose_sharding=mesh["sp"])),
+                       ("whole again", batch)):
+            _, m = omni_train_step(state, b, masks, t, noise, optimizer=rec,
+                                   policy=T2V_1_3B.policy, plan=plan)
+            runs.append((tag, float(m["loss"]), float(m["grad_norm"]),
+                         rec.grads))
+            if len(runs) == 3:
+                spread = _rel_l2_list(runs[2][3], runs[0][3])
+                runs[2] = runs[2][:3]
+        rel = _rel_l2_list(runs[1][3], runs[0][3])
+        tol = max(1e-4, 3 * spread)
+        log(f"[31] omni step (3,584 tokens) on the mesh, pose guider on its "
+            f"H path vs whole heatmaps: loss {runs[1][1]:.6g} vs "
+            f"{runs[0][1]:.6g}, grad norm {runs[1][2]:.6g} vs "
+            f"{runs[0][2]:.6g}, gradients relative L2 {rel:.3g} (two "
+            f"whole-pose runs: {spread:.3g}; tol {tol:.3g})")
+        if (abs(runs[1][1] - runs[0][1]) > 1e-3 * abs(runs[0][1])
+                or rel > tol):
+            fail("[31] the H-path omni step differs from the whole-pose one")
+        del state, rec, batch, runs
+        return counts
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_spatial_multi():
+    """[31c] With two or more cards: `torchrun` runs this script's
+    --spatial-worker mode, the 81-frame decode W-sharded over every card
+    through NCCL, held against one card's unsharded decode; with one card,
+    logged as not run."""
+    count = __import__("torch").cuda.device_count()
+    if count < 2:
+        log(f"[31] (c) not run: {count} card; the W-sharded decode over "
+            f"NCCL needs >= 2 cards (torchrun --nproc_per_node N "
+            f"chip_smoke.py --spatial-worker OUT)")
+        return
+    os.makedirs(WORK, exist_ok=True)
+    out = os.path.join(WORK, "spatial.json")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={min(8, count)}", os.path.abspath(__file__),
+         "--spatial-worker", out],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        fail(f"[31] torchrun --spatial-worker failed:\n{r.stderr[-3000:]}")
+    res = json.load(open(out))
+    log(f"[31] (c) the decode W-sharded over {res['ranks']} cards (NCCL): "
+        f"{res}; {time.perf_counter() - t0:.1f} s with start-up")
+    if res["rel_l2"] > 1e-2:
+        fail("[31] the NCCL W-sharded decode differs from one card's")
+
+
+def spatial_worker(out: str) -> None:
+    """--spatial-worker OUT, one rank under torchrun: the 81-frame decode
+    of phase 31 (a)'s latent W-sharded over the world (NCCL); rank 0 also
+    decodes unsharded and writes the comparison and times to OUT."""
+    import torch
+    import torch.distributed as dist
+    from omnihuman_tpu_torch.configs import T2V_1_3B
+    from omnihuman_tpu_torch.models.vae import build_vae, vae_decode
+    from omnihuman_tpu_torch.parallel.mesh import init_distributed
+    dev = init_distributed()
+    try:
+        vae = build_vae(T2V_1_3B.vae, dev, torch.bfloat16, seed=1)
+        gen = torch.Generator(device=dev).manual_seed(SPATIAL["seed"])
+        z = torch.randn((1, 16, 21, 60, 104), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        with torch.inference_mode():
+            dec = lambda: vae_decode(vae, z, clamp=False, conv_impl="cuda",
+                                     spatial=dist.group.WORLD)
+            dec()
+            got, sec, _ = _timed(dec)
+            if dist.get_rank() == 0:
+                whole, whole_s, _ = _timed(lambda: vae_decode(
+                    vae, z, clamp=False, conv_impl="cuda"))
+                rel = ((got.float() - whole.float()).norm()
+                       / whole.float().norm()).item()
+                with open(out, "w") as f:
+                    json.dump({"ranks": dist.get_world_size(),
+                               "sharded_s": sec, "whole_s": whole_s,
+                               "rel_l2": rel}, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_spatial_phase(all_kernels, paths, one_step_ref):
+    """Phase 31 (a), (b), (c), timed. Returns phase 31 (a)'s rows."""
+    import torch
+    t0 = time.perf_counter()
+    try:
+        rows = phase_spatial_programs()
+        paths.update(rows["launches"])
+        paths["spatial_one_step"] = phase_spatial_mesh(all_kernels,
+                                                       one_step_ref)
+        phase_spatial_multi()
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[31] phase wall time {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def run_slice_12_phases(all_kernels, paths):
     """Phases 25, 26 and 28, each timed (27 runs after phase 6, on phase
     5's pipeline)."""
@@ -4694,27 +5032,33 @@ def run_training_phases(flash_kernels, all_kernels, paths):
     dropped on return. Returns phase 10's step seconds."""
     import torch
     try:
-        counts, npz = phase_training_main_path(flash_kernels)
+        counts, npz, dit = timed_phase(8, phase_training_main_path,
+                                       flash_kernels)
         paths.update(counts)
-        state, opt = phase_distill_vs_plain(npz, flash_kernels)
-        flagship_s = phase_flagship_distill_step(state, opt)
-        phase_apt_steps(state, npz, flash_kernels)
+        state, opt = timed_phase(9, phase_distill_vs_plain, npz,
+                                 flash_kernels, dit)
+        flagship_s = timed_phase(10, phase_flagship_distill_step, state, opt)
+        timed_phase(11, phase_apt_steps, state, npz, flash_kernels)
         del state, opt
         gc.collect()
         torch.cuda.empty_cache()
-        run_slice_10_phases(npz, all_kernels, paths)
+        run_slice_10_phases(npz, all_kernels, paths, dit)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     return flagship_s
 
 
-def run_slice_10_phases(npz, all_kernels, paths, phases=(19, 20, 21, 22)):
-    """Phases 19-22 (after phase 8), each timed; each must give back the
-    device memory it took, or the later phases' peaks would read high."""
+def run_slice_10_phases(npz, all_kernels, paths, dit,
+                        phases=(19, 20, 21, 22)):
+    """Phases 19-22 (after phase 8, on its files and its frozen DiT), each
+    timed; each must give back the device memory it took, or the later
+    phases' peaks would read high."""
     import torch
     run = {19: ("generate_ckpt", lambda: phase_ckpt_dir(all_kernels)),
-           20: ("f_distill", lambda: phase_f_distill(npz, all_kernels)),
-           21: ("train_apt", lambda: phase_train_apt(npz, all_kernels)),
+           20: ("f_distill", lambda: phase_f_distill(npz, all_kernels,
+                                                     dit)),
+           21: ("train_apt", lambda: phase_train_apt(npz, all_kernels,
+                                                     dit)),
            22: ("eval_ema", lambda: phase_eval_ema(npz, all_kernels))}
     base = _gib_in_use()
     for phase in phases:
@@ -4739,6 +5083,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--train-worker"]:    # one rank under torchrun
         sys.path.insert(0, HERE)
         return train_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--spatial-worker"]:  # one rank under torchrun
+        sys.path.insert(0, HERE)
+        return spatial_worker(sys.argv[2])
     if not os.path.isdir(os.path.join(HERE, "omnihuman_tpu_torch")):
         fail("omnihuman_tpu_torch/ is not beside chip_smoke.py: run this "
              "from the root of a checkout of the repository")
@@ -4750,10 +5097,10 @@ def main() -> None:
 
     card = phase_card_facts()
     phase_build()
-    rows = phase_kernels()
-    bwd_rows = phase_backward_kernels()
-    vae_rows = phase_vae_kernels()
-    phase_small_reference()
+    rows = timed_phase(3, phase_kernels)
+    bwd_rows = timed_phase(7, phase_backward_kernels)
+    vae_rows = timed_phase(12, phase_vae_kernels)
+    timed_phase(4, phase_small_reference)
     from omnihuman_tpu_torch.ops.flash_attention import (
         FLASH_BWD, FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K)
     from omnihuman_tpu_torch.ops.vae_kernels import VAE_CONV, VAE_UPSAMPLE
@@ -4761,10 +5108,10 @@ def main() -> None:
     flash_kernels = kernels + (FLASH_BWD,)
     all_kernels = flash_kernels + (VAE_CONV, VAE_UPSAMPLE)
     _zero(all_kernels)
-    pipe, launches = phase_main_path(kernels)
+    pipe, launches = timed_phase(5, phase_main_path, kernels)
     paths = {"serve": _count(all_kernels)}
-    phase_step_vs_plain(pipe)
-    phase_flagship_step(pipe)
+    timed_phase("5b", phase_step_vs_plain, pipe)
+    timed_phase(6, phase_flagship_step, pipe)
     t0 = time.perf_counter()
     try:
         paths["export"] = phase_export(all_kernels, pipe)
@@ -4779,10 +5126,14 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     run_sp_train_phase(all_kernels, paths, flagship_s)
-    paths.update(phase_vae_full((VAE_CONV, VAE_UPSAMPLE)))
-    paths["i2v"] = phase_i2v(all_kernels, kernels)
-    paths["one_step"] = phase_one_step(all_kernels, kernels)
-    paths["omni"], omni_pipe = phase_omni(all_kernels, kernels)
+    paths.update(timed_phase(13, phase_vae_full, (VAE_CONV, VAE_UPSAMPLE)))
+    paths["i2v"] = timed_phase(14, phase_i2v, all_kernels, kernels)
+    paths["one_step"], one_step_ref = timed_phase(15, phase_one_step,
+                                                  all_kernels, kernels)
+    spatial = run_spatial_phase(all_kernels, paths, one_step_ref)
+    del one_step_ref
+    paths["omni"], omni_pipe = timed_phase(16, phase_omni, all_kernels,
+                                          kernels)
     try:
         t0 = time.perf_counter()
         paths["omni_pose"], proc = phase_pose(all_kernels, kernels, card,
@@ -4800,9 +5151,10 @@ def main() -> None:
             f"{_gib_in_use():.2f} GiB in use after it")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    phase_int8_step()
+    timed_phase(17, phase_int8_step)
     try:
-        paths["omni_train"], _ = phase_omni_train(all_kernels, flash_kernels)
+        paths["omni_train"], _ = timed_phase(18, phase_omni_train,
+                                             all_kernels, flash_kernels)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     run_slice_12_phases(all_kernels, paths)
@@ -4834,7 +5186,8 @@ def main() -> None:
              "omnihuman_tpu/ops/vae_pallas.py:278")):
         out.append(dict(name=kn.name, route="cuda", source=src,
                         replaces=replaces, launches=paths["i2v"][kn.name],
-                        **vae_rows[key], launches_by_path=by_path(kn)))
+                        **vae_rows[key], launches_by_path=by_path(kn),
+                        w_shard_rows=spatial[key]))
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,8 @@ image-to-video and the one-step APT generator.
         --use_prompt_extend --prompt "..."
     torchrun --nproc_per_node 4 -m omnihuman_tpu_torch.cli.generate \\
         --task t2v-14B --size 720*1280 --sp_size 4
+    torchrun --nproc_per_node 4 -m omnihuman_tpu_torch.cli.generate \\
+        --task t2v-1.3B --one_step --sp_size 2 --fsdp_size 2
 
 Runs on the GPU unless `--device cpu` is given. `--ckpt_dir` names a Wan
 checkpoint directory in the reference layout (`*.safetensors` DiT shards,
@@ -29,8 +31,10 @@ whose template fallback needs no weights).
 `--sp_size` / `--fsdp_size` above 1 run one process per GPU under
 torchrun (NCCL; gloo with `--device cpu`) on a (data, fsdp, sp) mesh,
 data taking the rest of the world (`parallel.mesh_from_flags`): the ring /
-sp_cross attention over `sp`, FSDP2 over `fsdp`; rank 0 writes the file.
-`--one_step` and `--export_step` run on one device.
+sp_cross attention over `sp`, FSDP2 over `fsdp` (the int8 weights of
+`--precision int8` included); rank 0 writes the file. `--one_step` on a
+mesh also shards the VAE decode's W over every rank, with halo exchanges
+(pipelines/wan_inference.py). `--export_step` runs on one device.
 """
 
 from __future__ import annotations
@@ -116,16 +120,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     multi = args.sp_size > 1 or args.fsdp_size > 1
-    if multi and args.one_step:
-        sys.exit("--one_step on a mesh needs the W-sharded VAE decode "
-                 "(ROADMAP queue A, item 19, part 3); run it on one device")
     if multi and args.export_step:
         sys.exit("--export_step exports the single-device step; drop "
                  "--sp_size / --fsdp_size")
-    if args.precision == "int8" and args.fsdp_size > 1:
-        sys.exit("--precision int8 with --fsdp_size > 1: FSDP2 does not "
-                 "shard the int8 weights (buffers) yet (ROADMAP queue A, "
-                 "item 19, part 3)")
     import torch.distributed as dist
     owned = not dist.is_initialized()
     try:
@@ -203,7 +200,7 @@ def _main(args):
                                   frame_num=frame_num, **sampling)
         timings = pipe.timings
     elif args.one_step:
-        return _one_step(args, cfg, (w, h), frame_num, out, prof)
+        return _one_step(args, cfg, (w, h), frame_num, out, prof, mesh)
     else:
         pipe = WanT2V(cfg, precision=args.precision, device=args.device,
                       checkpoint_dir=args.ckpt_dir, mesh=mesh)
@@ -258,28 +255,22 @@ def _extend_prompt(args) -> str:
     return args.prompt
 
 
-def _one_step(args, cfg, size, frame_num: int, out: str, prof):
+def _one_step(args, cfg, size, frame_num: int, out: str, prof, mesh):
     """--one_step: the pipeline's DiT (from --ckpt_dir or random), or the
     EMA stream of the training checkpoint in --generator_ckpt, one forward
-    per batch of prompts."""
+    per batch of prompts. On a mesh (torchrun) every rank runs the
+    forward's plan and its W shard of the decode, and rank 0 writes."""
     import os
 
-    from omnihuman_tpu_torch.ops.quant import quantize_wan_model
+    from omnihuman_tpu_torch.parallel.mesh import is_writer
     from omnihuman_tpu_torch.pipelines.text2video import WanT2V
     from omnihuman_tpu_torch.pipelines.wan_inference import (
         SeaweedWanAPTGenerator)
-    from omnihuman_tpu_torch.utils.checkpoint import restore_ema_into
     from omnihuman_tpu_torch.utils.media import cache_video
 
-    # int8 quantizes after the checkpoint's weights are in
-    int8 = args.precision == "int8"
-    pipe = WanT2V(cfg, precision="fast" if int8 else args.precision,
-                  device=args.device, checkpoint_dir=args.ckpt_dir)
-    if args.generator_ckpt:
-        restore_ema_into(pipe.model, args.generator_ckpt)
-    if int8:
-        quantize_wan_model(pipe.model)
-        pipe.precision = "int8"
+    pipe = WanT2V(cfg, precision=args.precision, device=args.device,
+                  checkpoint_dir=args.ckpt_dir, mesh=mesh,
+                  generator_ckpt=args.generator_ckpt)
     gen = SeaweedWanAPTGenerator(pipe)
     if args.prompts_file:
         with open(args.prompts_file, encoding="utf-8") as f:
@@ -290,6 +281,8 @@ def _one_step(args, cfg, size, frame_num: int, out: str, prof):
             videos = gen.generate_batch(prompts, size=size,
                                         frame_num=frame_num,
                                         seed=args.base_seed)
+        if not is_writer():
+            return None
         root, ext = os.path.splitext(out)
         paths = [cache_video(videos[i], f"{root}_{i:02d}{ext}",
                              fps=cfg.sample_fps)
@@ -299,6 +292,8 @@ def _one_step(args, cfg, size, frame_num: int, out: str, prof):
     with prof:
         video = gen.generate(args.prompt, size=size, frame_num=frame_num,
                              seed=args.base_seed)
+    if not is_writer():
+        return None
     path = cache_video(video, out, fps=cfg.sample_fps)
     print(f"saved {path}  one-step timings: {gen.timings}")
     return path

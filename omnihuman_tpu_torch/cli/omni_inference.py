@@ -140,10 +140,6 @@ def join_mesh(args):
     omni_inference.py:87-94); a single process with sizes above 1 exits
     naming torchrun."""
     from omnihuman_tpu_torch.parallel.mesh import mesh_from_flags
-    if args.precision == "int8" and args.fsdp_size > 1:
-        sys.exit("--precision int8 with --fsdp_size > 1: FSDP2 does not "
-                 "shard the int8 weights (buffers) yet (ROADMAP queue A, "
-                 "item 19, part 3)")
     return mesh_from_flags(args.fsdp_size, args.sp_size, args.device,
                            module="omnihuman_tpu_torch.cli.omni_inference")
 

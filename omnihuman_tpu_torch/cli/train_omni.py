@@ -21,7 +21,8 @@ above 1 train on a (data, fsdp, sp) mesh under torchrun, as
 `cli.train_distill` does (omni/trainer.py: FSDP2 on the omni model, the
 ring on the packed tokens, each data rank's slice of the global batch;
 every rank encodes the global batch with its own whole VAE and umT5, and
-the pose heatmaps stay whole); rank 0 writes the files.
+each sp rank's pose guider takes its rows of the heatmaps where their
+height allows, `TrainMeshPlan.put_batch`); rank 0 writes the files.
 
 `main` reads videos through `OmniHumanDataset` (OpenCV) and reports bad
 ones to the `ProblematicVideoTracker`; `run(args, data_iter_factory)`

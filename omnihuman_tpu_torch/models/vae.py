@@ -33,10 +33,27 @@ op between them keeps that format; the kernels refuse anything else.
 
 The RGB head is a plain causal conv (the JAX `_head_conv_blocked` is a TPU
 lane-fill rewrite of the same function).
+
+`spatial` shards W over a group (JAX `spatial_sharding`, which GSPMD
+partitions): every rank runs `vae_decode_shard` / `vae_encode_shard` on
+its `shard_bounds` columns and fetches halos itself (parallel/spatial.py).
+A 3x3 conv (the causal convs, each K3 call, the head) reads 1 column of
+each neighbour, a K4 upsample 1 low-res column (its output loses 2
+high-res columns on each side), the encoder's corner downsample 1 column
+on the right; 1x1x1 convs and the time-only convs are local. A K3 call
+takes the raw halo and activates it itself (a zero column at the image's
+edge activates to zero, SAME's padding) and keeps its cache at the
+extended width, so the next chunk reads the neighbours' activated
+history. The mid-block attention keeps its queries and gathers K and V
+over the group. The kernels see only fresh halo-extended buffers in
+channels_last_3d memory; their cropped outputs go to torch ops or to the
+next exchange, which copies. JAX refuses Pallas under `spatial_sharding`;
+here `conv_impl` keeps its meaning.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -46,6 +63,9 @@ from torch import nn
 
 from omnihuman_tpu_torch.configs.wan import VAEConfig
 from omnihuman_tpu_torch.ops import vae_kernels
+from omnihuman_tpu_torch.parallel.spatial import (
+    VirtualRanks, gather_spatial, group_rank, group_size, halo_exchange,
+    shard_bounds)
 
 CONV_IMPLS = ("auto", "torch", "cuda", "plain")
 
@@ -234,32 +254,37 @@ def build_vae(cfg: VAEConfig, device, dtype: torch.dtype,
 # primitive layers (x: [B, C, T, H, W])
 
 
-def _conv3d(x, conv: nn.Conv3d, padding: str = "causal", stride=1):
+def _conv3d(x, conv: nn.Conv3d, padding: str = "causal", stride=1,
+            halo_w: bool = False):
     """padding='causal': zero-pad kt-1 frames at the front, SAME on h/w;
     'valid_t': no time padding (the caller supplies history). The odd
     spatial kernels pad symmetrically inside the conv, which keeps x's
-    memory format."""
+    memory format. halo_w: x carries its (kw-1)/2 halo columns on each
+    side already, so W is not padded (a W shard, `_halo_w`)."""
     w, b = conv.weight, conv.bias
     kt, kh, kw = w.shape[2:]
     x = x.to(w.dtype)
     if padding == "causal" and kt > 1:
         x = F.pad(x, (0, 0, 0, 0, kt - 1, 0))
-    pad = (0, (kh - 1) // 2, (kw - 1) // 2)
+    pad = (0, (kh - 1) // 2, 0 if halo_w else (kw - 1) // 2)
     if b.dtype == w.dtype:
         return F.conv3d(x, w, b, stride=stride, padding=pad)
     return (F.conv3d(x, w, stride=stride, padding=pad)
             + b.view(1, -1, 1, 1, 1))             # JAX promotes here
 
 
-def _conv2d_frames(x, conv: nn.Conv2d, stride=1, padding="same"):
+def _conv2d_frames(x, conv: nn.Conv2d, stride=1, padding="same",
+                   halo_w: bool = False):
     """Per-frame conv2d on [B, C, T, H, W] (a 1 x kh x kw conv3d).
     padding='corner': zero row / column at the bottom / right, then VALID
-    (the reference's downsample ZeroPad2d((0, 1, 0, 1)))."""
+    (the reference's downsample ZeroPad2d((0, 1, 0, 1))); with halo_w, x
+    brings its right column (the neighbour's first, or the zero one at the
+    image's edge) itself."""
     w, b = conv.weight, conv.bias
     kh, kw = w.shape[2:]
     x = x.to(w.dtype)
     if padding == "corner":
-        x = F.pad(x, (0, 1, 0, 1))
+        x = F.pad(x, (0, 0 if halo_w else 1, 0, 1))
         pad = 0
     else:
         pad = (0, (kh - 1) // 2, (kw - 1) // 2)
@@ -281,8 +306,11 @@ def _rms_norm_channel(x, gamma):
     return y.to(x.dtype)
 
 
-def _spatial_attention(p: AttentionBlock, x):
-    """Single-head per-frame self-attention (vae.py:223-263), plain torch."""
+def _spatial_attention(p: AttentionBlock, x, sp=None):
+    """Single-head per-frame self-attention (vae.py:223-263), plain torch.
+    On a W shard (`sp`) the queries stay local and K and V are gathered
+    over the group: every query attends over the whole frame, keys in the
+    unsharded (row, column) order."""
     b, c, t, h, w = x.shape
     idn = x
     xf = _rms_norm_channel(x, p.norm.gamma)
@@ -290,6 +318,10 @@ def _spatial_attention(p: AttentionBlock, x):
     wq, bq = p.to_qkv.weight[:, :, 0, 0], p.to_qkv.bias
     qkv = xf.to(wq.dtype) @ wq.t() + bq
     q, k, v = qkv.chunk(3, dim=-1)
+    if sp is not None:
+        k, v = (gather_spatial(z.reshape(b * t, h, w, c), 2, sp.group,
+                               sp.sizes(w)).reshape(b * t, -1, c)
+                for z in (k, v))
     logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * (c ** -0.5)
     attn = torch.softmax(logits, dim=-1).to(v.dtype)
     y = torch.matmul(attn.float(), v.float()).to(v.dtype)
@@ -328,6 +360,34 @@ def _interleave_time(y, c: int):
     return y.reshape(b, c, 2 * t, h, w)
 
 
+@dataclasses.dataclass(frozen=True)
+class WShard:
+    """One rank's place in a W-sharded pass: the `group` the ranks exchange
+    halos over (`parallel/spatial.py`) and every rank's number of latent
+    columns, in rank order (`shard_bounds`)."""
+
+    group: object
+    widths: Tuple[int, ...]
+
+    def sizes(self, w: int) -> List[int]:
+        """Every rank's columns at a level where this rank has `w` (the
+        pixel levels are 2x, 4x, 8x the latent one)."""
+        own = self.widths[group_rank(self.group)]
+        return [x * w // own for x in self.widths]
+
+
+def _halo_w(x, sp: WShard, lo: int = 1, hi: int = 1):
+    """x with its W halo from the neighbouring shards (zeros at the image's
+    edges) in a fresh buffer of x's memory format: the input of a 3x3 conv
+    of a W shard."""
+    return halo_exchange(x, 4, lo, hi, sp.group)
+
+
+def _crop_w(x, n: int):
+    """The inner columns of an output computed on a halo-extended input."""
+    return x[..., n:x.shape[-1] - n]
+
+
 # ---------------------------------------------------------------------------
 # cache plumbing
 
@@ -357,19 +417,24 @@ class _CacheIO:
         self.out.append(c)
 
 
-def _causal_conv_step(conv: nn.Conv3d, x, io: _CacheIO):
-    """CausalConv3d with the optional streaming cache (vae.py:17-35)."""
-    kt = conv.weight.shape[2]
+def _causal_conv_step(conv: nn.Conv3d, x, io: _CacheIO, sp=None):
+    """CausalConv3d with the optional streaming cache (vae.py:17-35). On a
+    W shard (`sp`) the 3x3 conv reads x with its halo and the cache keeps
+    the halo-extended width."""
+    kt, kw = conv.weight.shape[2], conv.weight.shape[4]
     if kt == 1:
         return _conv3d(x, conv, padding="valid_t")
+    halo = sp is not None and kw > 1
+    if halo:
+        x = _halo_w(x, sp)
     if not io.streaming:
-        return _conv3d(x, conv, padding="causal")
+        return _conv3d(x, conv, padding="causal", halo_w=halo)
     cache = io.next()
     if cache is None:
         cache = _zero_frames(x, kt - 1)
     xin = torch.cat([cache.to(x.dtype), x], dim=2)
     io.put(xin[:, :, -(kt - 1):])
-    return _conv3d(xin, conv, padding="valid_t")
+    return _conv3d(xin, conv, padding="valid_t", halo_w=halo)
 
 
 def _fused_convs(layers: List[nn.Module]):
@@ -435,30 +500,41 @@ class _Fused:
 
 
 def _residual_block(p: ResidualBlock, x, io: _CacheIO,
-                    fused: Optional[_Fused]):
+                    fused: Optional[_Fused], sp=None):
     """RMS -> SiLU -> conv3, RMS -> SiLU -> conv3, + shortcut. Fused: each
     norm -> SiLU -> causal conv is one K3 call that also returns the new
-    cache; the identity skip rides in conv2's epilogue (vae.py:186-221)."""
+    cache; the identity skip rides in conv2's epilogue (vae.py:186-221).
+
+    On a W shard (`sp`) each K3 call takes the raw input with its 1-column
+    halo and activates the halo itself (a zero column at the image's edge
+    activates to zero, SAME's padding); its output's outer columns are
+    cropped and its cache keeps the extended width, so the next chunk
+    reads the neighbours' activated history."""
     r = p.residual
     identity = isinstance(p.shortcut, nn.Identity)
     h = x if identity else _conv3d(x, p.shortcut, padding="valid_t")
     if fused is not None and io.streaming:
-        y = x
+        xe = _halo_w(x, sp) if sp is not None else x
+        y = xe
         for i, (norm, conv) in enumerate(((r[0], r[2]), (r[3], r[6]))):
+            if sp is not None and i == 1:
+                y = _halo_w(_crop_w(y, 1), sp)
             cache = io.next()
             if cache is None:
                 cache = _zero_frames(y, 2)
             w2, gamma, bias, wk = fused.packs[conv]
-            res = x if identity and i == 1 else None
+            res = xe if identity and i == 1 else None
             kw = {} if wk is None else {"wk": wk}
             y, cnew = fused.conv(y, cache, gamma, w2, bias, residual=res,
                                  **kw)
             io.put(cnew.to(x.dtype))
+        if sp is not None:
+            y = _crop_w(y, 1)
         return y if identity else y + h
     y = F.silu(_rms_norm_channel(x, r[0].gamma))
-    y = _causal_conv_step(r[2], y, io)
+    y = _causal_conv_step(r[2], y, io, sp)
     y = F.silu(_rms_norm_channel(y, r[3].gamma))
-    y = _causal_conv_step(r[6], y, io)
+    y = _causal_conv_step(r[6], y, io, sp)
     return y + h
 
 
@@ -497,38 +573,49 @@ def _downsample3d_time(conv: nn.Conv3d, x, io: _CacheIO, first: bool):
 
 
 def _resample(p: Resample, x, io: _CacheIO, first: bool,
-              fused: Optional[_Fused]):
+              fused: Optional[_Fused], sp=None):
+    """The time convs are local to a W shard; the upsample conv (K4 or
+    nearest + conv) reads 1 low-res halo column on each side and its
+    output loses 2 high-res columns on each side; the corner downsample
+    reads 1 column on the right."""
     if p.mode == "upsample3d":
         x = _upsample3d_time(p.time_conv, x, io, first)
     conv = p.resample[1]
     if p.mode.startswith("upsample"):
+        if sp is not None:
+            x = _halo_w(x, sp)
         if fused is not None:
             w4, bias, wk = fused.packs[conv]
             kw = {} if wk is None else {"wk": wk}
-            return fused.up(x, w4, bias, **kw)
-        x = F.interpolate(x, scale_factor=(1, 2, 2), mode="nearest")
-        return _conv2d_frames(x, conv)
-    x = _conv2d_frames(x, conv, stride=2, padding="corner")
+            y = fused.up(x, w4, bias, **kw)
+        else:
+            x = F.interpolate(x, scale_factor=(1, 2, 2), mode="nearest")
+            y = _conv2d_frames(x, conv)
+        return y if sp is None else _crop_w(y, 2)
+    if sp is not None:
+        x = _halo_w(x, sp, lo=0, hi=1)
+    x = _conv2d_frames(x, conv, stride=2, padding="corner",
+                       halo_w=sp is not None)
     if p.mode == "downsample3d":
         x = _downsample3d_time(p.time_conv, x, io, first)
     return x
 
 
 def _run_stack(spec, layers, x, io: _CacheIO, first: bool,
-               fused: Optional[_Fused]):
+               fused: Optional[_Fused], sp=None):
     for item, layer in zip(spec, layers):
         kind = item[0]
         if kind == "conv_in":
-            x = _causal_conv_step(layer, x, io)
+            x = _causal_conv_step(layer, x, io, sp)
         elif kind == "res":
-            x = _residual_block(layer, x, io, fused)
+            x = _residual_block(layer, x, io, fused, sp)
         elif kind == "attn":
-            x = _spatial_attention(layer, x)
+            x = _spatial_attention(layer, x, sp)
         elif kind == "resample":
-            x = _resample(layer, x, io, first, fused)
+            x = _resample(layer, x, io, first, fused, sp)
         elif kind == "head":
             x = F.silu(_rms_norm_channel(x, layer[0].gamma))
-            x = _causal_conv_step(layer[2], x, io)
+            x = _causal_conv_step(layer[2], x, io, sp)
     return x
 
 
@@ -549,7 +636,7 @@ def _resolve(conv_impl: str, streaming: bool, x: torch.Tensor, layers,
     return _Fused(conv_impl, layers)
 
 
-def _stream(spec, layers, x, fused, chunk: int):
+def _stream(spec, layers, x, fused, chunk: int, sp=None):
     """First frame, then `chunk` frames per step, caches carried over."""
     b, c, t, h, w = x.shape
     if fused is not None and x.stride() != (c * t * h * w, 1, h * w * c,
@@ -560,11 +647,11 @@ def _stream(spec, layers, x, fused, chunk: int):
         x = torch.empty_like(x, memory_format=torch.channels_last_3d
                              ).copy_(x)
     io = _CacheIO([])
-    outs = [_run_stack(spec, layers, x[:, :, :1], io, True, fused)]
+    outs = [_run_stack(spec, layers, x[:, :, :1], io, True, fused, sp)]
     for i in range(1, x.shape[2], chunk):
         io = _CacheIO(io.out)
         outs.append(_run_stack(spec, layers, x[:, :, i:i + chunk], io, False,
-                               fused))
+                               fused, sp))
     return torch.cat(outs, dim=2)
 
 
@@ -575,17 +662,30 @@ def _latent_stats(cfg: VAEConfig, device):
 
 
 def vae_encode(vae: WanVAE, video: torch.Tensor, streaming: bool = True,
-               conv_impl: str = "auto") -> torch.Tensor:
+               conv_impl: str = "auto", spatial=None) -> torch.Tensor:
     """[B, 3, T, H, W] (T = 1 + 4k) -> normalised latent mean
     [B, z, 1 + k, H/8, W/8] in video's dtype (reference encode,
-    vae.py:515-541)."""
+    vae.py:515-541). `spatial`: the group W is sharded over (JAX
+    `spatial_sharding`; `vae_decode`)."""
+    if spatial is not None:
+        return _sharded(vae_encode_shard, vae, video, spatial, 8, 1,
+                        streaming=streaming, conv_impl=conv_impl)
+    return vae_encode_shard(vae, video, None, streaming, conv_impl)
+
+
+def vae_encode_shard(vae: WanVAE, video: torch.Tensor, sp: Optional[WShard],
+                     streaming: bool = True,
+                     conv_impl: str = "auto") -> torch.Tensor:
+    """One rank's encode of its W shard of the video (8 pixel columns per
+    latent column of `sp.widths`), halos fetched over `sp.group`; its
+    shard of the latent. `sp` None: the whole video."""
     spec, layers = encoder_spec(vae.cfg), vae.encoder.layers()
     fused = _resolve(conv_impl, streaming, video, layers,
                      vae.conv1.weight.dtype)
     if streaming:
-        out = _stream(spec, layers, video, fused, chunk=4)
+        out = _stream(spec, layers, video, fused, chunk=4, sp=sp)
     else:
-        out = _run_stack(spec, layers, video, _CacheIO(None), False, None)
+        out = _run_stack(spec, layers, video, _CacheIO(None), False, None, sp)
     out = _conv3d(out, vae.conv1, padding="valid_t")
     mu = out[:, :vae.cfg.z_dim]
     mean, std = _latent_stats(vae.cfg, video.device)
@@ -593,9 +693,30 @@ def vae_encode(vae: WanVAE, video: torch.Tensor, streaming: bool = True,
 
 
 def vae_decode(vae: WanVAE, z: torch.Tensor, streaming: bool = True,
-               clamp: bool = True, conv_impl: str = "auto") -> torch.Tensor:
+               clamp: bool = True, conv_impl: str = "auto",
+               spatial=None) -> torch.Tensor:
     """Normalised latent [B, z, Tz, h, w] -> video [B, 3, 1+4(Tz-1), 8h, 8w]
-    (reference decode, vae.py:544-566)."""
+    (reference decode, vae.py:544-566).
+
+    `spatial` (JAX `spatial_sharding`): a process group or 1-D DeviceMesh
+    to shard W over, or a `VirtualRanks`. Every rank passes the whole
+    latent, decodes its `shard_bounds` columns (`vae_decode_shard`: the
+    same kernels as one card, on halo-extended shards) and gets the whole
+    video back (an all-gather; the video of virtual ranks is their shards
+    side by side). JAX refuses its Pallas kernels under
+    `spatial_sharding`; the port shards by hand and keeps `conv_impl`."""
+    if spatial is not None:
+        return _sharded(vae_decode_shard, vae, z, spatial, 1, 8,
+                        streaming=streaming, clamp=clamp, conv_impl=conv_impl)
+    return vae_decode_shard(vae, z, None, streaming, clamp, conv_impl)
+
+
+def vae_decode_shard(vae: WanVAE, z: torch.Tensor, sp: Optional[WShard],
+                     streaming: bool = True, clamp: bool = True,
+                     conv_impl: str = "auto") -> torch.Tensor:
+    """One rank's decode of its W shard of the latent, halos fetched over
+    `sp.group`; its shard of the video (8 columns per latent column).
+    `sp` None: the whole latent."""
     spec, layers = decoder_spec(vae.cfg), vae.decoder.layers()
     fused = _resolve(conv_impl, streaming, z, layers,
                      vae.conv2.weight.dtype)
@@ -603,9 +724,38 @@ def vae_decode(vae: WanVAE, z: torch.Tensor, streaming: bool = True,
     zt = (z.float() * std + mean).to(z.dtype)
     x = _conv3d(zt, vae.conv2, padding="valid_t")
     if streaming:
-        out = _stream(spec, layers, x, fused, chunk=1)
+        out = _stream(spec, layers, x, fused, chunk=1, sp=sp)
     else:
-        out = _run_stack(spec, layers, x, _CacheIO(None), False, None)
+        out = _run_stack(spec, layers, x, _CacheIO(None), False, None, sp)
     if clamp:
         out = torch.clamp(out, -1.0, 1.0)
     return out
+
+
+def shard_inputs(x: torch.Tensor, parts: int, per_latent: int):
+    """(every rank's latent column count, every rank's W shard of x), x
+    with `per_latent` columns per latent column."""
+    if x.shape[-1] % per_latent:
+        raise ValueError(f"width {x.shape[-1]} is not a multiple of "
+                         f"{per_latent}")
+    bounds = shard_bounds(x.shape[-1] // per_latent, parts)
+    widths = tuple(e - s for s, e in bounds)
+    return widths, [x[..., s * per_latent:e * per_latent] for s, e in bounds]
+
+
+def _sharded(program, vae, x, spatial, per_latent_in: int,
+             per_latent_out: int, **kw):
+    """`program` (a per-rank decode / encode) over the W shards of the
+    whole input x: on virtual ranks all at once, their outputs side by
+    side; on a process group this rank's, all-gathered."""
+    if isinstance(spatial, VirtualRanks):
+        widths, shards = shard_inputs(x, spatial.size, per_latent_in)
+        outs = spatial.run(
+            lambda g, xs: program(vae, xs, WShard(g, widths), **kw),
+            [(xs,) for xs in shards])
+        return torch.cat(outs, dim=-1)
+    n, r = group_size(spatial), group_rank(spatial)
+    widths, shards = shard_inputs(x, n, per_latent_in)
+    out = program(vae, shards[r], WShard(spatial, widths), **kw)
+    return gather_spatial(out, 4, spatial,
+                          [w * per_latent_out for w in widths])

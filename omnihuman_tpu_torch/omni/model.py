@@ -39,6 +39,7 @@ from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanModelConfig
 from omnihuman_tpu_torch.models.wan_dit import (
     WanModel, _linear, padded_seq_len)
 from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+from omnihuman_tpu_torch.parallel.spatial import gather_spatial, halo_exchange
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,24 +165,42 @@ def process_audio(cond: OmniConditions, audio: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _guider_conv(x, conv: nn.Conv3d):
+def _guider_conv(x, conv: nn.Conv3d, spatial=None):
     """Causal 3x3x3 conv in fp32: two zero frames in front, SAME on h / w
-    (JAX vae._conv3d, padding 'causal'), then ReLU."""
+    (JAX vae._conv3d, padding 'causal'), then ReLU. On an H shard
+    (`spatial`) x takes its H halo instead of H's padding: 1 row on each
+    side at stride 1, 1 row above at stride 2 (output row i reads rows
+    2i-1 .. 2i+1, and a shard starts on an even row)."""
     x = F.pad(x, (0, 0, 0, 0, 2, 0))
+    pad_h = 1
+    if spatial is not None:
+        x = halo_exchange(x, 3, 1, 1 if conv.stride[1] == 1 else 0, spatial)
+        pad_h = 0
     y = F.conv3d(x, conv.weight.float(), conv.bias.float(),
-                 stride=conv.stride, padding=(0, 1, 1))
+                 stride=conv.stride, padding=(0, pad_h, 1))
     return F.relu(y)
 
 
 def process_pose(cond: OmniConditions, pose: torch.Tensor,
-                 patch_size: Tuple[int, int, int]) -> torch.Tensor:
+                 patch_size: Tuple[int, int, int],
+                 spatial=None) -> torch.Tensor:
     """[B, K, F, 2h, 2w] heatmaps -> per-patch token deltas [B, F*h'*w',
     dim] fp32: the guider (fp32) reduces 4x spatially to one cell per DiT
     patch, the cell's features are tiled over the patch's ph*pw positions
-    and projected by `pose_proj`."""
+    and projected by `pose_proj`.
+
+    `spatial`: the group (an sp `DeviceMesh`, a process group or a
+    `VirtualRanks` rank, parallel/spatial.py) whose ranks each hold
+    `pose`'s rows H/n .. of the heatmaps (`TrainMeshPlan.put_batch`; H a
+    multiple of 4n). The guider's convs take H halos, and its output,
+    dim/4 channels at the patch grid, is gathered over the group (its
+    backward sums the ranks' gradients, the mesh's sp convention) before
+    the token path."""
     x = pose.to(torch.float32)
     for conv in (cond.pose_conv1, cond.pose_conv2, cond.pose_conv3):
-        x = _guider_conv(x, conv)
+        x = _guider_conv(x, conv, spatial)
+    if spatial is not None:
+        x = gather_spatial(x, 3, spatial)
     b, c, f, h, w = x.shape
     _, ph, pw = patch_size
     x = x.permute(0, 2, 3, 4, 1).reshape(b, f * h * w, c)
@@ -209,6 +228,7 @@ def omni_model_forward(
     attn_impl: str = "auto",
     token_sharding=None,
     seq_align: int = 1,
+    pose_sharding=None,
 ) -> torch.Tensor:
     """Velocity [B, out_dim, F, H, W] fp32 with the omni conditions
     (JAX `omni_model_forward`). `cond_mask`: {"audio" / "pose" /
@@ -217,21 +237,24 @@ def omni_model_forward(
     only while autograd records. `attn_impl` / `token_sharding`: the
     sequence-parallel plan of `WanModel.body`; `seq_align`: the sp degree,
     which the packed length is padded to a multiple of
-    (`padded_seq_len`). The call goes through the model's `__call__`
+    (`padded_seq_len`). `pose_sharding`: the group whose ranks each hold
+    an H shard of `pose` (`process_pose`), or None for the whole heatmaps.
+    The call goes through the model's `__call__`
     (`OmniModel.forward`), so FSDP2's root hooks gather the parameters
     outside the blocks."""
     return model(x, t, context, audio=audio, pose=pose,
                  ref_latent=ref_latent, motion_latent=motion_latent,
                  cond_mask=cond_mask, context_lens=context_lens,
                  policy=policy, remat=remat, attn_impl=attn_impl,
-                 token_sharding=token_sharding, seq_align=seq_align)
+                 token_sharding=token_sharding, seq_align=seq_align,
+                 pose_sharding=pose_sharding)
 
 
 def _omni_forward(model: OmniModel, x, t, context, *, audio=None, pose=None,
                   ref_latent=None, motion_latent=None, cond_mask=None,
                   context_lens=None, policy: DTypePolicy = DTypePolicy(),
                   remat=True, attn_impl: str = "auto", token_sharding=None,
-                  seq_align: int = 1):
+                  seq_align: int = 1, pose_sharding=None):
     """`omni_model_forward`'s computation (`OmniModel.forward`)."""
     cfg = model.cfg
     base_cfg = cfg.base
@@ -254,7 +277,7 @@ def _omni_forward(model: OmniModel, x, t, context, *, audio=None, pose=None,
     # video tokens (+ pose delta + temporal embedding per latent frame)
     tokens = base.patchify(x, policy)                      # [B, Lv, dim]
     if pose is not None:
-        pd = process_pose(cond, pose, base_cfg.patch_size)
+        pd = process_pose(cond, pose, base_cfg.patch_size, pose_sharding)
         m = mask_of("pose")
         if m is not None:
             pd = pd * m

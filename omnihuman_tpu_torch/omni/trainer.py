@@ -28,8 +28,9 @@ The mesh plan (JAX `:185-244`, parallel/train_mesh.py): `OmniHumanTrainer
 (plan=)` shards the model with FSDP2 before its AdamW state is made, runs
 the step with the ring self-attention and sp_cross on this rank's 1/sp of
 the packed tokens (padded to a multiple of sp, `seq_align`), takes each
-data rank's slice of the global batch (`plan.put_batch`) and averages the
-gradients over the mesh. The draws are made for the global batch on every
+data rank's slice of the global batch and each sp rank's rows of the pose
+heatmaps (`plan.put_batch`; the pose guider runs on them with halos) and
+averages the gradients over the mesh. The draws are made for the global batch on every
 rank from the same generator and then sliced, so every rank of a data
 group trains on the same t, noise and masks.
 """
@@ -203,7 +204,8 @@ def omni_flow_matching_loss(model: OmniModel, batch: Dict, masks: Tensors,
     (`omni_model_forward`).
 
     batch: "frames" (clean latents [B, C, F, H, W]), "context", and
-    optionally "audio", "pose", "reference"."""
+    optionally "audio", "pose", "reference", and "pose_sharding" where
+    "pose" is an H shard (`TrainMeshPlan.put_batch`)."""
     if target not in ("velocity", "sample"):
         raise ValueError(f"unknown target {target!r}")
     frames = batch["frames"].to(torch.float32)
@@ -213,7 +215,8 @@ def omni_flow_matching_loss(model: OmniModel, batch: Dict, masks: Tensors,
         model, noisy, t * 1000.0, batch["context"], audio=batch.get("audio"),
         pose=batch.get("pose"), ref_latent=batch.get("reference"),
         cond_mask=masks, policy=policy, remat=remat, attn_impl=attn_impl,
-        token_sharding=token_sharding, seq_align=seq_align)
+        token_sharding=token_sharding, seq_align=seq_align,
+        pose_sharding=batch.get("pose_sharding"))
     tgt = noise - frames if target == "velocity" else frames
     return torch.mean(torch.square(pred - tgt) * (1.0 - tb))
 

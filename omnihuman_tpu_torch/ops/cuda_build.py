@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Dict, Iterable, List, Optional, Sequence
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -27,6 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one build, load and count at a time: the virtual ranks of
+# parallel/spatial.py launch kernels from several threads
+_LOCK = threading.RLock()
 
 
 def find_nvcc() -> str:
@@ -90,12 +94,13 @@ def build(sources: Iterable[str]) -> List[str]:
 
 
 def load(source: str) -> ctypes.CDLL:
-    lib = _LIBS.get(source)
-    if lib is None:
-        lib = ctypes.CDLL(build([source])[0])
-        lib.omni_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.omni_cuda_error_string.restype = ctypes.c_char_p
-        _LIBS[source] = lib
+    with _LOCK:
+        lib = _LIBS.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(build([source])[0])
+            lib.omni_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.omni_cuda_error_string.restype = ctypes.c_char_p
+            _LIBS[source] = lib
     return lib
 
 
@@ -121,11 +126,12 @@ class CudaKernel:
         self._fn = None
 
     def _entry(self):
-        if self._fn is None:
-            fn = getattr(load(self.source), self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
+        with _LOCK:
+            if self._fn is None:
+                fn = getattr(load(self.source), self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                self._fn = fn
         return self._fn
 
     def launch(self, *args) -> None:
@@ -134,4 +140,5 @@ class CudaKernel:
             msg = load(self.source).omni_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name}: launch failed with CUDA error "
                                f"{err} ({msg})")
-        self.launches += 1
+        with _LOCK:
+            self.launches += 1

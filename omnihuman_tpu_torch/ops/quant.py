@@ -53,15 +53,17 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 class Int8Linear(nn.Module):
     """A quantized nn.Linear: `w_q` int8 [out, in], `w_s` fp32 [out] and
-    the bias in the weight's former dtype (buffers: serving holds no
-    gradient)."""
+    the bias in the weight's former dtype. They are frozen parameters
+    (serving holds no gradient), so FSDP2 shards them as JAX shards the
+    int8 leaves (parallel/partition.py) and gathers them with the block's
+    other weights."""
 
     def __init__(self, w_q: torch.Tensor, w_s: torch.Tensor,
                  bias: torch.Tensor):
         super().__init__()
-        self.register_buffer("w_q", w_q)
-        self.register_buffer("w_s", w_s)
-        self.register_buffer("bias", bias)
+        self.w_q = nn.Parameter(w_q, requires_grad=False)
+        self.w_s = nn.Parameter(w_s, requires_grad=False)
+        self.bias = nn.Parameter(bias, requires_grad=False)
 
     @classmethod
     def from_linear(cls, lin: nn.Linear) -> "Int8Linear":

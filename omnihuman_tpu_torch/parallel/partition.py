@@ -19,7 +19,11 @@ sharded on that dimension (`shard_placement_fn`); the parameters JAX
 replicates are left out of FSDP (`ignored_params`) and stay whole on every
 rank. FSDP2 gathers a block's parameters when the block's `__call__` runs
 and frees them after it, so the model code calls its blocks as modules.
-The buffers (Int8Linear's int8 weights) are not sharded.
+Int8Linear's frozen int8 weights and scales (ops/quant.py) are parameters
+too: `w_q` [out, in] is JAX's [in, out] int8 leaf, `w_s` its [out] scale,
+and FSDP2 shards and gathers them by the same rule (its all-gather carries
+mixed dtypes as bytes), so the gathered int8 weights are the unsharded
+ones bit for bit.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor, distribute_tensor
 
+from omnihuman_tpu_torch.ops.quant import Int8Linear
 from omnihuman_tpu_torch.parallel.mesh import AXIS_FSDP
 
 MIN_SHARD_SIZE = 2 ** 16
@@ -42,7 +47,8 @@ def _jax_view(module: nn.Module, mname: str, pname: str,
               shape) -> Tuple[tuple, tuple]:
     """(shape in the JAX layout, port dimension of each JAX dimension or
     None) of parameter `pname` of `module` (named `mname`)."""
-    if pname == "weight" and isinstance(module, nn.Linear):
+    if (pname == "weight" and isinstance(module, nn.Linear)) or (
+            pname == "w_q" and isinstance(module, Int8Linear)):
         return (shape[1], shape[0]), (1, 0)
     if pname == "weight" and isinstance(module, nn.Conv3d):
         if mname.split(".")[-1] == "patch_embedding":

@@ -18,8 +18,13 @@ it needs. On a mesh:
     this rank's 1/sp of the tokens (`token_sharding`, `mesh_context`);
   - `put_batch` gives each data rank its slice of the global batch: the
     fsdp and sp ranks of one data group take the same samples (JAX's
-    `P("data")`); the pose heatmaps stay whole on each rank (their
-    H-sharding is ROADMAP queue A, item 19's part 3);
+    `P("data")`); the pose heatmaps [B, K, F, H, W] also give each sp
+    rank its H / sp rows (JAX's `P("data", None, None, "sp", None)`),
+    which the pose guider's convs read with halos from the neighbouring
+    rows (`omni/model.py:process_pose`, parallel/spatial.py). JAX shards
+    H where H % sp == 0; the port where H % (4 sp) == 0, so that both of
+    the guider's stride-2 convs start every shard on an even row, and
+    keeps other heights whole; the results are the same either way;
   - `grads` takes a loss's gradients the way FSDP2 supports
     (`loss.backward()`, each parameter's `.grad`) and averages every one
     over the whole mesh: FSDP2's reduce-scatter averages the sharded ones
@@ -124,18 +129,31 @@ class TrainMeshPlan:
 
     def put_batch(self, batch: Dict) -> Dict:
         """This data rank's slice (dim 0) of every tensor of the global
-        batch; the batch itself without a mesh or with data 1."""
-        if self.data == 1:
+        batch, and this sp rank's rows of the pose heatmaps [B, K, F, H, W]
+        where sp > 1 and H % (4 sp) == 0 (module docstring; then
+        "pose_sharding" holds the sp mesh they are sharded over); the
+        batch itself without a mesh."""
+        if self.mesh is None:
             return batch
-        rank, n = self.mesh[AXIS_DATA].get_local_rank(), self.data
+        out = dict(batch)
+        if self.data > 1:
+            rank, n = self.mesh[AXIS_DATA].get_local_rank(), self.data
 
-        def put(x):
-            if not isinstance(x, torch.Tensor):
-                return x
-            b = x.shape[0] // n
-            return x[rank * b:(rank + 1) * b]
+            def put(x):
+                if not isinstance(x, torch.Tensor):
+                    return x
+                b = x.shape[0] // n
+                return x[rank * b:(rank + 1) * b]
 
-        return {k: put(v) for k, v in batch.items()}
+            out = {k: put(v) for k, v in out.items()}
+        pose = out.get("pose")
+        if (isinstance(pose, torch.Tensor) and pose.dim() == 5
+                and self.sp > 1 and pose.shape[3] % (4 * self.sp) == 0):
+            rows = pose.shape[3] // self.sp
+            r = self.mesh[AXIS_SP].get_local_rank()
+            out["pose"] = pose[:, :, :, r * rows:(r + 1) * rows]
+            out["pose_sharding"] = self.mesh[AXIS_SP]
+        return out
 
     def mesh_context(self):
         """The mesh made current for the attention dispatcher."""

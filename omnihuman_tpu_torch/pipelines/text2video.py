@@ -16,8 +16,10 @@ With `mesh` (parallel/mesh.py, one process per GPU, every rank calling
 (text2video.py:85-107): self-attention as the ring at any sp (sp 1
 included), cross-attention as sp_cross, the tokens sharded over `sp`
 (`WanModel.body`), the DiT and umT5 parameters sharded over `fsdp` by
-FSDP2 (`parallel.shard_params`); umT5 stays on the card between requests;
-the VAE stays whole on every rank and each rank decodes the whole clip.
+FSDP2 (`parallel.shard_params`, the int8 weights included); umT5 stays on
+the card between requests; the VAE stays whole on every rank and each
+rank decodes the whole clip (JAX's t2v decode is unsharded too; the
+one-step generator's decode shards W, pipelines/wan_inference.py).
 The noise comes from the same seeded generator on every rank (a random
 seed is rank 0's). Serving runs under `torch.no_grad`, with or without a
 mesh: FSDP2's gathers refuse inference tensors, and `torch.export`
@@ -42,7 +44,7 @@ from omnihuman_tpu_torch.models.wan_dit import (
     WanModel, build_wan_model, padded_seq_len)
 from omnihuman_tpu_torch.ops.quant import quantize_wan_model
 from omnihuman_tpu_torch.ops.rope import rope_angles_3d
-from omnihuman_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_SP, use_mesh
+from omnihuman_tpu_torch.parallel.mesh import AXIS_SP, use_mesh
 from omnihuman_tpu_torch.parallel.partition import shard_params
 from omnihuman_tpu_torch.samplers.fm_solvers import get_solver
 from omnihuman_tpu_torch.utils.convert import load_wan_checkpoint_dir
@@ -110,7 +112,11 @@ class WanT2V:
     files, the VAE from `Wan2.1_VAE.pth` (required) and umT5 from
     `models_t5_umt5-xxl-enc-bf16.pth` where present, each cast to
     `param_dtype`; whatever the directory does not give is random from
-    `init_seed`. `mesh`: the multi-GPU plan (module docstring)."""
+    `init_seed`. `generator_ckpt`: a distill / APT training directory
+    whose latest EMA (the one-step generator) replaces the DiT's weights
+    before any int8 quantisation and sharding. `mesh`: the multi-GPU plan
+    (module docstring); `precision="int8"` shards the int8 weights over
+    fsdp too (ops/quant.py)."""
 
     # a checkpoint directory without Wan2.1_VAE.pth is an error (JAX
     # WanT2V); OmniHuman builds a random VAE instead
@@ -126,6 +132,7 @@ class WanT2V:
         device=None,
         checkpoint_dir: Optional[str] = None,
         mesh=None,
+        generator_ckpt: Optional[str] = None,
     ):
         self.policy = serving_policy(config, precision)
         self.device = resolve_device(device)
@@ -133,13 +140,6 @@ class WanT2V:
         self.attn_impl, _, self.sp_size = mesh_plan(mesh)
         # JAX's t5_auto_unload: a mesh keeps umT5 on the card
         self.t5_auto_unload = mesh is None
-        if (precision == "int8" and mesh is not None
-                and mesh[AXIS_FSDP].size() > 1):
-            raise ValueError(
-                "precision 'int8' with fsdp > 1: FSDP2 shards parameters, "
-                "and the int8 weights are Int8Linear buffers, which it "
-                "leaves whole on every rank (ROADMAP queue A, item 19, "
-                "part 3)")
         self.config = config
         self.param_dtype = param_dtype
         self.precision = precision
@@ -154,6 +154,9 @@ class WanT2V:
                 vae_seed=None if self.vae_file_required else init_seed + 1,
                 device=self.device, dtype=param_dtype)
         self.model = self._build_model()
+        if generator_ckpt is not None:
+            from omnihuman_tpu_torch.utils.checkpoint import restore_ema_into
+            restore_ema_into(self.model, generator_ckpt)
         if precision == "int8":     # after the weights are final
             quantize_wan_model(self.model)
         if mesh is not None:

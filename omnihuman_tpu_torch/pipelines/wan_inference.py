@@ -6,6 +6,15 @@ encode the prompts, run ONE DiT forward at t = T (no CFG loop, no solver),
 take x = noise - v, decode with the streaming VAE (K3 / K4 on the card),
 with per-stage seconds. Batch serving stacks B prompts into one forward
 and one decode.
+
+On a pipeline with a mesh (JAX `:108-157`), every rank runs the forward
+with the pipeline's plan (the ring and sp_cross on its 1/sp of the
+tokens, FSDP2's shards of the DiT) and then decodes with W sharded over
+the whole world, data x fsdp x sp (JAX's `P(None, None, None,
+mesh.axis_names, None)`): each rank decodes its columns of the latent
+with K3 / K4 on the halo-extended shards, and the video is all-gathered,
+so every rank returns the whole of it, as JAX returns its global array.
+Serving runs under `torch.no_grad` (FSDP2 refuses inference tensors).
 """
 
 from __future__ import annotations
@@ -14,13 +23,14 @@ import math
 import time
 from typing import Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from omnihuman_tpu_torch.models.vae import vae_decode
 from omnihuman_tpu_torch.models.wan_dit import WanModel
 from omnihuman_tpu_torch.ops.rope import rope_angles_3d
-from omnihuman_tpu_torch.pipelines.text2video import WanT2V, _sync
+from omnihuman_tpu_torch.parallel.mesh import use_mesh
+from omnihuman_tpu_torch.pipelines.text2video import (
+    WanT2V, _sync, mesh_plan, request_seed)
 
 
 def clip_noise(seed: int, index: int, shape, device) -> torch.Tensor:
@@ -33,16 +43,32 @@ def clip_noise(seed: int, index: int, shape, device) -> torch.Tensor:
                        dtype=torch.float32)
 
 
-@torch.inference_mode()
+@torch.no_grad()
 def one_step_latents(model: WanModel, noise: torch.Tensor, context, *,
                      seq_len: int, rope_sin, rope_cos, policy,
-                     t_final: float, context_lens=None) -> torch.Tensor:
-    """x = noise - v(noise, t = T) (JAX _one_step, then noise - v)."""
+                     t_final: float, context_lens=None,
+                     mesh=None) -> torch.Tensor:
+    """x = noise - v(noise, t = T) (JAX _one_step, then noise - v); with
+    `mesh`, the forward runs its plan (`text2video.mesh_plan`)."""
+    attn_impl, token_sharding, _ = mesh_plan(mesh)
     t = torch.full((noise.shape[0],), t_final, dtype=torch.float32,
                    device=noise.device)
-    v = model(noise, t, context, seq_len=seq_len, rope_sin=rope_sin,
-              rope_cos=rope_cos, policy=policy, context_lens=context_lens)
+    with use_mesh(mesh):
+        v = model(noise, t, context, seq_len=seq_len, rope_sin=rope_sin,
+                  rope_cos=rope_cos, policy=policy, context_lens=context_lens,
+                  attn_impl=attn_impl, token_sharding=token_sharding)
     return noise - v
+
+
+def world_group(mesh):
+    """The group a mesh pipeline's decode shards W over: the whole world
+    the mesh spans, ranks in the mesh's (data, fsdp, sp) order."""
+    import torch.distributed as dist
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"the mesh holds {mesh.size()} of the world's "
+                         f"{dist.get_world_size()} ranks; the decode shards "
+                         "over the whole world")
+    return dist.group.WORLD
 
 
 class SeaweedWanAPTGenerator:
@@ -63,7 +89,7 @@ class SeaweedWanAPTGenerator:
                                   seed=seed, **kw)
         return out[0]
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def generate_batch(self, prompts: Sequence[str],
                        size: Tuple[int, int] = (832, 480),
                        frame_num: int = 1, seed: int = 0,
@@ -71,7 +97,9 @@ class SeaweedWanAPTGenerator:
                        context_lens: Optional[torch.Tensor] = None,
                        return_latents: bool = False) -> torch.Tensor:
         """videos [B, 3, F, H, W] for B prompts from one batched forward
-        and one batched decode; clip i's noise is `clip_noise(seed, i)`."""
+        and one batched decode; clip i's noise is `clip_noise(seed, i)`.
+        On a mesh pipeline every rank calls it with the same arguments
+        (module docstring)."""
         cfg, pipe, dev = self.config, self.pipe, self.pipe.device
         timings: dict = {}
         t0 = time.perf_counter()
@@ -91,7 +119,7 @@ class SeaweedWanAPTGenerator:
         grid = (lat_shape[1] // pt, lat_shape[2] // ph, lat_shape[3] // pw)
         sin, cos = rope_angles_3d(grid, cfg.model.head_dim, seq_len=seq_len,
                                   device=dev)
-        seed = seed if seed >= 0 else int(np.random.randint(0, 2 ** 31))
+        seed = request_seed(seed, pipe.mesh)
         noise = torch.stack([clip_noise(seed, i, lat_shape, dev)
                              for i in range(context.shape[0])])
 
@@ -101,7 +129,7 @@ class SeaweedWanAPTGenerator:
             rope_cos=cos, policy=pipe.policy,
             t_final=float(cfg.num_train_timesteps),
             context_lens=None if context_lens is None else torch.as_tensor(
-                context_lens, device=dev).to(torch.int32))
+                context_lens, device=dev).to(torch.int32), mesh=pipe.mesh)
         _sync(dev)
         timings["dit_s"] = time.perf_counter() - t0
         if return_latents:
@@ -109,7 +137,9 @@ class SeaweedWanAPTGenerator:
             return latents
 
         t0 = time.perf_counter()
-        video = vae_decode(pipe.vae, latents, streaming=True)
+        video = vae_decode(pipe.vae, latents, streaming=True,
+                           spatial=None if pipe.mesh is None
+                           else world_group(pipe.mesh))
         _sync(dev)
         timings["vae_decode_s"] = time.perf_counter() - t0
         timings["frames_per_sec"] = (video.shape[0] * video.shape[2]

@@ -16,7 +16,10 @@ tower), 27 (the exported CFG steps, on phase 5's pipeline built for it),
 (the sequence-parallel per-rank programs, the one-rank NCCL mesh request
 and the multi-card / gloo checks, on phase 5's pipeline built for it), 30
 (the sequence-parallel backward programs and the one-rank mesh training
-steps; the 81-frame step is logged without phase 10's time).
+steps; the 81-frame step is logged without phase 10's time), 31 (the
+W-sharded VAE on virtual ranks, the one-step batch and an omni step with
+the pose guider's H path on a one-rank NCCL mesh; it runs phase 15 first
+for its reference).
 Phases 19-22 run after phase 8
 (the checkpoint directory, teacher data and distill output they read). To compare two commits on one card, unpack the
 other one (`git archive <commit> | tar -x -C DIR`) and run both in one
@@ -38,7 +41,7 @@ def main(argv=None) -> None:
         os.path.abspath(__file__))))
     p.add_argument("phases", nargs="+", type=int,
                    choices=(14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26,
-                            27, 28, 29, 30))
+                            27, 28, 29, 30, 31))
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -73,7 +76,9 @@ def main(argv=None) -> None:
            27: lambda: cs.phase_export(every, cs.t2v_pipe()),
            28: lambda: cs.phase_tools(every),
            29: lambda: cs.run_sp_phase(every, cs.t2v_pipe(), {}),
-           30: lambda: cs.run_sp_train_phase(every, {})}
+           30: lambda: cs.run_sp_train_phase(every, {}),
+           31: lambda: cs.run_spatial_phase(
+               every, {}, cs.phase_one_step(every, fwd)[1])}
     import shutil
     for phase in [p for p in args.phases if p < 19 or p > 22]:
         t0 = time.perf_counter()
@@ -88,8 +93,8 @@ def main(argv=None) -> None:
     if later:
         t0 = time.perf_counter()
         try:
-            _, npz = cs.phase_training_main_path(flash)
-            cs.run_slice_10_phases(npz, every, {}, phases=later)
+            _, npz, dit = cs.phase_training_main_path(flash)
+            cs.run_slice_10_phases(npz, every, {}, dit, phases=later)
         finally:
             shutil.rmtree(cs.WORK, ignore_errors=True)
         cs.log(f"phases 8, {later} of {root}: "

@@ -1,5 +1,6 @@
 """Multi-process gloo runs of the port's sequence-parallel / FSDP code for
-tests/test_torch_{ring_attention,mesh,sp_model,sp_grad,sp_train,sp_cli}.py.
+tests/test_torch_{ring_attention,mesh,sp_model,sp_grad,sp_train,sp_cli,
+sp_spatial}.py.
 
 `Ranks(world, case, payload, tmp_path)` starts `world` processes (one
 `torch.multiprocessing` spawn), each joining a gloo group through a
@@ -480,6 +481,159 @@ def _omni_samples(geo):
     return factory
 
 
+# ---------------------------------------------------------------------------
+# tests/test_torch_sp_spatial.py: halos, the W-sharded VAE, the H-sharded
+# pose in an omni step, one-step and int8 on a mesh
+
+
+def spatial_cases(p):
+    from omnihuman_tpu_torch.models.vae import (
+        build_vae, vae_decode, vae_encode)
+    from omnihuman_tpu_torch.parallel.spatial import (
+        gather_spatial, halo_exchange, shard_bounds)
+    world = dist.group.WORLD
+    r = dist.get_rank()
+    out = {}
+
+    # the collectives and their backward
+    x = _t(p["x"])
+    bounds = shard_bounds(x.shape[-1], 4)
+    s, e = bounds[r]
+    xl = x[..., s:e].clone().requires_grad_(True)
+    y = halo_exchange(xl, 4, 1, 1, world)
+    (y * _t(p["halo_w"][r])).sum().backward()
+    out["halo"] = (y.detach(), xl.grad)
+    xg = x[..., s:e].clone().requires_grad_(True)
+    g = gather_spatial(xg, 4, world, [b - a for a, b in bounds])
+    (g * _t(p["gather_w"])).sum().backward()
+    out["gather"] = (g.detach(), xg.grad)
+
+    # the W-sharded VAE over the world
+    vae = build_vae(p["vae_cfg"], "cpu", torch.float32, seed=None)
+    vae.load_state_dict(p["vae_sd"])
+    for impl in ("torch", "plain"):
+        out[f"decode_{impl}"] = vae_decode(vae, _t(p["z"]), conv_impl=impl,
+                                           spatial=world)
+        out[f"encode_{impl}"] = vae_encode(vae, _t(p["vid"]), conv_impl=impl,
+                                           spatial=world)
+    out.update(_omni_pose_step(p["omni"]))
+    out.update(_int8_on_fsdp(p))
+    out.update(_mesh_clis(p))
+    return out
+
+
+def _omni_pose_step(o):
+    """One omni step on (1, 2, 2) with the pose heatmaps H-sharded."""
+    from omnihuman_tpu_torch.configs.wan import DTypePolicy
+    from omnihuman_tpu_torch.omni.model import build_omni_model
+    from omnihuman_tpu_torch.omni.trainer import (
+        init_omni_train_state, omni_train_step)
+    from omnihuman_tpu_torch.parallel import MeshConfig, create_mesh
+    from omnihuman_tpu_torch.parallel.train_mesh import TrainMeshPlan
+    plan = TrainMeshPlan(create_mesh(MeshConfig(1, 2, 2)),
+                         torch.device("cpu"))
+    model = build_omni_model(o["cfg"], "cpu", torch.float32, seed=None,
+                             trainable=True)
+    model.load_state_dict(o["sd"])
+    rec = Recorder()
+    state = init_omni_train_state(plan.shard_tree(model, min_size=1), rec)
+    batch = plan.put_batch({k: _t(v) for k, v in o["batch"].items()})
+    draws = plan.put_batch({k: _t(v) for k, v in o["draws"].items()})
+    t, noise = draws.pop("t"), draws.pop("noise")
+    _, m = omni_train_step(state, batch, draws, t, noise, optimizer=rec,
+                           policy=DTypePolicy(compute=torch.float32),
+                           plan=plan)
+    return {"omni": dict(_floats(m), grads=rec.grads, norm=float(rec.norm),
+                         pose_rows=batch["pose"].shape[3],
+                         pose_sharded="pose_sharding" in batch)}
+
+
+def _int8_on_fsdp(p):
+    """The int8 DiT sharded over fsdp 2 (every divisible int8 weight and
+    scale on the JAX rule's dimension) against the same model whole, one
+    fp32 forward each on the mesh's plan."""
+    from omnihuman_tpu_torch.configs.wan import DTypePolicy, TINY_TEST
+    from omnihuman_tpu_torch.ops.quant import quantize_wan_model
+    from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+    from omnihuman_tpu_torch.parallel import (
+        MeshConfig, create_mesh, shard_params, use_mesh)
+    from torch.distributed.tensor import DTensor
+    mesh = create_mesh(MeshConfig(2, 2, 1))
+    whole = quantize_wan_model(_wan(p["wan_sd"], trainable=False))
+    sharded = shard_params(quantize_wan_model(
+        _wan(p["wan_sd"], trainable=False)), mesh, min_size=1)
+    sin, cos = rope_angles_3d((2, 4, 4), TINY_TEST.model.head_dim,
+                              seq_len=32)
+    kw = dict(seq_len=32, rope_sin=sin, rope_cos=cos,
+              policy=DTypePolicy(compute=torch.float32), attn_impl="ring",
+              token_sharding=mesh["sp"])
+    args = [_t(p["int8_in"][k]) for k in ("x", "t", "ctx")]
+    with torch.no_grad(), use_mesh(mesh):
+        got = sharded(*args, **kw)
+        want = whole(*args, **kw)
+    placed = {n: (x.placements[0].dim, tuple(x.to_local().shape))
+              for n, x in sharded.named_parameters()
+              if isinstance(x, DTensor) and n.endswith((".w_q", ".w_s"))}
+    return {"int8": {"mesh": got, "whole": want, "placed": placed}}
+
+
+def _mesh_clis(p):
+    """cli.generate --one_step on (1, 2, 2) with JAX's noise and context
+    patched in (the latents it decodes and the video it writes are kept),
+    then --precision int8 with --fsdp_size 2 in cli.generate and
+    cli.omni_inference."""
+    import sys
+    sys.modules["transformers"] = None     # the hash tokenizer: no import
+    from omnihuman_tpu_torch.cli import generate, omni_inference
+    from omnihuman_tpu_torch.pipelines import text2video, wan_inference
+    from omnihuman_tpu_torch.utils import media
+    d = p["out_dir"]
+    videos, latents = [], []
+    real_cache, real_noise = media.cache_video, wan_inference.clip_noise
+    real_encode = text2video.WanT2V.encode_text
+    real_decode = wan_inference.vae_decode
+
+    def cache(video, path=None, fps=16, **kw):
+        videos.append(torch.as_tensor(video).detach().clone())
+        return real_cache(video, path, fps=fps, **kw)
+
+    def decode(vae, z, **kw):
+        latents.append(z.detach().clone())
+        return real_decode(vae, z, **kw)
+
+    media.cache_video = cache
+    wan_inference.vae_decode = decode
+    wan_inference.clip_noise = (
+        lambda seed, i, shape, device: _t(p["one_step_noise"][i]))
+    text2video.WanT2V.encode_text = lambda self, prompts: (
+        _t(p["one_step_ctx"]).repeat(len(prompts), 1, 1), None)
+    mesh = ["--sp_size", "2", "--fsdp_size", "2", "--device", "cpu"]
+    out = {}
+    try:
+        out["one_step"] = generate.main(
+            ["--task", "tiny-test", "--one_step", "--ckpt_dir", p["ckpt"],
+             "--size", "32*32", "--frame_num", "5", "--base_seed", "7",
+             "--save_file", os.path.join(d, "one.mp4")] + mesh)
+        out["one_step_video"] = videos[0] if videos else None
+        out["one_step_latents"] = latents[0]
+    finally:
+        wan_inference.clip_noise = real_noise
+        wan_inference.vae_decode = real_decode
+        text2video.WanT2V.encode_text = real_encode
+    out["int8_generate"] = generate.main(
+        ["--task", "tiny-test", "--precision", "int8", "--size", "32*32",
+         "--frame_num", "5", "--sample_steps", "1",
+         "--save_file", os.path.join(d, "int8.mp4")] + mesh)
+    out["int8_omni"] = omni_inference.main(
+        ["--task", "tiny-test", "--reference_image", p["image"],
+         "--precision", "int8", "--size", "32*32", "--num_frames", "2",
+         "--num_inference_steps", "1",
+         "--output", os.path.join(d, "omni_int8.mp4")] + mesh)
+    media.cache_video = real_cache
+    return out
+
+
 CASES = {"attention": attention_cases, "dit": dit_cases, "mesh": mesh_cases,
          "attention_grads": attention_grad_cases,
-         "train_steps": train_step_cases, "train_clis": train_cli_cases}
+         "train_steps": train_step_cases, "train_clis": train_cli_cases,
+         "spatial": spatial_cases}
