@@ -1,0 +1,8 @@
+"""idle_share.request: % of the traced window with nothing on the card
+(the union of every kernel's, copy's and set's interval)."""
+
+from benchmark.readers import idle_share
+
+
+def compute(rec):
+    return idle_share(rec, "request")

@@ -1,0 +1,9 @@
+"""vae_decode_s.request: the generator's own stage seconds
+(`timings["vae_decode_s"]`, host clock, ended by a synchronise), mean per
+request."""
+
+from benchmark.readers import stage_mean
+
+
+def compute(rec):
+    return stage_mean(rec, "request", "vae_decode_s")
