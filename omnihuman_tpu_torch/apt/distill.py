@@ -16,6 +16,8 @@ through the flash backward kernels, when the model lives on a GPU. With a
 training mesh (`plan`, parallel/train_mesh.py) the step runs the ring on
 this rank's token shard, takes its gradients the way FSDP2 supports and
 averages them over the mesh; the logged loss is the global batch's.
+Under a profiler the step records the spans `train_step` > `forward`,
+`backward`, `optimizer` (`utils/spans.py`).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from omnihuman_tpu_torch.models.wan_dit import WanModel
 from omnihuman_tpu_torch.parallel.partition import (
     copy_whole_into, place_like)
 from omnihuman_tpu_torch.parallel.train_mesh import NO_MESH, TrainMeshPlan
+from omnihuman_tpu_torch.utils.spans import span
 
 Tensors = Dict[str, torch.Tensor]
 T_MAX = 1000.0     # the student's one timestep
@@ -127,16 +130,21 @@ def distill_train_step(state: DistillState, batch: Tensors, *,
     "grad_norm"} (the norm of the raw gradients, before clipping). On a
     `plan` with a mesh, `batch` is this data rank's slice
     (`plan.put_batch`)."""
-    params = trainable_params(state.model)
-    with plan.mesh_context():
-        loss = distill_loss(state.model, batch, seq_len=seq_len,
-                            rope_sin=rope_sin, rope_cos=rope_cos,
-                            policy=policy, remat=remat,
-                            attn_impl=plan.attn_impl,
-                            token_sharding=plan.token_sharding)
-        grads = plan.grads(loss, params)
-    optimizer.step(params, grads, state.opt_state)
-    ema_update(state.ema_params, params, ema_decay)
-    state.step += 1
-    return state, {"loss": plan.mean_over_data(loss.detach()),
-                   "grad_norm": global_norm(grads.values())}
+    with span("train_step", step=state.step,
+              batch=batch["noise"].shape[0], tokens=seq_len):
+        params = trainable_params(state.model)
+        with plan.mesh_context():
+            with span("forward"):
+                loss = distill_loss(state.model, batch, seq_len=seq_len,
+                                    rope_sin=rope_sin, rope_cos=rope_cos,
+                                    policy=policy, remat=remat,
+                                    attn_impl=plan.attn_impl,
+                                    token_sharding=plan.token_sharding)
+            with span("backward"):
+                grads = plan.grads(loss, params)
+        with span("optimizer"):
+            optimizer.step(params, grads, state.opt_state)
+            ema_update(state.ema_params, params, ema_decay)
+        state.step += 1
+        return state, {"loss": plan.mean_over_data(loss.detach()),
+                       "grad_norm": global_norm(grads.values())}

@@ -68,6 +68,7 @@ from omnihuman_tpu_torch.ops.norms import layer_norm, rms_norm
 from omnihuman_tpu_torch.ops.quant import Int8Linear, int8_linear
 from omnihuman_tpu_torch.ops.rope import apply_rope
 from omnihuman_tpu_torch.parallel.partition import gather_tokens, shard_tokens
+from omnihuman_tpu_torch.utils.spans import span
 
 
 def padded_seq_len(n_tokens: int, sp: int = 1) -> int:
@@ -244,42 +245,47 @@ def _block_forward(blk: WanAttentionBlock, x, e0, context, context_lens,
     policy.residual, e0 [B, 6, dim] fp32. With `audio_ctx` [B, La, dim]
     and an adapter in the block, the gated audio cross-attention follows
     the text cross-attention (JAX wan_dit.py:291-303)."""
-    rd, cd, f32 = policy.residual, policy.compute, torch.float32
-    e = blk.modulation.to(f32) + e0                          # [B, 6, dim]
-    sa_shift, sa_scale, sa_gate, ff_shift, ff_scale, ff_gate = (
-        e[:, i:i + 1] for i in range(6))
+    with span("block", layer=blk.layer):
+        rd, cd, f32 = policy.residual, policy.compute, torch.float32
+        e = blk.modulation.to(f32) + e0                          # [B, 6, dim]
+        sa_shift, sa_scale, sa_gate, ff_shift, ff_scale, ff_gate = (
+            e[:, i:i + 1] for i in range(6))
 
-    h = layer_norm(x, eps=cfg.eps, out_dtype=f32)
-    h = h * (1.0 + sa_scale) + sa_shift
-    y = _self_attention(blk.self_attn, h, rope_sin, rope_cos, seq_lens,
-                        cfg, policy, attn_impl)
-    x = (x + (y.to(f32) * sa_gate).to(rd)).to(rd)
+        h = layer_norm(x, eps=cfg.eps, out_dtype=f32)
+        h = h * (1.0 + sa_scale) + sa_shift
+        with span("self_attn"):
+            y = _self_attention(blk.self_attn, h, rope_sin, rope_cos, seq_lens,
+                                cfg, policy, attn_impl)
+        x = (x + (y.to(f32) * sa_gate).to(rd)).to(rd)
 
-    if cfg.cross_attn_norm:
-        h = layer_norm(x, blk.norm3.weight, blk.norm3.bias, eps=cfg.eps,
-                       out_dtype=f32)
-    else:
-        h = x
-    y = _cross_attention(blk.cross_attn, h, context, context_lens, cfg,
-                         policy, attn_impl)
-    x = x + y.to(rd)
+        if cfg.cross_attn_norm:
+            h = layer_norm(x, blk.norm3.weight, blk.norm3.bias, eps=cfg.eps,
+                           out_dtype=f32)
+        else:
+            h = x
+        with span("cross_attn"):
+            y = _cross_attention(blk.cross_attn, h, context, context_lens, cfg,
+                                 policy, attn_impl)
+        x = x + y.to(rd)
 
-    ap = getattr(blk, "audio_attn", None)
-    if audio_ctx is not None and ap is not None:
-        h = layer_norm(x, ap.norm.weight, ap.norm.bias, eps=cfg.eps,
-                       out_dtype=f32)
-        # the t2v branch even on an i2v base: no image tokens in audio
-        y = _cross_attention(ap, h, audio_ctx, None,
-                             dataclasses.replace(cfg, model_type="t2v"),
-                             policy, attn_impl)
-        x = (x.to(f32) + y.to(f32) * ap.gate.to(f32)).to(rd)
+        ap = getattr(blk, "audio_attn", None)
+        if audio_ctx is not None and ap is not None:
+            h = layer_norm(x, ap.norm.weight, ap.norm.bias, eps=cfg.eps,
+                           out_dtype=f32)
+            # the t2v branch even on an i2v base: no image tokens in audio
+            t2v = dataclasses.replace(cfg, model_type="t2v")
+            with span("audio_attn"):
+                y = _cross_attention(ap, h, audio_ctx, None, t2v, policy,
+                                     attn_impl)
+            x = (x.to(f32) + y.to(f32) * ap.gate.to(f32)).to(rd)
 
-    h = layer_norm(x, eps=cfg.eps, out_dtype=f32)
-    h = h * (1.0 + ff_scale) + ff_shift
-    h = _linear(blk.ffn[0], h.to(cd))
-    h = F.gelu(h, approximate="tanh")
-    h = _linear(blk.ffn[2], h)
-    return x + (h.to(f32) * ff_gate).to(rd)
+        h = layer_norm(x, eps=cfg.eps, out_dtype=f32)
+        h = h * (1.0 + ff_scale) + ff_shift
+        with span("ffn"):
+            h = _linear(blk.ffn[0], h.to(cd))
+            h = F.gelu(h, approximate="tanh")
+            h = _linear(blk.ffn[2], h)
+        return x + (h.to(f32) * ff_gate).to(rd)
 
 
 class WanModel(nn.Module):
@@ -305,6 +311,8 @@ class WanModel(nn.Module):
         self.blocks = nn.ModuleList(
             [WanAttentionBlock(cfg, audio_adapter=audio_adapters)
              for _ in range(cfg.num_layers)])
+        for i, blk in enumerate(self.blocks):
+            blk.layer = i                 # the `block` span's attribute
         self.head = Head(cfg)
         if cfg.model_type == "i2v":
             self.img_emb = MLPProj(cfg.clip_embed_dim, dim)

@@ -16,7 +16,6 @@ DiT attention (self, text and image cross-attention) the K1 kernel.
 from __future__ import annotations
 
 import os
-import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -27,7 +26,8 @@ from omnihuman_tpu_torch.models.clip import (
     CLIP_CHECKPOINT, CLIPModel, resize_bicubic)
 from omnihuman_tpu_torch.models.vae import vae_decode, vae_encode
 from omnihuman_tpu_torch.pipelines.text2video import (
-    WanT2V, _sync, request_seed, sample)
+    WanT2V, request_seed, sample)
+from omnihuman_tpu_torch.utils.spans import span, stage
 
 
 class WanI2V(WanT2V):
@@ -100,53 +100,51 @@ class WanI2V(WanT2V):
         cfg, dev = self.config, self.device
         seed = request_seed(seed, self.mesh)
         timings: dict = {}
-        context, context_null, context_lens = self.text_context(
-            input_prompt, n_prompt, context, context_null, context_lens,
-            timings)
+        with span("request", seed=seed, batch=1):
+            context, context_null, context_lens = self.text_context(
+                input_prompt, n_prompt, context, context_null, context_lens,
+                timings)
 
-        img = torch.as_tensor(np.asarray(img) if not torch.is_tensor(img)
-                              else img, dtype=torch.float32, device=dev)
-        lat_h, lat_w = self.latent_size_for(tuple(img.shape[1:]), max_area)
-        h, w = lat_h * self.vae_stride[1], lat_w * self.vae_stride[2]
-        f_lat = (frame_num - 1) // self.vae_stride[0] + 1
+            img = torch.as_tensor(np.asarray(img) if not torch.is_tensor(img)
+                                  else img, dtype=torch.float32, device=dev)
+            lat_h, lat_w = self.latent_size_for(tuple(img.shape[1:]),
+                                                max_area)
+            h, w = lat_h * self.vae_stride[1], lat_w * self.vae_stride[2]
+            f_lat = (frame_num - 1) // self.vae_stride[0] + 1
 
-        t0 = time.perf_counter()
-        clip_fea = self.clip.visual(img[None])
-        _sync(dev)
-        timings["clip_s"] = time.perf_counter() - t0
+            with stage("clip_s", timings, dev):
+                clip_fea = self.clip.visual(img[None])
 
-        t0 = time.perf_counter()
-        img_r = resize_bicubic(img[None], (h, w))
-        vid = torch.cat([img_r[:, :, None],
-                         torch.zeros((1, 3, frame_num - 1, h, w), device=dev)],
-                        dim=2)
-        ref_lat = vae_encode(self.vae, vid, streaming=True)[0]
-        y = torch.cat([self.first_frame_mask(frame_num, lat_h, lat_w, dev),
-                       ref_lat.float()], dim=0)[None]
-        _sync(dev)
-        timings["vae_encode_s"] = time.perf_counter() - t0
+            with stage("vae_encode_s", timings, dev):
+                img_r = resize_bicubic(img[None], (h, w))
+                vid = torch.cat([img_r[:, :, None],
+                                 torch.zeros((1, 3, frame_num - 1, h, w),
+                                             device=dev)], dim=2)
+                ref_lat = vae_encode(self.vae, vid, streaming=True)[0]
+                y = torch.cat([self.first_frame_mask(frame_num, lat_h, lat_w,
+                                                     dev),
+                               ref_lat.float()], dim=0)[None]
 
-        lat_shape = (cfg.vae.z_dim, f_lat, lat_h, lat_w)
-        seq_len = self.seq_len_for(lat_shape)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        noise = torch.randn((1,) + lat_shape, generator=gen, device=dev,
-                            dtype=torch.float32)
+            with span("prep"):
+                lat_shape = (cfg.vae.z_dim, f_lat, lat_h, lat_w)
+                seq_len = self.seq_len_for(lat_shape)
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                noise = torch.randn((1,) + lat_shape, generator=gen,
+                                    device=dev, dtype=torch.float32)
 
-        t0 = time.perf_counter()
-        latents = sample(
-            self.model, noise, context, context_null, policy=self.policy,
-            seq_len=seq_len, shift=shift, solver=sample_solver,
-            steps=sampling_steps, guide_scale=guide_scale,
-            num_train_timesteps=cfg.num_train_timesteps, cfg_mode=cfg_mode,
-            context_lens=context_lens, y=y, clip_fea=clip_fea, mesh=self.mesh)
-        _sync(dev)
-        timings["denoise_s"] = time.perf_counter() - t0
-        timings["steps"] = sampling_steps
-        self.timings = timings
-        if return_latents:
-            return latents
-        t0 = time.perf_counter()
-        video = vae_decode(self.vae, latents, streaming=True)
-        _sync(dev)
-        timings["vae_decode_s"] = time.perf_counter() - t0
+            with stage("denoise_s", timings, dev, tokens=seq_len):
+                latents = sample(
+                    self.model, noise, context, context_null,
+                    policy=self.policy, seq_len=seq_len, shift=shift,
+                    solver=sample_solver, steps=sampling_steps,
+                    guide_scale=guide_scale,
+                    num_train_timesteps=cfg.num_train_timesteps,
+                    cfg_mode=cfg_mode, context_lens=context_lens, y=y,
+                    clip_fea=clip_fea, mesh=self.mesh)
+            timings["steps"] = sampling_steps
+            self.timings = timings
+            if return_latents:
+                return latents
+            with stage("vae_decode_s", timings, dev):
+                video = vae_decode(self.vae, latents, streaming=True)
         return video[0]

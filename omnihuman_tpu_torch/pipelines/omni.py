@@ -28,7 +28,6 @@ the card every attention of the DiT runs the K1 kernel and the VAE encode
 
 from __future__ import annotations
 
-import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -40,9 +39,10 @@ from omnihuman_tpu_torch.omni.model import (
     OmniModel, OmniModelConfig, build_omni_model, load_base_dit,
     omni_model_forward)
 from omnihuman_tpu_torch.parallel.mesh import use_mesh
-from omnihuman_tpu_torch.pipelines.text2video import WanT2V, _sync, mesh_plan
+from omnihuman_tpu_torch.pipelines.text2video import WanT2V, mesh_plan
 from omnihuman_tpu_torch.samplers.fm_solvers import get_solver
 from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
+from omnihuman_tpu_torch.utils.spans import span, stage
 
 
 def window_noise(seed: int, window: int, shape, device) -> torch.Tensor:
@@ -151,17 +151,16 @@ def omni_generate_windowed(
     start = 0
     widx = 0
     while start < total_frames:
-        t0 = time.perf_counter()
-        noise = window_noise(seed, widx, latent_shape, device)
-        lat = omni_generate(
-            model, noise, context, context_null,
-            audio=None if audio is None else _slice_frames(audio, 1, start,
-                                                           f_win),
-            pose=None if pose is None else _slice_frames(pose, 2, start,
-                                                         f_win),
-            ref_latent=ref_latent, motion_latent=motion, **gen_kw)
-        _sync(device)
-        win_s.append(time.perf_counter() - t0)
+        with stage("window_s", None, device, index=widx) as st:
+            noise = window_noise(seed, widx, latent_shape, device)
+            lat = omni_generate(
+                model, noise, context, context_null,
+                audio=None if audio is None else _slice_frames(
+                    audio, 1, start, f_win),
+                pose=None if pose is None else _slice_frames(
+                    pose, 2, start, f_win),
+                ref_latent=ref_latent, motion_latent=motion, **gen_kw)
+        win_s.append(st.seconds)
         clips.append(lat)
         motion = lat[:, :, -motion_frames:]
         start += f_win
@@ -236,43 +235,41 @@ class OmniHuman(WanT2V):
         is the reference image's. Stage seconds go to `self.timings`."""
         dev = self.device
         timings: dict = {}
-        context, context_null, lens = self.text_context(
-            input_prompt, n_prompt, None, None, None, timings)
-        ref = torch.as_tensor(np.asarray(ref_image) if not
-                              torch.is_tensor(ref_image) else ref_image,
-                              dtype=torch.float32, device=dev)
-        _, h_px, w_px = ref.shape
-        lat_h, lat_w = h_px // self.vae_stride[1], w_px // self.vae_stride[2]
-        f_total = total_frames or num_frames
+        with span("request", seed=seed, batch=1):
+            context, context_null, lens = self.text_context(
+                input_prompt, n_prompt, None, None, None, timings)
+            ref = torch.as_tensor(np.asarray(ref_image) if not
+                                  torch.is_tensor(ref_image) else ref_image,
+                                  dtype=torch.float32, device=dev)
+            _, h_px, w_px = ref.shape
+            lat_h = h_px // self.vae_stride[1]
+            lat_w = w_px // self.vae_stride[2]
+            f_total = total_frames or num_frames
 
-        t0 = time.perf_counter()
-        ref_lat = vae_encode(self.vae, ref[None, :, None], streaming=True)
-        ref_lat = ref_lat.float()
-        _sync(dev)
-        timings["ref_encode_s"] = time.perf_counter() - t0
+            with stage("ref_encode_s", timings, dev):
+                ref_lat = vae_encode(self.vae, ref[None, :, None],
+                                     streaming=True)
+                ref_lat = ref_lat.float()
 
-        def track(a):
-            return (None if a is None else torch.as_tensor(
-                np.asarray(a) if not torch.is_tensor(a) else a,
-                dtype=torch.float32, device=dev)[None])
+            def track(a):
+                return (None if a is None else torch.as_tensor(
+                    np.asarray(a) if not torch.is_tensor(a) else a,
+                    dtype=torch.float32, device=dev)[None])
 
-        t0 = time.perf_counter()
-        latents = omni_generate_windowed(
-            self.model, seed,
-            latent_shape=(1, self.config.vae.z_dim, num_frames, lat_h,
-                          lat_w),
-            context=context, context_null=context_null,
-            total_frames=f_total, motion_frames=motion_frames,
-            audio=track(audio), pose=track(pose), ref_latent=ref_lat,
-            timings=timings, policy=self.policy,
-            sampling_steps=sampling_steps, cfg_scale=cfg_scale, shift=1.0,
-            context_lens=lens[:1], null_lens=lens[1:], mesh=self.mesh)
-        _sync(dev)
-        timings["denoise_s"] = time.perf_counter() - t0
-        timings["steps"] = sampling_steps
-        self.timings = timings
-        t0 = time.perf_counter()
-        video = vae_decode(self.vae, latents, streaming=True)
-        _sync(dev)
-        timings["vae_decode_s"] = time.perf_counter() - t0
+            with stage("denoise_s", timings, dev):
+                latents = omni_generate_windowed(
+                    self.model, seed,
+                    latent_shape=(1, self.config.vae.z_dim, num_frames,
+                                  lat_h, lat_w),
+                    context=context, context_null=context_null,
+                    total_frames=f_total, motion_frames=motion_frames,
+                    audio=track(audio), pose=track(pose), ref_latent=ref_lat,
+                    timings=timings, policy=self.policy,
+                    sampling_steps=sampling_steps, cfg_scale=cfg_scale,
+                    shift=1.0, context_lens=lens[:1], null_lens=lens[1:],
+                    mesh=self.mesh)
+            timings["steps"] = sampling_steps
+            self.timings = timings
+            with stage("vae_decode_s", timings, dev):
+                video = vae_decode(self.vae, latents, streaming=True)
         return video[0]

@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -48,6 +47,7 @@ from omnihuman_tpu_torch.parallel.mesh import AXIS_SP, use_mesh
 from omnihuman_tpu_torch.parallel.partition import shard_params
 from omnihuman_tpu_torch.samplers.fm_solvers import get_solver
 from omnihuman_tpu_torch.utils.convert import load_wan_checkpoint_dir
+from omnihuman_tpu_torch.utils.spans import span, stage
 
 
 def resolve_device(device=None) -> torch.device:
@@ -75,11 +75,6 @@ def serving_policy(config: WanConfig, precision: str) -> DTypePolicy:
     if precision == "reference":
         return config.policy
     return dataclasses.replace(config.policy, residual=torch.bfloat16)
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def mesh_plan(mesh):
@@ -229,11 +224,13 @@ class WanT2V:
     @torch.no_grad()
     def encode_text(self, prompts) -> Tuple[torch.Tensor, torch.Tensor]:
         """[prompts] -> (context [B, text_len, t5.dim] fp32, lens [B] int32)."""
-        ids, mask = self._get_tokenizer()(prompts, return_mask=True)
-        ids_t = torch.from_numpy(ids).to(self.device)
-        mask_t = torch.from_numpy(mask).to(self.device)
-        ctx = self.t5(ids_t, mask_t)
-        lens = mask_t.sum(dim=-1).to(torch.int32)
+        with span("tokenize", batch=len(prompts)):
+            ids, mask = self._get_tokenizer()(prompts, return_mask=True)
+        with span("t5", tokens=int(mask.sum())):
+            ids_t = torch.from_numpy(ids).to(self.device)
+            mask_t = torch.from_numpy(mask).to(self.device)
+            ctx = self.t5(ids_t, mask_t)
+            lens = mask_t.sum(dim=-1).to(torch.int32)
         return ctx, lens
 
     # -- geometry -----------------------------------------------------------
@@ -266,28 +263,24 @@ class WanT2V:
         dev = self.device
         if n_prompt == "":
             n_prompt = self.config.sample_neg_prompt
-        t0 = time.perf_counter()
         if context is None:
-            self._get_tokenizer()
-            self.t5                      # built, or brought back to the card
-            _sync(dev)
-            timings["t5_load_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            context, lens_c = self.encode_text([prompt])
-            context_null, lens_n = self.encode_text([n_prompt])
-            context_lens = torch.cat([lens_c, lens_n])
-            _sync(dev)
-            timings["t5_encode_s"] = time.perf_counter() - t0
+            with stage("t5_load_s", timings, dev):
+                self._get_tokenizer()
+                self.t5                  # built, or brought back to the card
+            with stage("t5_encode_s", timings, dev):
+                context, lens_c = self.encode_text([prompt])
+                context_null, lens_n = self.encode_text([n_prompt])
+                context_lens = torch.cat([lens_c, lens_n])
             if self.t5_auto_unload:
-                t0 = time.perf_counter()
-                self.unload_t5()
-                timings["t5_unload_s"] = time.perf_counter() - t0
+                with stage("t5_unload_s", timings, None):
+                    self.unload_t5()
         if context_lens is not None:
-            longest = max(1, int(torch.as_tensor(context_lens).max()))
-            bucket = int(math.ceil(longest / 128) * 128)
-            if bucket < context.shape[1]:
-                context = context[:, :bucket]
-                context_null = context_null[:, :bucket]
+            with span("trim"):
+                longest = max(1, int(torch.as_tensor(context_lens).max()))
+                bucket = int(math.ceil(longest / 128) * 128)
+                if bucket < context.shape[1]:
+                    context = context[:, :bucket]
+                    context_null = context_null[:, :bucket]
         return context, context_null, context_lens
 
     @torch.no_grad()
@@ -321,33 +314,33 @@ class WanT2V:
         dev = self.device
         seed = request_seed(seed, self.mesh)
         timings = {}
-        context, context_null, context_lens = self.text_context(
-            input_prompt, n_prompt, context, context_null, context_lens,
-            timings)
+        with span("request", seed=seed, batch=1):
+            context, context_null, context_lens = self.text_context(
+                input_prompt, n_prompt, context, context_null, context_lens,
+                timings)
 
-        lat_shape = self.latent_shape(size, frame_num)
-        seq_len = self.seq_len_for(lat_shape)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        noise = torch.randn((1,) + lat_shape, generator=gen, device=dev,
-                            dtype=torch.float32)
+            with span("prep"):
+                lat_shape = self.latent_shape(size, frame_num)
+                seq_len = self.seq_len_for(lat_shape)
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                noise = torch.randn((1,) + lat_shape, generator=gen,
+                                    device=dev, dtype=torch.float32)
 
-        t0 = time.perf_counter()
-        latents = sample(
-            self.model, noise, context, context_null, policy=self.policy,
-            seq_len=seq_len, shift=shift, solver=sample_solver,
-            steps=sampling_steps, guide_scale=guide_scale,
-            num_train_timesteps=cfg.num_train_timesteps, cfg_mode=cfg_mode,
-            context_lens=context_lens, mesh=self.mesh)
-        _sync(dev)
-        timings["denoise_s"] = time.perf_counter() - t0
-        timings["steps"] = sampling_steps
-        self.timings = timings
-        if return_latents:
-            return latents
-        t0 = time.perf_counter()
-        video = vae_decode(self.vae, latents, streaming=True)
-        _sync(dev)
-        timings["vae_decode_s"] = time.perf_counter() - t0
+            with stage("denoise_s", timings, dev, tokens=seq_len):
+                latents = sample(
+                    self.model, noise, context, context_null,
+                    policy=self.policy, seq_len=seq_len, shift=shift,
+                    solver=sample_solver, steps=sampling_steps,
+                    guide_scale=guide_scale,
+                    num_train_timesteps=cfg.num_train_timesteps,
+                    cfg_mode=cfg_mode, context_lens=context_lens,
+                    mesh=self.mesh)
+            timings["steps"] = sampling_steps
+            self.timings = timings
+            if return_latents:
+                return latents
+            with stage("vae_decode_s", timings, dev):
+                video = vae_decode(self.vae, latents, streaming=True)
         return video[0]
 
 
@@ -375,29 +368,30 @@ def cfg_model_step(model: WanModel, x, t, ctx2, rope_sin, rope_cos,
     fwd = dict(seq_len=seq_len, rope_sin=rope_sin, rope_cos=rope_cos,
                policy=policy, y=y, clip_fea=clip_fea, attn_impl=attn_impl,
                token_sharding=token_sharding)
-    b = x.shape[0]
-    if cfg_mode == "fused":
-        x2 = torch.cat([x, x], dim=0)
-        t2 = _t_batch(t, x2.shape[0], x.device)
-        if y is not None and y.shape[0] == b:
-            fwd["y"] = torch.cat([y, y], dim=0)
-            fwd["clip_fea"] = torch.cat([clip_fea, clip_fea], dim=0)
-        v2 = model(x2, t2, ctx2, context_lens=ctx_lens, **fwd)
-        v_cond, v_uncond = v2.chunk(2, dim=0)
-    elif cfg_mode == "sequential":
-        ctx, ctx_null = ctx2.chunk(2, dim=0)
-        lens_c = lens_n = None
-        if ctx_lens is not None:
-            lens_c, lens_n = ctx_lens[:1], ctx_lens[1:]
-        if y is not None:
-            fwd["y"], fwd["clip_fea"] = y[:b], clip_fea[:b]
-        t1 = _t_batch(t, b, x.device)
-        v_cond = model(x, t1, ctx, context_lens=lens_c, **fwd)
-        v_uncond = model(x, t1, ctx_null, context_lens=lens_n, **fwd)
-    else:
-        raise ValueError(f"unknown cfg_mode {cfg_mode!r}; "
-                         "expected 'fused' or 'sequential'")
-    return v_uncond + guide_scale * (v_cond - v_uncond)
+    with span("cfg"):
+        b = x.shape[0]
+        if cfg_mode == "fused":
+            x2 = torch.cat([x, x], dim=0)
+            t2 = _t_batch(t, x2.shape[0], x.device)
+            if y is not None and y.shape[0] == b:
+                fwd["y"] = torch.cat([y, y], dim=0)
+                fwd["clip_fea"] = torch.cat([clip_fea, clip_fea], dim=0)
+            v2 = model(x2, t2, ctx2, context_lens=ctx_lens, **fwd)
+            v_cond, v_uncond = v2.chunk(2, dim=0)
+        elif cfg_mode == "sequential":
+            ctx, ctx_null = ctx2.chunk(2, dim=0)
+            lens_c = lens_n = None
+            if ctx_lens is not None:
+                lens_c, lens_n = ctx_lens[:1], ctx_lens[1:]
+            if y is not None:
+                fwd["y"], fwd["clip_fea"] = y[:b], clip_fea[:b]
+            t1 = _t_batch(t, b, x.device)
+            v_cond = model(x, t1, ctx, context_lens=lens_c, **fwd)
+            v_uncond = model(x, t1, ctx_null, context_lens=lens_n, **fwd)
+        else:
+            raise ValueError(f"unknown cfg_mode {cfg_mode!r}; "
+                             "expected 'fused' or 'sequential'")
+        return v_uncond + guide_scale * (v_cond - v_uncond)
 
 
 @torch.no_grad()
@@ -424,12 +418,13 @@ def sample(model: WanModel, noise, context, context_null, *,
     state = sol.init_state(noise)
     with use_mesh(mesh):
         for i in range(steps):
-            v = cfg_model_step(model, x, float(np.float32(ts[i])), ctx2,
-                               rope_sin, rope_cos, ctx_lens, policy=policy,
-                               seq_len=seq_len,
-                               guide_scale=float(guide_scale),
-                               cfg_mode=cfg_mode, y=y, clip_fea=clip_fea,
-                               attn_impl=attn_impl,
-                               token_sharding=token_sharding)
-            x, state = sol.step(state, v, x, i)
+            with span("step", index=i):
+                v = cfg_model_step(model, x, float(np.float32(ts[i])), ctx2,
+                                   rope_sin, rope_cos, ctx_lens,
+                                   policy=policy, seq_len=seq_len,
+                                   guide_scale=float(guide_scale),
+                                   cfg_mode=cfg_mode, y=y, clip_fea=clip_fea,
+                                   attn_impl=attn_impl,
+                                   token_sharding=token_sharding)
+                x, state = sol.step(state, v, x, i)
     return x

@@ -4,7 +4,8 @@ omnihuman_tpu/pipelines/wan_inference.py).
 Reference seaweed_apt/wan_inference.py:16-251 (`SeaweedWanAPTGenerator`):
 encode the prompts, run ONE DiT forward at t = T (no CFG loop, no solver),
 take x = noise - v, decode with the streaming VAE (K3 / K4 on the card),
-with per-stage seconds. Batch serving stacks B prompts into one forward
+with per-stage seconds and, under a profiler, the spans of the request
+(`utils/spans.py`). Batch serving stacks B prompts into one forward
 and one decode.
 
 On a pipeline with a mesh (JAX `:108-157`), every rank runs the forward
@@ -30,7 +31,8 @@ from omnihuman_tpu_torch.models.wan_dit import WanModel
 from omnihuman_tpu_torch.ops.rope import rope_angles_3d
 from omnihuman_tpu_torch.parallel.mesh import use_mesh
 from omnihuman_tpu_torch.pipelines.text2video import (
-    WanT2V, _sync, mesh_plan, request_seed)
+    WanT2V, mesh_plan, request_seed)
+from omnihuman_tpu_torch.utils.spans import span, stage
 
 
 def clip_noise(seed: int, index: int, shape, device) -> torch.Tensor:
@@ -101,48 +103,51 @@ class SeaweedWanAPTGenerator:
         On a mesh pipeline every rank calls it with the same arguments
         (module docstring)."""
         cfg, pipe, dev = self.config, self.pipe, self.pipe.device
-        timings: dict = {}
-        t0 = time.perf_counter()
-        if context is None:
-            context, context_lens = pipe.encode_text(list(prompts))
-        if context_lens is not None:
-            longest = max(1, int(torch.as_tensor(context_lens).max()))
-            bucket = int(math.ceil(longest / 128) * 128)
-            if bucket < context.shape[1]:
-                context = context[:, :bucket]
-        _sync(dev)
-        timings["text_encode_s"] = time.perf_counter() - t0
-
-        lat_shape = pipe.latent_shape(size, frame_num)
-        seq_len = pipe.seq_len_for(lat_shape)
-        pt, ph, pw = cfg.model.patch_size
-        grid = (lat_shape[1] // pt, lat_shape[2] // ph, lat_shape[3] // pw)
-        sin, cos = rope_angles_3d(grid, cfg.model.head_dim, seq_len=seq_len,
-                                  device=dev)
         seed = request_seed(seed, pipe.mesh)
-        noise = torch.stack([clip_noise(seed, i, lat_shape, dev)
-                             for i in range(context.shape[0])])
+        timings: dict = {}
+        with span("request", seed=seed, batch=len(prompts)):
+            t_request = time.perf_counter()
+            with stage("text_encode_s", timings, dev):
+                if context is None:
+                    context, context_lens = pipe.encode_text(list(prompts))
+                if context_lens is not None:
+                    with span("trim"):
+                        longest = max(1, int(torch.as_tensor(
+                            context_lens).max()))
+                        bucket = int(math.ceil(longest / 128) * 128)
+                        if bucket < context.shape[1]:
+                            context = context[:, :bucket]
 
-        t0 = time.perf_counter()
-        latents = one_step_latents(
-            self.model, noise, context, seq_len=seq_len, rope_sin=sin,
-            rope_cos=cos, policy=pipe.policy,
-            t_final=float(cfg.num_train_timesteps),
-            context_lens=None if context_lens is None else torch.as_tensor(
-                context_lens, device=dev).to(torch.int32), mesh=pipe.mesh)
-        _sync(dev)
-        timings["dit_s"] = time.perf_counter() - t0
-        if return_latents:
-            self.timings = timings
-            return latents
+            with span("prep"):
+                lat_shape = pipe.latent_shape(size, frame_num)
+                seq_len = pipe.seq_len_for(lat_shape)
+                pt, ph, pw = cfg.model.patch_size
+                grid = (lat_shape[1] // pt, lat_shape[2] // ph,
+                        lat_shape[3] // pw)
+                sin, cos = rope_angles_3d(grid, cfg.model.head_dim,
+                                          seq_len=seq_len, device=dev)
+                noise = torch.stack([clip_noise(seed, i, lat_shape, dev)
+                                     for i in range(context.shape[0])])
 
-        t0 = time.perf_counter()
-        video = vae_decode(pipe.vae, latents, streaming=True,
-                           spatial=None if pipe.mesh is None
-                           else world_group(pipe.mesh))
-        _sync(dev)
-        timings["vae_decode_s"] = time.perf_counter() - t0
+            with stage("dit_s", timings, dev, tokens=seq_len):
+                latents = one_step_latents(
+                    self.model, noise, context, seq_len=seq_len,
+                    rope_sin=sin, rope_cos=cos, policy=pipe.policy,
+                    t_final=float(cfg.num_train_timesteps),
+                    context_lens=None if context_lens is None
+                    else torch.as_tensor(context_lens,
+                                         device=dev).to(torch.int32),
+                    mesh=pipe.mesh)
+            if return_latents:
+                self.timings = timings
+                return latents
+
+            with stage("vae_decode_s", timings, dev):
+                video = vae_decode(pipe.vae, latents, streaming=True,
+                                   spatial=None if pipe.mesh is None
+                                   else world_group(pipe.mesh))
+        # frames over the request's wall time, on the stages' clock
         timings["frames_per_sec"] = (video.shape[0] * video.shape[2]
-                                     / sum(timings.values()))
+                                     / (time.perf_counter() - t_request))
         self.timings = timings
         return video

@@ -18,6 +18,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from omnihuman_tpu_torch.utils.spans import span
+
 
 def get_sampling_sigmas(sampling_steps: int, shift: float) -> np.ndarray:
     """sigma = linspace(1, 0)[:-1] warped by shift*s/(1+(shift-1)s)."""
@@ -238,40 +240,41 @@ class _PlanSolver:
     def step(self, state: dict, v: torch.Tensor, sample: torch.Tensor,
              step_index: int) -> Tuple[torch.Tensor, dict]:
         """One solver step: (velocity at `sample`, state) -> next sample."""
-        p = self.plan
-        i = int(step_index)
+        with span("solver", index=step_index):
+            p = self.plan
+            i = int(step_index)
 
-        def c(tab):   # the table entry as an fp32 scalar, as the JAX gather
-            return float(np.float32(tab[i]))
+            def c(tab):   # the table entry as an fp32 scalar (JAX gather)
+                return float(np.float32(tab[i]))
 
-        x = sample.float()
-        v = v.float()
-        x0 = x - c(p.sigmas) * v
-        hist = state["hist"].float()
-        m0_prev = hist[-1]
+            x = sample.float()
+            v = v.float()
+            x0 = x - c(p.sigmas) * v
+            hist = state["hist"].float()
+            m0_prev = hist[-1]
 
-        if c(p.use_corrector) > 0:
+            if c(p.use_corrector) > 0:
+                d1_sum = torch.zeros_like(x)
+                for j in range(p.pred_rho.shape[1]):
+                    d1_sum = d1_sum + c(p.corr_rho[:, j]) * (
+                        hist[-2 - j] - m0_prev) / c(p.corr_rk[:, j])
+                x = (c(p.corr_x) * state["last_sample"].float()
+                     + c(p.corr_m0) * m0_prev
+                     + c(p.corr_bh) * (d1_sum
+                                       + c(p.corr_rho_last) * (x0 - m0_prev)))
+
+            hist = torch.cat([hist[1:], x0[None]], dim=0)
+
             d1_sum = torch.zeros_like(x)
             for j in range(p.pred_rho.shape[1]):
-                d1_sum = d1_sum + c(p.corr_rho[:, j]) * (
-                    hist[-2 - j] - m0_prev) / c(p.corr_rk[:, j])
-            x = (c(p.corr_x) * state["last_sample"].float()
-                 + c(p.corr_m0) * m0_prev
-                 + c(p.corr_bh) * (d1_sum
-                                   + c(p.corr_rho_last) * (x0 - m0_prev)))
+                d1_sum = d1_sum + c(p.pred_rho[:, j]) * (
+                    hist[-2 - j] - x0) / c(p.pred_rk[:, j])
+            x_next = (c(p.pred_x) * x + c(p.pred_m0) * x0
+                      + c(p.pred_bh) * d1_sum)
 
-        hist = torch.cat([hist[1:], x0[None]], dim=0)
-
-        d1_sum = torch.zeros_like(x)
-        for j in range(p.pred_rho.shape[1]):
-            d1_sum = d1_sum + c(p.pred_rho[:, j]) * (
-                hist[-2 - j] - x0) / c(p.pred_rk[:, j])
-        x_next = (c(p.pred_x) * x + c(p.pred_m0) * x0
-                  + c(p.pred_bh) * d1_sum)
-
-        new_state = {"hist": hist.to(sample.dtype),
-                     "last_sample": x.to(sample.dtype), "step": i + 1}
-        return x_next.to(sample.dtype), new_state
+            new_state = {"hist": hist.to(sample.dtype),
+                         "last_sample": x.to(sample.dtype), "step": i + 1}
+            return x_next.to(sample.dtype), new_state
 
 
 class FlowUniPCSolver(_PlanSolver):

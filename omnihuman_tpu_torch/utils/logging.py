@@ -17,8 +17,9 @@ installed but not logged in).
 Device helpers: `log_device_memory` reports each CUDA device's allocated
 and total memory (JAX: `memory_stats()` per device); `debug_tensor`
 returns JAX's dict; `profile_trace` records a `torch.profiler` trace
-(host and, where there is a card, CUDA activity) and writes it as a
-chrome trace in `log_dir` (JAX: `jax.profiler`; the TPU trace parser
+(host and, where there is a card, CUDA activity) and writes it, with the
+port's spans (`utils/spans.py`), as a chrome trace in `log_dir` (JAX:
+`jax.profiler`; the TPU trace parser
 `utils/xplane.py` has no counterpart). `anomaly_detection` is JAX's
 `jax_debug_nans`: it raises FloatingPointError at the first op whose
 floating output holds a NaN, forward ops included (a TorchDispatchMode;
@@ -38,6 +39,8 @@ from typing import Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from omnihuman_tpu_torch.utils import spans
 
 
 def get_logger() -> logging.Logger:
@@ -127,18 +130,29 @@ def anomaly_detection():
 def profile_trace(log_dir: str):
     """A `torch.profiler` trace of the block (host activity, and CUDA
     activity where there is a card), written on exit as
-    `<log_dir>/trace.json` (chrome trace format). Yields the profiler."""
+    `<log_dir>/trace.json` (chrome trace format) with the port's spans
+    (`utils.spans`: request, step, block, ...) beside the kernels, as a
+    host track and, on the card, a device track; the spans are then
+    cleared. Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    spans.clear()
     with profile(activities=acts) as prof:
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     path = os.path.join(log_dir, "trace.json")
     prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    trace["traceEvents"] += spans.chrome_events(
+        spans.collected(), trace.get("baseTimeNanoseconds", 0))
+    spans.clear()
+    with open(path, "w") as f:
+        json.dump(trace, f)
     logger.info(f"profiler trace -> {path}")
 
 

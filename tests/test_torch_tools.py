@@ -1,6 +1,7 @@
 """The port's tools (ROADMAP item 20) on the CPU: `cli.generate` with
-`--export_step`, `--profile` and `--use_prompt_extend`; the device helpers
-of utils/logging.py against JAX's; utils/viz.py and
+`--export_step`, `--profile` (its trace holds the port's spans) and
+`--use_prompt_extend`; the device helpers of utils/logging.py against
+JAX's; utils/viz.py and
 `apt/generate.visualize_and_save_batch_with_vae` at tiny sizes.
 
 - `debug_tensor` returns JAX's dict: exact but for the std, 1e-6
@@ -47,6 +48,9 @@ def test_cli_profile_and_prompt_extend_on_cpu(tmp_path, monkeypatch,
     trace = json.load(open(trace_dir / "trace.json"))
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("omnihuman_tpu_torch::flash_fwd" in n for n in names)
+    spans = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "span"}
+    assert {"request", "step", "cfg", "block", "self_attn",
+            "vae_decode"} <= spans
     assert ("prompt extended (Qwen weights unavailable; template-expanded "
             "(offline fallback)): a fox." in caplog.text)
 
