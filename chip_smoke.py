@@ -311,6 +311,27 @@ Right after phase 15, on its videos:
      NCCL against one card's; with one card that is logged as not run.
      The phase logs its wall time.
 
+Right after phase 12:
+ 32. block_norm (csrc/block_norm.cu, the DiT block's residual sites in one
+     pass) against the eager chain it replaced, on the card, at every
+     site form (A the block entry's modulated norm, B the gated add and
+     the affine norm after the self-attention, C the add and the
+     modulated norm after the cross-attention, the OmniHuman audio
+     adapter's two, D the gated add after the FFN), 2 x 32,768 rows at
+     dim 1536 and 5120, bf16 residual (and fp32 at B and D): x' bit-equal,
+     h within one bf16 step (each element's magnitude floored at 2^-8 of
+     its row's peak; the count over one step without the floor is
+     printed), ms a call over 20 calls back to back as the DiT makes them
+     (CUDA events, median of 7; one call alone with its wrapper's host
+     time beside it) against the byte bound (each
+     input and output once over 3.35 TB/s) and the eager ms; ptxas's
+     registers and spills; the kernel's launches in a full-width
+     t2v-1.3B DiT forward, 120 without the gradient, and 240 in a forward
+     and backward with it and per-block remat (the recompute launches it
+     again; the op's backward is the eager chain). block_norm is counted
+     with the other kernels on every path below; a path that launched K1
+     without it fails the smoke.
+
 The line before last is a JSON object {"kernels": [...]}; its
 `launches_by_path` holds each path's launches (phase 19's t2v request,
 20's and 21's first CLI runs, 22's pass, 23's `--pose_video` request,
@@ -318,8 +339,9 @@ The line before last is a JSON object {"kernels": [...]}; its
 ("profile"), 29's one-rank mesh request ("sp_serve"), 30's mesh
 training steps ("sp_train"), 31's W-sharded passes ("vae_decode_w2" ...)
 and mesh one-step batch ("spatial_one_step") among them), and K3's and
-K4's `w_shard_rows` hold phase 31's shard shapes; the last line is
-{"ok": true, "device": {...}}.
+K4's `w_shard_rows` hold phase 31's shard shapes; block_norm's row (phase
+32) holds each site form's numbers and its launches by path; the last
+line is {"ok": true, "device": {...}}.
 
     torchrun --standalone --nproc_per_node N chip_smoke.py --sp-worker OUT
     torchrun --standalone --nproc_per_node N chip_smoke.py --train-worker OUT
@@ -1107,6 +1129,12 @@ def _zero(kernels):
         kn.launches = 0
 
 
+def _differ(counts, want):
+    """Whether the launches of the kernels `want` names differ from it
+    (block_norm's, beside them in `counts`, are checked in main)."""
+    return any(counts.get(k) != v for k, v in want.items())
+
+
 def phase_training_main_path(kernels):
     """teacher_data, then train_distill, through their CLI main()s; returns
     {path: {kernel: launches}}, the path of the teacher data and the DiT
@@ -1150,8 +1178,8 @@ def phase_training_main_path(kernels):
         f"{vt.std():.3g}; launches {counts['teacher_data']}")
     if not (vt.shape == (2, 16, 1, 60, 104) and abs(vt).max() > 0):
         fail("teacher data has the wrong shape or is all zeros")
-    want = [NUM_LAYERS, NUM_LAYERS, 0]
-    if list(counts["teacher_data"].values()) != want:
+    want = _want(kernels[:3], NUM_LAYERS, NUM_LAYERS)
+    if _differ(counts["teacher_data"], want):
         fail(f"teacher_data launches {counts['teacher_data']}, want {want}")
 
     npz = os.path.join(WORK, "dummy_data_480x832.npz")
@@ -1173,13 +1201,13 @@ def phase_training_main_path(kernels):
         if not (h["loss"] > 0 and h["grad_norm"] > 0):
             fail("a distill step has a zero or non-finite loss / gradient")
     steps = len(history)
-    want = [2 * NUM_LAYERS * steps] * 3
+    want = _want(kernels[:3], *[2 * NUM_LAYERS * steps] * 3)
     log(f"[8] cli.train_distill: {steps} steps in {total:.1f} s (with model "
         f"build and the checkpoint save), peak device memory {peak:.1f} GiB;"
         f" launches {counts['train_distill']}, expected {want} (per step: "
         f"30 layers x self + cross attention, K1 forward + remat recompute, "
         f"one K2 each)")
-    if steps != 2 or list(counts["train_distill"].values()) != want:
+    if steps != 2 or _differ(counts["train_distill"], want):
         fail("the training path did not send every attention forward, "
              "recompute and backward through K1 and K2")
 
@@ -1688,13 +1716,13 @@ def phase_i2v(kernels, flash_kernels):
     f_lat = f_lat_of(I2V)
     want = {flash_kernels[0].name: layers * steps,        # self-attention
             flash_kernels[1].name: 2 * layers * steps,    # text + image
-            kernels[-2].name: 20 * f_lat + 28 * f_lat,    # encode + decode
-            kernels[-1].name: 3 * f_lat}
-    want = {kn.name: want.get(kn.name, 0) for kn in kernels}
+            kernels[3].name: 20 * f_lat + 28 * f_lat,     # encode + decode
+            kernels[4].name: 3 * f_lat}
+    want = {kn.name: want.get(kn.name, 0) for kn in kernels[:5]}
     log(f"[14] launches {counts}, expected {want} ({layers} layers x {steps}"
         f" steps, CFG in one batch; {f_lat} encode chunks x 20 + {f_lat} "
         f"decode steps x 28 K3, x 3 K4)")
-    if counts != want:
+    if _differ(counts, want):
         fail("the i2v path did not send every attention through K1 and "
              "every VAE conv through K3 / K4")
     del pipe, video
@@ -1739,10 +1767,10 @@ def phase_one_step(kernels, flash_kernels):
     f_lat = f_lat_of(ONE_STEP)
     want = {flash_kernels[0].name: NUM_LAYERS,
             flash_kernels[1].name: NUM_LAYERS,
-            kernels[-2].name: 28 * f_lat, kernels[-1].name: 3 * f_lat}
-    want = {kn.name: want.get(kn.name, 0) for kn in kernels}
+            kernels[3].name: 28 * f_lat, kernels[4].name: 3 * f_lat}
+    want = {kn.name: want.get(kn.name, 0) for kn in kernels[:5]}
     log(f"[15] launches {counts}, expected {want}")
-    if counts != want:
+    if _differ(counts, want):
         fail("the one-step path did not go through K1 and K3 / K4")
     # phase 31 (b)'s reference: these videos and the prompts' contexts
     ctx, lens = pipe.encode_text(list(ONE_STEP["prompts"]))
@@ -1813,9 +1841,9 @@ def _omni_want(all_kernels, flash_kernels):
     f_lat = OMNI["f_total"]
     want = {flash_kernels[0].name: 2 * layers * steps * windows,
             flash_kernels[1].name: 3 * layers * steps * windows,
-            all_kernels[-2].name: 20 + 28 * f_lat,
-            all_kernels[-1].name: 3 * f_lat}
-    return {kn.name: want.get(kn.name, 0) for kn in all_kernels}
+            all_kernels[3].name: 20 + 28 * f_lat,
+            all_kernels[4].name: 3 * f_lat}
+    return {kn.name: want.get(kn.name, 0) for kn in all_kernels[:5]}
 
 
 def phase_omni(all_kernels, flash_kernels):
@@ -1877,7 +1905,7 @@ def phase_omni(all_kernels, flash_kernels):
         f"long, cond text + cond audio + uncond text short; K3 20 for the "
         f"1-frame reference encode + 28 x {f_lat} decode steps, K4 3 x "
         f"{f_lat})")
-    if counts != want:
+    if _differ(counts, want):
         fail("the omni path did not send every attention through K1 and "
              "every VAE conv through K3 / K4")
 
@@ -2135,14 +2163,14 @@ def phase_omni_train(all_kernels, flash_kernels):
                     for s in setup.stages))
 
     def expected(stage_steps):
-        want = {kn.name: 0 for kn in all_kernels}
+        want = {kn.name: 0 for kn in all_kernels[:5]}
         for stage, steps in stage_steps:
             for kn, n in zip(flash_kernels,
                              _omni_step_launches(stage, layers)):
                 want[kn.name] += n * steps
             # K3: the 49-frame encode (13 chunks) and the reference, 20
             # fused convs a chunk; no decode, so no K4
-            want[all_kernels[-2].name] += 20 * (OMNI_TRAIN["f_lat"] + 1) \
+            want[all_kernels[3].name] += 20 * (OMNI_TRAIN["f_lat"] + 1) \
                 * steps
         return want
 
@@ -2165,7 +2193,7 @@ def phase_omni_train(all_kernels, flash_kernels):
         f" (a step: {layers} layers x self + text + audio attention, K1 "
         f"forward + remat recompute, one K2 each; K3 20 x 14 encode "
         f"chunks)")
-    if counts != want:
+    if _differ(counts, want):
         fail("the omni training path did not send every attention "
              "forward, recompute and backward through K1 / K2 and every "
              "encoder conv through K3")
@@ -2213,7 +2241,7 @@ def phase_omni_train(all_kernels, flash_kernels):
                     f"in {r['seconds']:.1f} s" for r in saves)
         + f"); launches {counts2}, expected {want2}")
     if not checked or setup.trainer.state.step != 3 or len(saves) != 1 \
-            or counts2 != want2:
+            or _differ(counts2, want2):
         fail("the resumed run did not restore step 2 and take exactly "
              "one step")
     del ref_state
@@ -2451,7 +2479,8 @@ class _SaveTimes:
 
 def _want(kernels, long_k=0, short_k=0, bwd=0, k3=0, k4=0):
     """{kernel name: launches} in the order K1 long-K, K1 short-K, K2, K3,
-    K4 (the names of `kernels`, all five)."""
+    K4 (the names of the first five of `kernels`; block_norm's, after
+    them, are left to `_differ`'s callers)."""
     return dict(zip([kn.name for kn in kernels],
                     (long_k, short_k, bwd, k3, k4)))
 
@@ -2527,7 +2556,7 @@ def phase_ckpt_dir(kernels):
         if tuple(video.shape) != (3, frames, h, w) or \
                 not torch.isfinite(video).all():
             fail(f"--ckpt_dir {name}: wrong video shape or values")
-        if got != want:
+        if _differ(got, want):
             fail(f"--ckpt_dir {name}: launches {got} != {want}")
         built.clear()
         del pipe, videos, video
@@ -2607,7 +2636,7 @@ def phase_f_distill(npz, kernels, teacher):
     mgr = CheckpointManager(out)
     if mgr.all_steps() != [1, 2] or mgr.restore_metadata(2) != {"epoch": 0}:
         fail(f"f-distill checkpoints {mgr.all_steps()} / metadata unexpected")
-    if counts != want:
+    if _differ(counts, want):
         fail("the f-distill path did not send every attention through K1 "
              "and K2")
     shutil.rmtree(os.path.join(out, "step_00000002"))
@@ -2617,8 +2646,8 @@ def phase_f_distill(npz, kernels, teacher):
     _zero(kernels)
     state, resumed = train_f_distill.main(argv + ["--resume"])
     got = _count(kernels)
-    if [h["step"] for h in resumed] != [2] or got != _want(kernels,
-                                                           *per_step):
+    if [h["step"] for h in resumed] != [2] or _differ(
+            got, _want(kernels, *per_step)):
         fail(f"f-distill resume from step 1: steps "
              f"{[h['step'] for h in resumed]}, launches {got}")
     rel = abs(resumed[0]["loss"] - history[1]["loss"]) / history[1]["loss"]
@@ -2652,7 +2681,8 @@ def phase_f_distill(npz, kernels, teacher):
                               fa.flash_attention_plain):
         loss_p, grads_p = _f_distill_grads(state, teacher, batch, snap, kw)
     torch.cuda.synchronize()
-    if any(_count(kernels).values()):
+    # only the attention is patched: block_norm runs in both passes
+    if any(_count(kernels[:3]).values()):
         fail(f"the plain pass launched kernels: {_count(kernels)}")
     num = sum((a.float() - b.float()).square().sum() for a, b in
               zip(grads_k, grads_p))
@@ -2694,7 +2724,7 @@ def phase_f_distill(npz, kernels, teacher):
     loss = step()
     sec = time.perf_counter() - t0
     big_counts = _count(kernels)
-    if not loss > 0 or big_counts != _want(kernels, *per_step):
+    if not loss > 0 or _differ(big_counts, _want(kernels, *per_step)):
         fail(f"81-frame f-distill step: loss {loss}, launches {big_counts}")
     log(f"[20] f-distill step at 81 frames (latents [1,16,21,60,104], "
         f"{FLAGSHIP['tokens']} tokens, per-block remat, batch 1, teacher CFG "
@@ -2799,7 +2829,7 @@ def phase_train_apt(npz, kernels, teacher):
     if metas != {2: {"phase": "image", "update": 2, "final": True},
                  3: {"phase": "video", "update": 1, "final": True}}:
         fail(f"APT checkpoints / metadata unexpected: {metas}")
-    if counts != want:
+    if _differ(counts, want):
         fail("the APT path did not send every attention through K1 and K2")
     shutil.rmtree(os.path.join(out, "step_00000003"))
     _zero(kernels)
@@ -2809,8 +2839,8 @@ def phase_train_apt(npz, kernels, teacher):
         f"{[(h['phase'], h['update']) for h in resumed]}, steps "
         f"{mgr.all_steps()}, launches {got}")
     if [(h["phase"], h["update"]) for h in resumed] != [(1.0, 1)] \
-            or mgr.all_steps() != [2, 3] or got != _want(
-                kernels, *per_update):
+            or mgr.all_steps() != [2, 3] or _differ(
+                got, _want(kernels, *per_update)):
         fail("the APT resume did not rerun the video phase from the image "
              "final")
     shutil.rmtree(out, ignore_errors=True)
@@ -2861,7 +2891,7 @@ def phase_eval_ema(npz, kernels):
             and [os.path.splitext(f)[0] for f in files]
             == ["eval_image_0", "eval_image_1"]):
         fail("eval_ema: non-finite metrics or missing images")
-    if counts != want:
+    if _differ(counts, want):
         fail("eval_ema did not run through K1 and K3 / K4")
     return counts
 
@@ -3125,7 +3155,7 @@ def phase_pose(all_kernels, flash_kernels, card, pipe=None):
         f"request with them {req_s:.2f} s, video {tuple(video.shape)} "
         f"finite {bool(torch.isfinite(video).all())}; launches {counts}, "
         f"phase 16's {want} ({card})")
-    if counts != want or not torch.isfinite(video).all():
+    if _differ(counts, want) or not torch.isfinite(video).all():
         fail("the --pose_video request did not match phase 16's launches")
     return counts, proc
 
@@ -3586,7 +3616,7 @@ def phase_export(all_kernels, pipe):
         f"not bit-equal); launches of one exported step {counts}")
     if not torch.isfinite(got).all() or (not same and rel > 1e-3):
         fail("the exported step disagrees with the eager step")
-    if counts != _want(all_kernels, NUM_LAYERS, NUM_LAYERS):
+    if _differ(counts, _want(all_kernels, NUM_LAYERS, NUM_LAYERS)):
         fail(f"the exported step did not launch K1 {NUM_LAYERS} + "
              f"{NUM_LAYERS} times")
     ms_exp = bench_ms(exported, reps=3, warmup=1)
@@ -3637,7 +3667,7 @@ def phase_export(all_kernels, pipe):
         f"L2 {rel:.3g}; launches {icounts}")
     if not torch.isfinite(got).all() or (not same and rel > 1e-3):
         fail("the exported i2v step disagrees with the eager step")
-    if icounts != _want(all_kernels, 2, 4):
+    if _differ(icounts, _want(all_kernels, 2, 4)):
         fail("the exported i2v step did not launch K1 2 + 4 times")
     del model, got, want
     gc.collect()
@@ -3700,7 +3730,7 @@ def phase_tools(all_kernels):
         fail("the profiler trace does not name K1's, K3's and K4's kernels")
     if not extended or "template-expanded" not in extended[0]:
         fail("the prompt was not expanded")
-    if counts != _want(all_kernels, 120, 120, 0, 140, 15):
+    if _differ(counts, _want(all_kernels, 120, 120, 0, 140, 15)):
         fail("the profiled request's launches differ from phase 19's")
 
     q = torch.randn((1, 2048, 2, 128), device="cuda").to(torch.bfloat16)
@@ -4746,7 +4776,7 @@ def _sharded_pass(tag, run, whole, whole_s, ranks, vae_kernels, count_of):
     if (tuple(got.shape) != tuple(whole.shape) or not torch.isfinite(
             got.float()).all() or rel > 1e-2 or max_abs > 2 ** -4 * peak_abs):
         fail(f"[31] {tag} on {ranks} ranks differs from the unsharded pass")
-    if counts != want:
+    if _differ(counts, want):
         fail(f"[31] {tag} on {ranks} ranks launched {counts}, not {want}")
     times = []
     for r in range(ranks):
@@ -4891,7 +4921,7 @@ def phase_spatial_mesh(all_kernels, one_step_ref):
             f"1e-3); launches {counts}, expected {expect}")
         if rel > 1e-3 or not torch.isfinite(videos.float()).all():
             fail("[31] the mesh one-step videos differ from phase 15's")
-        if list(counts.values()) != expect:
+        if _differ(counts, _want(all_kernels, *expect)):
             fail("[31] the mesh one-step batch launched other kernels")
         del mp, gen, videos, diff
         gc.collect()
@@ -5008,6 +5038,171 @@ def run_spatial_phase(all_kernels, paths, one_step_ref):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 32: block_norm, the DiT block's residual sites in one pass
+
+BN_FORMS = ("A", "B", "C", "C_audio_norm", "C_audio_gate", "D")
+BN_ROWS = (2, 32768)         # the fused CFG batch at the flagship's tokens
+BN_BATCH = 20                # calls a timing, back to back
+
+
+def _bn_args(form, b, l, d, rd, seed):
+    """add_norm's arguments at one site form of `_block_forward`: x in rd,
+    y bf16 [b, l, d], the AdaLN slices of a drawn e [b, 6, d] (1% of the
+    channels at std 64), a bf16 norm weight and bias, the audio gate."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rows():
+        return torch.randn(b, l, d, generator=gen, device="cuda")
+
+    x, y = (rows() * 2 + 0.3).to(rd), rows().to(torch.bfloat16)
+    e = torch.randn(b, 6, d, generator=gen, device="cuda") * 0.5
+    e[..., : d // 100] *= 128.0
+    sa_shift, sa_scale, sa_gate, ff_shift, ff_scale, ff_gate = (
+        e[:, i:i + 1] for i in range(6))
+    w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    bias = (0.02 * torch.randn(d, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    gate = torch.tensor(0.7, device="cuda")
+    kw = {"A": dict(shift=sa_shift, scale=sa_scale),
+          "B": dict(y=y, gate=sa_gate, weight=w, bias=bias),
+          "C": dict(y=y, shift=ff_shift, scale=ff_scale),
+          "C_audio_norm": dict(y=y, weight=w, bias=bias),
+          "C_audio_gate": dict(y=y, gate=gate, round_inner=False,
+                               shift=ff_shift, scale=ff_scale),
+          "D": dict(y=y, gate=ff_gate, norm=False)}[form]
+    a = dict(y=None, gate=None, round_inner=True, norm=True, weight=None,
+             bias=None, shift=None, scale=None)
+    a.update(kw)
+    return (x, a["y"], a["gate"], a["round_inner"], a["norm"], a["weight"],
+            a["bias"], a["shift"], a["scale"], 1e-6, torch.bfloat16)
+
+
+def _bn_bytes(args) -> int:
+    """Each input and output once: the rows, the AdaLN vectors, w and b."""
+    x, y, gate, _, norm, w, bias, shift, scale = args[:9]
+    n = x.numel()
+    total = n * x.element_size()
+    if y is not None:
+        total += n * y.element_size() + n * x.element_size()
+    if norm:
+        total += n * 2
+    for v in (gate, shift, scale, w, bias):
+        if v is not None:
+            total += v.numel() * v.element_size()
+    return total
+
+
+def _bn_steps(got, want):
+    """(elements more than one bf16 step of their own value apart, the same
+    with magnitudes floored at 2^-8 of the row's peak)."""
+    import torch
+    gf, wf = got.float(), want.float()
+    diff = (gf - wf).abs()
+    out = []
+    for floor in (0.0, 2.0 ** -8):
+        mag = torch.maximum(wf.abs(), wf.abs().amax(-1, keepdim=True) * floor)
+        step = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126)))
+                          - 7)
+        out.append(int((diff > step).sum().item()))
+    return out
+
+
+def phase_block_norm():
+    """block_norm against the eager chain at every site form, both
+    published widths, 65,536 rows: ms back to back and for one call, the
+    byte bound, the eager ms; the kernel's launches in a full-width
+    t2v-1.3B DiT forward without the gradient, and in a forward and
+    backward with it and per-block remat. Returns the JSON row (the 1536
+    site B's numbers as the headline)."""
+    import torch
+    from omnihuman_tpu_torch.configs import T2V_1_3B
+    from omnihuman_tpu_torch.models.wan_dit import build_wan_model
+    from omnihuman_tpu_torch.ops.block_norm import (
+        BLOCK_NORM, add_norm_eager, add_norm_op)
+    from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+
+    ptxas_facts(BLOCK_NORM.source, "32", "block_norm")
+    b, l = BN_ROWS
+    forms, worst = {}, 1.0
+    for d in (1536, 5120):
+        cases = [(f, torch.bfloat16) for f in BN_FORMS]
+        cases += [(f, torch.float32) for f in ("B", "D")]
+        for form, rd in cases:
+            args = _bn_args(form, b, l, d, rd, seed=d)
+            xo, h = add_norm_op(*args)
+            want_x, want_h = add_norm_eager(*args)
+            torch.cuda.synchronize()
+            if args[1] is not None and not torch.equal(xo, want_x):
+                fail(f"block_norm {form} d={d} {rd}: x' differs from eager")
+            strict = floored = 0
+            if want_h is not None:
+                strict, floored = _bn_steps(h, want_h)
+                if floored:
+                    fail(f"block_norm {form} d={d} {rd}: {floored} elements "
+                         "of h more than one bf16 step from eager")
+            one_call_ms = bench_ms(lambda: add_norm_op(*args))
+            # back to back, as the DiT runs it: the wrapper's host time
+            # (checks, allocations, the ctypes call) hides behind the card
+            back_to_back_ms = bench_ms(lambda: [
+                add_norm_op(*args) for _ in range(BN_BATCH)]) / BN_BATCH
+            plain = bench_ms(lambda: add_norm_eager(*args), reps=3)
+            bound = _bn_bytes(args) / PEAK_BYTES * 1e3
+            share = bound / back_to_back_ms
+            tag = f"{form} d={d} {str(rd).removeprefix('torch.')}"
+            log(f"[32] {tag}: {back_to_back_ms:.4f} ms a call back to back "
+                f"({one_call_ms:.4f} one call with its wrapper), bound "
+                f"{bound:.4f} ms (bytes), {100 * share:.1f}%; eager "
+                f"{plain:.3f} ms; h elements over one bf16 step {strict} of "
+                f"{h.numel()} (none at the row-peak floor)")
+            forms[tag] = dict(back_to_back_ms=round(back_to_back_ms, 4),
+                              one_call_ms=round(one_call_ms, 4),
+                              bound_ms=round(bound, 4),
+                              plain_ms=round(plain, 3),
+                              h_over_one_step=strict)
+            if rd == torch.bfloat16:
+                worst = min(worst, share)
+            del args, xo, h, want_x, want_h
+    torch.cuda.empty_cache()
+    log(f"[32] lowest share of the byte bound in bf16: {100 * worst:.1f}%")
+
+    # launches a full-width t2v-1.3B forward (one frame at 480x832)
+    cfg = T2V_1_3B.model
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    x = torch.randn((1, 16, 1, 60, 104), generator=gen, device="cuda")
+    ctx = torch.randn((1, 128, cfg.text_dim), generator=gen, device="cuda")
+    sin, cos = rope_angles_3d((1, 30, 52), cfg.head_dim, seq_len=1560,
+                              device="cuda")
+    t = torch.tensor([900.0], device="cuda")
+    pol = T2V_1_3B.policy
+    launches = {}
+    for trainable in (False, True):
+        model = build_wan_model(cfg, "cuda", torch.bfloat16, seed=0,
+                                trainable=trainable)
+        before = BLOCK_NORM.launches
+        with torch.set_grad_enabled(trainable):
+            v = model(x, t, ctx, seq_len=1560, rope_sin=sin, rope_cos=cos,
+                      policy=pol, remat=trainable)
+        if trainable:       # remat's recompute; the op's backward is eager
+            v.float().square().mean().backward()
+        torch.cuda.synchronize()
+        launches["train_forward_backward" if trainable
+                 else "serve_forward"] = BLOCK_NORM.launches - before
+        del model, v
+    log(f"[32] block_norm launches a t2v-1.3B DiT forward: {launches}")
+    if launches != {"serve_forward": 4 * cfg.num_layers,
+                    "train_forward_backward": 8 * cfg.num_layers}:
+        fail(f"block_norm launches {launches}")
+    head = forms["B d=1536 bfloat16"]
+    return dict(name=BLOCK_NORM.name, route="cuda",
+                source="omnihuman_tpu_torch/csrc/block_norm.cu",
+                replaces="none (XLA fuses the JAX block's elementwise work)",
+                shape=f"site B, {b} x {l} rows, dim 1536, bf16",
+                **head, forms=forms, launches_a_forward=launches)
+
+
 def run_slice_12_phases(all_kernels, paths):
     """Phases 25, 26 and 28, each timed (27 runs after phase 6, on phase
     5's pipeline)."""
@@ -5033,7 +5228,7 @@ def run_training_phases(flash_kernels, all_kernels, paths):
     import torch
     try:
         counts, npz, dit = timed_phase(8, phase_training_main_path,
-                                       flash_kernels)
+                                       all_kernels)
         paths.update(counts)
         state, opt = timed_phase(9, phase_distill_vs_plain, npz,
                                  flash_kernels, dit)
@@ -5100,13 +5295,15 @@ def main() -> None:
     rows = timed_phase(3, phase_kernels)
     bwd_rows = timed_phase(7, phase_backward_kernels)
     vae_rows = timed_phase(12, phase_vae_kernels)
+    bn_row = timed_phase(32, phase_block_norm)
     timed_phase(4, phase_small_reference)
     from omnihuman_tpu_torch.ops.flash_attention import (
         FLASH_BWD, FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K)
     from omnihuman_tpu_torch.ops.vae_kernels import VAE_CONV, VAE_UPSAMPLE
+    from omnihuman_tpu_torch.ops.block_norm import BLOCK_NORM
     kernels = (FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K)
     flash_kernels = kernels + (FLASH_BWD,)
-    all_kernels = flash_kernels + (VAE_CONV, VAE_UPSAMPLE)
+    all_kernels = flash_kernels + (VAE_CONV, VAE_UPSAMPLE, BLOCK_NORM)
     _zero(all_kernels)
     pipe, launches = timed_phase(5, phase_main_path, kernels)
     paths = {"serve": _count(all_kernels)}
@@ -5163,6 +5360,15 @@ def main() -> None:
     def by_path(kn):
         return {p: c.get(kn.name, 0) for p, c in paths.items()}
 
+    # every path that ran a DiT block ran its residual sites through
+    # block_norm (K1 runs only inside the DiT's attention)
+    no_bn = [p for p, c in paths.items() if BLOCK_NORM.name in c and (
+        c[FLASH_FWD_LONG_K.name] or c[FLASH_FWD_SHORT_K.name])
+        and not c[BLOCK_NORM.name]]
+    log(f"block_norm launches by path: {by_path(BLOCK_NORM)}")
+    if no_bn:
+        fail(f"paths that ran the DiT without block_norm: {no_bn}")
+
     fwd_src = "omnihuman_tpu_torch/csrc/flash_fwd.cu"
     bwd_src = "omnihuman_tpu_torch/csrc/flash_bwd.cu"
     out = []
@@ -5188,6 +5394,8 @@ def main() -> None:
                         replaces=replaces, launches=paths["i2v"][kn.name],
                         **vae_rows[key], launches_by_path=by_path(kn),
                         w_shard_rows=spatial[key]))
+    out.append(dict(bn_row, launches=paths["serve"][BLOCK_NORM.name],
+                    launches_by_path=by_path(BLOCK_NORM)))
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

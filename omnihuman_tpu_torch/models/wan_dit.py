@@ -64,6 +64,7 @@ from torch import nn
 
 from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanModelConfig
 from omnihuman_tpu_torch.ops.attention import flash_attention
+from omnihuman_tpu_torch.ops.block_norm import add_norm
 from omnihuman_tpu_torch.ops.norms import layer_norm, rms_norm
 from omnihuman_tpu_torch.ops.quant import Int8Linear, int8_linear
 from omnihuman_tpu_torch.ops.rope import apply_rope
@@ -244,48 +245,52 @@ def _block_forward(blk: WanAttentionBlock, x, e0, context, context_lens,
     """One transformer block (reference model.py:279-330); x in
     policy.residual, e0 [B, 6, dim] fp32. With `audio_ctx` [B, La, dim]
     and an adapter in the block, the gated audio cross-attention follows
-    the text cross-attention (JAX wan_dit.py:291-303)."""
+    the text cross-attention (JAX wan_dit.py:291-303). Each residual site
+    (the gated add, then the LayerNorm and its affine or AdaLN
+    modulation) is one `add_norm` (ops/block_norm.py), whose `h` comes in
+    policy.compute, where the next product rounds it."""
     with span("block", layer=blk.layer):
-        rd, cd, f32 = policy.residual, policy.compute, torch.float32
+        f32 = torch.float32
         e = blk.modulation.to(f32) + e0                          # [B, 6, dim]
         sa_shift, sa_scale, sa_gate, ff_shift, ff_scale, ff_gate = (
             e[:, i:i + 1] for i in range(6))
+        site = dict(eps=cfg.eps, h_dtype=policy.compute)
 
-        h = layer_norm(x, eps=cfg.eps, out_dtype=f32)
-        h = h * (1.0 + sa_scale) + sa_shift
+        _, h = add_norm(x, shift=sa_shift, scale=sa_scale, **site)
         with span("self_attn"):
             y = _self_attention(blk.self_attn, h, rope_sin, rope_cos, seq_lens,
                                 cfg, policy, attn_impl)
-        x = (x + (y.to(f32) * sa_gate).to(rd)).to(rd)
 
         if cfg.cross_attn_norm:
-            h = layer_norm(x, blk.norm3.weight, blk.norm3.bias, eps=cfg.eps,
-                           out_dtype=f32)
+            x, h = add_norm(x, y, sa_gate, weight=blk.norm3.weight,
+                            bias=blk.norm3.bias, **site)
         else:
+            x, _ = add_norm(x, y, sa_gate, norm=False)
             h = x
         with span("cross_attn"):
             y = _cross_attention(blk.cross_attn, h, context, context_lens, cfg,
                                  policy, attn_impl)
-        x = x + y.to(rd)
 
         ap = getattr(blk, "audio_attn", None)
         if audio_ctx is not None and ap is not None:
-            h = layer_norm(x, ap.norm.weight, ap.norm.bias, eps=cfg.eps,
-                           out_dtype=f32)
+            x, h = add_norm(x, y, weight=ap.norm.weight, bias=ap.norm.bias,
+                            **site)
             # the t2v branch even on an i2v base: no image tokens in audio
             t2v = dataclasses.replace(cfg, model_type="t2v")
             with span("audio_attn"):
                 y = _cross_attention(ap, h, audio_ctx, None, t2v, policy,
                                      attn_impl)
-            x = (x.to(f32) + y.to(f32) * ap.gate.to(f32)).to(rd)
+            x, h = add_norm(x, y, ap.gate.to(f32), round_inner=False,
+                            shift=ff_shift, scale=ff_scale, **site)
+        else:
+            x, h = add_norm(x, y, shift=ff_shift, scale=ff_scale, **site)
 
-        h = layer_norm(x, eps=cfg.eps, out_dtype=f32)
-        h = h * (1.0 + ff_scale) + ff_shift
         with span("ffn"):
-            h = _linear(blk.ffn[0], h.to(cd))
+            h = _linear(blk.ffn[0], h)
             h = F.gelu(h, approximate="tanh")
             h = _linear(blk.ffn[2], h)
-        return x + (h.to(f32) * ff_gate).to(rd)
+        x, _ = add_norm(x, h, ff_gate, norm=False)
+        return x
 
 
 class WanModel(nn.Module):

@@ -160,8 +160,9 @@ class LoadedStep:
 
 
 def load_exported(path: str) -> LoadedStep:
-    """Read an artifact written by `export_program`. The custom op it
-    calls is registered by this module's import of ops/flash_attention."""
+    """Read an artifact written by `export_program`. The custom ops it
+    calls are registered by this module's imports of ops/flash_attention
+    and (through models/wan_dit) ops/block_norm."""
     meta = None
     if os.path.exists(path + ".json"):
         with open(path + ".json") as f:

@@ -22,7 +22,10 @@ activation. K3's pre-pass (the activated input and the new cache) is held
 to the same two-ulp bound on its own, and two K3 runs give bit-equal
 outputs and caches (no atomics, fixed sum orders); two K4 runs give
 bit-equal outputs too. A small bf16 VAE decode / encode with the kernels
-against the plain fused path: 2^-5 relative L2."""
+against the plain fused path: 2^-5 relative L2. block_norm (the DiT
+block's residual sites): x' bit-equal to the eager chain on the card, h
+within one bf16 step of it (see `_bn_h_within_one_ulp`), run to run
+bit-equal, its gradient the eager chain's."""
 
 import pytest
 import torch
@@ -943,3 +946,255 @@ def test_ring_forward_hop_over_4_virtual_ranks(cuda_device):
     assert torch.isfinite(got.float()).all()
     tol = 2 ** -6 * want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+# -- block_norm: the DiT block's residual sites in one pass ------------------
+
+BN_SITES = ("A", "B", "C", "C_audio_norm", "C_audio_gate", "D")
+
+
+def _bn_inputs(b, l, d, rd, dev, seed, shard=False):
+    """x (rd) and y (bf16) [b, l, d], the six AdaLN slices of e [b, 6, d]
+    (1% of the channels at std 64, as a trained DiT's), a norm's bf16
+    weight and bias, the audio adapter's scalar gate. With `shard`, x and y
+    are the second quarter of a 4 x l sequence (an sp-4 rank's rows: packed
+    in each batch, batches apart)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lf = 4 * l if shard else l
+
+    def rows():
+        return torch.randn(b, lf, d, generator=g, device=dev)
+
+    x, y = (rows() * 2 + 0.3).to(rd), rows().to(torch.bfloat16)
+    if shard:
+        x, y = x.narrow(1, l, l), y.narrow(1, l, l)
+    e = torch.randn(b, 6, d, generator=g, device=dev) * 0.5
+    e[..., : max(1, d // 100)] *= 128.0
+    w = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(torch.bfloat16)
+    bias = (0.02 * torch.randn(d, generator=g, device=dev)).to(torch.bfloat16)
+    gate = torch.tensor(0.7, device=dev)
+    return x, y, [e[:, i:i + 1] for i in range(6)], w, bias, gate
+
+
+def _bn_site(site, x, y, e, w, bias, gate, h_dtype=torch.bfloat16):
+    """`add_norm`'s arguments at a site of `_block_forward`."""
+    sa_shift, sa_scale, sa_gate, ff_shift, ff_scale, ff_gate = e
+    kw = {"A": dict(shift=sa_shift, scale=sa_scale),
+          "B": dict(y=y, gate=sa_gate, weight=w, bias=bias),
+          "C": dict(y=y, shift=ff_shift, scale=ff_scale),
+          "C_audio_norm": dict(y=y, weight=w, bias=bias),
+          "C_audio_gate": dict(y=y, gate=gate, round_inner=False,
+                               shift=ff_shift, scale=ff_scale),
+          "D": dict(y=y, gate=ff_gate, norm=False)}[site]
+    full = dict(y=None, gate=None, round_inner=True, norm=True, weight=None,
+                bias=None, shift=None, scale=None)
+    full.update(kw)
+    return (x, full["y"], full["gate"], full["round_inner"], full["norm"],
+            full["weight"], full["bias"], full["shift"], full["scale"], 1e-6,
+            h_dtype)
+
+
+def _bn_h_within_one_ulp(got, want):
+    """bf16 h against the eager h: one bf16 step of each element, its
+    magnitude floored at 2^-8 of its row's peak. The two differ only by
+    the order of the row's two sums, which moves an element by a few fp32
+    ulps of the row's mean and scale: a step of bf16 anywhere but at the
+    few elements within 2^-8 of the row's peak of 0, where it is held to a
+    step at that floor (2^-16 of the peak)."""
+    gf, wf = got.float(), want.float()
+    peak = wf.abs().amax(-1, keepdim=True)
+    mag = torch.maximum(wf.abs(), peak * 2.0 ** -8).clamp_min(2.0 ** -126)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool(((gf - wf).abs() <= step).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rd", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("rows", ["65536", "8192_sp4_shard", "4097"])
+@pytest.mark.parametrize("d", [1536, 5120])
+def test_block_norm_kernel_matches_eager(cuda_device, d, rows, rd):
+    """Every site form at the published widths: x' bit-equal to the eager
+    chain on the card, h within one bf16 step (`_bn_h_within_one_ulp`);
+    the launch count moves by one a site."""
+    from omnihuman_tpu_torch.ops.block_norm import (
+        BLOCK_NORM, add_norm_cuda, add_norm_eager)
+    b, l, shard = {"65536": (2, 32768, False), "8192_sp4_shard": (2, 4096, True),
+                   "4097": (1, 4097, False)}[rows]
+    inputs = _bn_inputs(b, l, d, rd, cuda_device, seed=d + l, shard=shard)
+    for site in BN_SITES:
+        args = _bn_site(site, *inputs)
+        before = BLOCK_NORM.launches
+        xo, h = add_norm_cuda(*args)
+        torch.cuda.synchronize()
+        assert BLOCK_NORM.launches == before + 1
+        want_x, want_h = add_norm_eager(*args)
+        if args[1] is None:
+            assert xo.numel() == 0
+        else:
+            assert xo.dtype == rd and torch.equal(xo, want_x), site
+        if want_h is None:
+            assert h.numel() == 0
+        else:
+            assert h.dtype == torch.bfloat16, site
+            assert _bn_h_within_one_ulp(h, want_h), site
+
+
+@pytest.mark.cuda
+def test_block_norm_fp32_h_and_fp32_y(cuda_device):
+    """h in fp32 (the fp32-compute policy) and y in fp32 (fp32 weights):
+    x' bit-equal, h within 2^-16 of its row's peak (a few fp32 ulps of
+    the row's mean and scale, times the modulation's 1 + scale)."""
+    from omnihuman_tpu_torch.ops.block_norm import (
+        add_norm_cuda, add_norm_eager)
+    x, y, e, w, bias, gate = _bn_inputs(2, 300, 256, torch.bfloat16,
+                                        cuda_device, seed=7)
+    for site in BN_SITES:
+        args = list(_bn_site(site, x, y.float(), e, w.float(), bias.float(),
+                             gate, h_dtype=torch.float32))
+        xo, h = add_norm_cuda(*args)
+        want_x, want_h = add_norm_eager(*args)
+        if args[1] is not None:
+            assert torch.equal(xo, want_x), site
+        if want_h is not None:
+            peak = want_h.abs().amax(-1, keepdim=True)
+            assert h.dtype == torch.float32
+            assert ((h - want_h).abs() <= 2.0 ** -16 * peak).all(), site
+
+
+@pytest.mark.cuda
+def test_block_norm_run_to_run(cuda_device):
+    from omnihuman_tpu_torch.ops.block_norm import add_norm_cuda
+    for d in (1536, 5120):
+        inputs = _bn_inputs(2, 8192, d, torch.bfloat16, cuda_device, seed=d)
+        for site in BN_SITES:
+            args = _bn_site(site, *inputs)
+            a, b = add_norm_cuda(*args), add_norm_cuda(*args)
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), site
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rd", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_block_norm_gradient_is_the_eager_chains(cuda_device, rd):
+    """The op's backward on the card (the eager chain on the saved inputs,
+    differentiated) against the eager chain's own, every site form at dim
+    1536: the same but for the order in which x's gradient sums its
+    paths."""
+    from omnihuman_tpu_torch.ops.block_norm import add_norm_eager, add_norm_op
+    inputs = _bn_inputs(2, 1024, 1536, rd, cuda_device, seed=11)
+    for site in BN_SITES:
+        args = _bn_site(site, *inputs)
+        grads = []
+        for fn in (add_norm_op, add_norm_eager):
+            a = [t.detach().clone().requires_grad_()
+                 if isinstance(t, torch.Tensor) else t for t in args]
+            xo, h = fn(*a)
+            xo = a[0] if a[1] is None else xo
+            g = torch.Generator(device=cuda_device).manual_seed(5)
+            loss = (xo.float() * torch.randn(xo.shape, generator=g,
+                                             device=cuda_device)).sum()
+            if h is not None and h.numel():
+                loss = loss + (h.float() * torch.randn(
+                    h.shape, generator=g, device=cuda_device)).sum()
+            loss.backward()
+            grads.append([t.grad for t in a if isinstance(t, torch.Tensor)])
+        for got, want in zip(*grads):
+            assert (got is None) == (want is None), site
+            if got is not None:
+                # one step of the element's dtype at the tensor's peak
+                ulp = 2.0 ** -7 if got.dtype == torch.bfloat16 else 2.0 ** -20
+                tol = ulp * want.float().abs().max().item()
+                assert (got.float() - want.float()).abs().max() <= tol, site
+
+
+@pytest.mark.cuda
+def test_block_norm_refuses_what_it_does_not_take(cuda_device):
+    from omnihuman_tpu_torch.ops.block_norm import add_norm_cuda
+    x, y, e, w, bias, gate = _bn_inputs(2, 64, 256, torch.bfloat16,
+                                        cuda_device, seed=1)
+    site = _bn_site("B", x, y, e, w, bias, gate)
+
+    def call(**change):
+        names = ("x", "y", "gate", "round_inner", "norm", "weight", "bias",
+                 "shift", "scale", "eps", "h_dtype")
+        args = dict(zip(names, site))
+        args.update(change)
+        return add_norm_cuda(*args.values())
+
+    with pytest.raises(TypeError):
+        call(x=x.half())                              # a dtype it lacks
+    with pytest.raises(TypeError):
+        call(y=y.half())
+    with pytest.raises(TypeError):
+        call(h_dtype=torch.float16)
+    with pytest.raises(TypeError):
+        call(gate=e[2].to(torch.bfloat16))            # vectors are fp32
+    for d in (12, 6152):                              # dim % 8, dim > 6144
+        xd, yd, ed, wd, bd, _ = _bn_inputs(1, 4, d, torch.bfloat16,
+                                           cuda_device, seed=2)
+        with pytest.raises(ValueError):
+            add_norm_cuda(*_bn_site("B", xd, yd, ed, wd, bd, gate))
+    with pytest.raises(ValueError):                   # rows not contiguous
+        call(x=x.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError):
+        call(y=torch.empty(2, 64, 512, device=cuda_device,
+                           dtype=torch.bfloat16)[..., ::2])
+    with pytest.raises(ValueError):
+        call(x=x.cpu())
+
+
+@pytest.mark.cuda
+def test_block_norm_launches_per_dit_forward(cuda_device):
+    """A DiT forward launches the kernel 4 times a block (5 with the audio
+    adapters), with the gradient recorded too; per-block remat's
+    recompute launches it again, the op's backward (the eager chain) not."""
+    from omnihuman_tpu_torch.configs.wan import (
+        TINY_TEST_HD128, DTypePolicy)
+    from omnihuman_tpu_torch.models.wan_dit import build_wan_model
+    from omnihuman_tpu_torch.ops.block_norm import BLOCK_NORM
+    from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+    cfg = TINY_TEST_HD128.model
+    pol = DTypePolicy(residual=torch.bfloat16)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((1, cfg.in_dim, 2, 4, 6), generator=g, device=cuda_device)
+    ctx = torch.randn((1, cfg.text_len, cfg.text_dim), generator=g,
+                      device=cuda_device)
+    sin, cos = rope_angles_3d((2, 2, 3), cfg.head_dim, seq_len=16,
+                              device=cuda_device)
+    kw = dict(seq_len=16, rope_sin=sin, rope_cos=cos, policy=pol)
+    t = torch.tensor([500.0], device=cuda_device)
+    n = cfg.num_layers
+    for trainable, remat, want in ((False, False, (4 * n, 4 * n)),
+                                   (True, False, (4 * n, 4 * n)),
+                                   (True, True, (4 * n, 8 * n))):
+        model = build_wan_model(cfg, cuda_device, torch.bfloat16, seed=0,
+                                trainable=trainable)
+        before = BLOCK_NORM.launches
+        with torch.set_grad_enabled(trainable):
+            v = model(x, t, ctx, remat=remat, **kw)
+        torch.cuda.synchronize()
+        forward = BLOCK_NORM.launches - before
+        if trainable:
+            v.float().square().mean().backward()
+            grads = [p.grad for p in model.parameters() if p.requires_grad]
+            assert all(g is not None and torch.isfinite(g).all()
+                       for g in grads)
+        torch.cuda.synchronize()
+        assert torch.isfinite(v).all()
+        assert (forward, BLOCK_NORM.launches - before) == want, (
+            trainable, remat)
+    from omnihuman_tpu_torch.omni.model import (
+        build_omni_model, omni_model_forward)
+    ocfg = _omni_card_cfg()
+    omni = build_omni_model(ocfg, cuda_device, torch.bfloat16, seed=3)
+    before = BLOCK_NORM.launches
+    with torch.inference_mode():
+        omni_model_forward(
+            omni, x=torch.randn((1, 16, 3, 8, 8), device=cuda_device),
+            t=torch.tensor([700.0], device=cuda_device),
+            context=torch.randn((1, 8, 24), device=cuda_device),
+            audio=torch.randn((1, 3, 20), device=cuda_device),
+            context_lens=torch.tensor([5], device=cuda_device), policy=pol)
+    torch.cuda.synchronize()
+    assert BLOCK_NORM.launches - before == 5 * ocfg.base.num_layers
