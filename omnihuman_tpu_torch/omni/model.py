@@ -16,13 +16,19 @@ The Wan DiT with four conditions (reference README.md:117-154):
 plus a temporal embedding [1, num_frames, dim] added per latent frame.
 
 RoPE time layout of the packed sequence: reference at t = 0, motion at
-t = 1..M, video at t = M+1.. (video at 0.. when neither is packed). The
-packed length is padded by the DiT's `padded_seq_len` rule; the pad rows
-get the identity rotation and are masked. Only the video tokens are
+t = 1..M, video at t = M+1.. (video at 0.. when neither is packed); the
+tables are built once per geometry and kept on the model. The packed
+length is padded by the DiT's `padded_seq_len` rule; the pad rows get
+the identity rotation and are masked. Only the video tokens are
 unpatchified.
 
 Condition dropout (`cond_mask`, training) is a multiplicative [B] mask
 per condition, as in the JAX package.
+
+Spans (utils/spans.py): `pose_guider` (`process_pose`), `audio_proj`
+(`process_audio`) and `pack` (the motion and reference patchify, the
+RoPE tables, the concatenation; its attributes `tokens` packed, `pad`
+rows that `padded_seq_len` adds, `audio_tokens`).
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from omnihuman_tpu_torch.models.wan_dit import (
     WanModel, _linear, padded_seq_len)
 from omnihuman_tpu_torch.ops.rope import rope_angles_3d
 from omnihuman_tpu_torch.parallel.spatial import gather_spatial, halo_exchange
+from omnihuman_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +93,7 @@ class OmniModel(nn.Module):
         self.cfg = cfg
         self.base = WanModel(cfg.base, audio_adapters=True)
         self.cond = OmniConditions(cfg)
+        self.rope_tables: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def forward(self, x, t, context, **kwargs):
         """`omni_model_forward(self, x, t, context, **kwargs)`."""
@@ -250,6 +258,38 @@ def omni_model_forward(
                  pose_sharding=pose_sharding)
 
 
+def _packed_rope(model: OmniModel, grid, m_frames: Optional[int],
+                 r_frames: Optional[int], device):
+    """(sin, cos) [n_packed, head_dim / 2] of the packed sequence (video,
+    motion, reference; the time layout of the module docstring), m_frames /
+    r_frames None where that part is absent. Built once per geometry and
+    kept in `model.rope_tables` (at most 8): `rope_angles_3d` computes in
+    float64 numpy and uploads from pageable memory, which waits for the
+    card, and every forward of a window asks for the same tables."""
+    key = (grid, m_frames, r_frames, device)
+    cache = model.rope_tables
+    if key not in cache:
+        hd = model.cfg.base.head_dim
+        rest = tuple(grid[1:])
+        if m_frames is None and r_frames is None:
+            tables = rope_angles_3d(grid, hd, device=device)
+        else:
+            parts = [rope_angles_3d(grid, hd, time_offset=1 + (m_frames or 0),
+                                    device=device)]
+            if m_frames is not None:
+                parts.append(rope_angles_3d((m_frames,) + rest, hd,
+                                            time_offset=1, device=device))
+            if r_frames is not None:
+                parts.append(rope_angles_3d((r_frames,) + rest, hd,
+                                            time_offset=0, device=device))
+            tables = tuple(torch.cat([p[i] for p in parts], dim=0)
+                           for i in (0, 1))
+        if len(cache) >= 8:
+            cache.clear()
+        cache[key] = tables
+    return cache[key]
+
+
 def _omni_forward(model: OmniModel, x, t, context, *, audio=None, pose=None,
                   ref_latent=None, motion_latent=None, cond_mask=None,
                   context_lens=None, policy: DTypePolicy = DTypePolicy(),
@@ -277,7 +317,9 @@ def _omni_forward(model: OmniModel, x, t, context, *, audio=None, pose=None,
     # video tokens (+ pose delta + temporal embedding per latent frame)
     tokens = base.patchify(x, policy)                      # [B, Lv, dim]
     if pose is not None:
-        pd = process_pose(cond, pose, base_cfg.patch_size, pose_sharding)
+        with span("pose_guider"):
+            pd = process_pose(cond, pose, base_cfg.patch_size,
+                              pose_sharding)
         m = mask_of("pose")
         if m is not None:
             pd = pd * m
@@ -286,43 +328,36 @@ def _omni_forward(model: OmniModel, x, t, context, *, audio=None, pose=None,
     tokens = tokens + te.repeat_interleave(grid[1] * grid[2], dim=1)
 
     # motion, then reference tokens, packed after the video tokens
-    extra, tables = [], []
-    m_frames = 0
-    if motion_latent is not None:
-        m_frames = motion_latent.shape[2] // pt
-        extra.append(base.patchify(motion_latent, policy))
-        tables.append(rope_angles_3d((m_frames, grid[1], grid[2]),
-                                     base_cfg.head_dim, time_offset=1,
-                                     device=dev))
-    if ref_latent is not None:
-        ref_tokens = base.patchify(ref_latent, policy)
-        m = mask_of("reference")
-        if m is not None:
-            ref_tokens = ref_tokens * m
-        extra.append(ref_tokens)
-        tables.append(rope_angles_3d(
-            (ref_latent.shape[2] // pt, grid[1], grid[2]),
-            base_cfg.head_dim, time_offset=0, device=dev))
-    if extra:
-        sin_v, cos_v = rope_angles_3d(grid, base_cfg.head_dim,
-                                      time_offset=1 + m_frames, device=dev)
-        tokens = torch.cat([tokens] + extra, dim=1)
-        rope_sin = torch.cat([sin_v] + [s for s, _ in tables], dim=0)
-        rope_cos = torch.cat([cos_v] + [c for _, c in tables], dim=0)
-    else:
-        rope_sin, rope_cos = rope_angles_3d(grid, base_cfg.head_dim,
-                                            device=dev)
-    n_packed = tokens.shape[1]
+    m_frames = None if motion_latent is None else motion_latent.shape[2] // pt
+    r_frames = None if ref_latent is None else ref_latent.shape[2] // pt
+    n_packed = n_video + ((m_frames or 0) + (r_frames or 0)) * (
+        grid[1] * grid[2])
+    seq_len = padded_seq_len(n_packed, seq_align)
+    with span("pack", tokens=n_packed, pad=seq_len - n_packed,
+              audio_tokens=0 if audio is None else audio.shape[1]):
+        extra = []
+        if motion_latent is not None:
+            extra.append(base.patchify(motion_latent, policy))
+        if ref_latent is not None:
+            ref_tokens = base.patchify(ref_latent, policy)
+            m = mask_of("reference")
+            if m is not None:
+                ref_tokens = ref_tokens * m
+            extra.append(ref_tokens)
+        if extra:
+            tokens = torch.cat([tokens] + extra, dim=1)
+        rope_sin, rope_cos = _packed_rope(model, grid, m_frames, r_frames,
+                                          dev)
 
     audio_ctx = None
     if audio is not None:
-        audio_ctx = process_audio(cond, audio)
+        with span("audio_proj"):
+            audio_ctx = process_audio(cond, audio)
         m = mask_of("audio")
         if m is not None:
             audio_ctx = audio_ctx * m
 
-    out, _ = base.body(tokens, t, context,
-                       seq_len=padded_seq_len(n_packed, seq_align),
+    out, _ = base.body(tokens, t, context, seq_len=seq_len,
                        rope_sin=rope_sin, rope_cos=rope_cos,
                        n_tokens=n_packed, context_lens=context_lens,
                        policy=policy, remat=remat, audio_ctx=audio_ctx,

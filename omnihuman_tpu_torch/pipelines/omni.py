@@ -8,7 +8,8 @@ guidance annealed from `cfg_scale` to 1, cfg_t = cfg * (1 - i/steps) +
 i/steps (reference omnihuman_wan_t2v.py:432-438). CFG is sequential: the
 unconditional forward sees only the negative prompt's context, with no
 audio, pose, reference or motion tokens, so its packed length differs
-from the conditional one.
+from the conditional one. Each step is `omni_cfg_step`: both forwards,
+the guidance and the solver's update.
 
 `omni_generate_windowed`: window k+1 packs the last `motion_frames`
 latent frames of window k as motion tokens; the per-frame audio and pose
@@ -55,6 +56,57 @@ def window_noise(seed: int, window: int, shape, device) -> torch.Tensor:
 
 
 @torch.no_grad()
+def omni_cfg_step(
+    model: OmniModel,
+    x: torch.Tensor,                      # [B, C, F, H, W] fp32
+    state: dict,                          # the solver's state
+    i: int,                               # index in the solver's schedule
+    solver,                               # samplers.fm_solvers solver
+    context: torch.Tensor,
+    context_null: torch.Tensor,
+    *,
+    cfg_scale: float = 7.5,
+    policy: DTypePolicy = DTypePolicy(),
+    audio: Optional[torch.Tensor] = None,
+    pose: Optional[torch.Tensor] = None,
+    ref_latent: Optional[torch.Tensor] = None,
+    motion_latent: Optional[torch.Tensor] = None,
+    context_lens: Optional[torch.Tensor] = None,
+    null_lens: Optional[torch.Tensor] = None,
+    attn_impl: str = "auto",
+    token_sharding=None,
+    seq_align: int = 1,
+) -> Tuple[torch.Tensor, dict]:
+    """One denoise step of `omni_generate` (span `step` > `cond`,
+    `uncond`, `solver`): the conditional forward with audio, pose,
+    reference and motion, the unconditional one with the negative prompt
+    alone, the guidance at the annealed scale of step i of the solver's
+    schedule, then the solver's update. Returns (x, state) after it.
+    `attn_impl` / `token_sharding` / `seq_align`: the mesh plan
+    (`omni_model_forward`)."""
+    plan = dict(attn_impl=attn_impl, token_sharding=token_sharding,
+                seq_align=seq_align, policy=policy, remat=False)
+    steps = len(solver.timesteps)
+    with span("step", index=i):
+        # the JAX float32 arithmetic of the annealed scale
+        progress = np.float32(i) / np.float32(steps)
+        cfg_t = (np.float32(cfg_scale) * (np.float32(1.0) - progress)
+                 + progress)
+        tb = torch.full((x.shape[0],), float(np.float32(solver.timesteps[i])),
+                        dtype=torch.float32, device=x.device)
+        with span("cond"):
+            v_c = omni_model_forward(
+                model, x, tb, context, audio=audio, pose=pose,
+                ref_latent=ref_latent, motion_latent=motion_latent,
+                context_lens=context_lens, **plan)
+        with span("uncond"):
+            v_u = omni_model_forward(model, x, tb, context_null,
+                                     context_lens=null_lens, **plan)
+        v = v_u + float(cfg_t) * (v_c - v_u)
+        return solver.step(state, v, x, i)
+
+
+@torch.no_grad()
 def omni_generate(
     model: OmniModel,
     noise: torch.Tensor,                  # [B, C, F, H, W] fp32
@@ -75,34 +127,22 @@ def omni_generate(
     mesh=None,
 ) -> torch.Tensor:
     """Sampled latents [B, C, F, H, W] fp32 from `noise` (JAX
-    `omni_generate`), one conditional and one unconditional forward a
-    step; with `mesh`, under its plan (`text2video.mesh_plan`), the
-    packed tokens padded to a multiple of sp."""
+    `omni_generate`): `omni_cfg_step` at every step of the schedule; with
+    `mesh`, under its plan (`text2video.mesh_plan`), the packed tokens
+    padded to a multiple of sp."""
     attn_impl, token_sharding, sp = mesh_plan(mesh)
-    plan = dict(attn_impl=attn_impl, token_sharding=token_sharding,
-                seq_align=sp)
     sol = get_solver(solver, sampling_steps, float(shift))
-    b = noise.shape[0]
     x = noise
     state = sol.init_state(noise)
     with use_mesh(mesh):
         for i in range(sampling_steps):
-            # the JAX float32 arithmetic of the annealed scale
-            progress = np.float32(i) / np.float32(sampling_steps)
-            cfg_t = (np.float32(cfg_scale) * (np.float32(1.0) - progress)
-                     + progress)
-            tb = torch.full((b,), float(np.float32(sol.timesteps[i])),
-                            dtype=torch.float32, device=noise.device)
-            v_c = omni_model_forward(
-                model, x, tb, context, audio=audio, pose=pose,
+            x, state = omni_cfg_step(
+                model, x, state, i, sol, context, context_null,
+                cfg_scale=cfg_scale, policy=policy, audio=audio, pose=pose,
                 ref_latent=ref_latent, motion_latent=motion_latent,
-                context_lens=context_lens, policy=policy, remat=False,
-                **plan)
-            v_u = omni_model_forward(model, x, tb, context_null,
-                                     context_lens=null_lens, policy=policy,
-                                     remat=False, **plan)
-            v = v_u + float(cfg_t) * (v_c - v_u)
-            x, state = sol.step(state, v, x, i)
+                context_lens=context_lens, null_lens=null_lens,
+                attn_impl=attn_impl, token_sharding=token_sharding,
+                seq_align=sp)
     return x
 
 
