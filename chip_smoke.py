@@ -331,6 +331,20 @@ Right after phase 12:
      again; the op's backward is the eager chain). block_norm is counted
      with the other kernels on every path below; a path that launched K1
      without it fails the smoke.
+ 33. qk_norm_rope (csrc/qk_norm_rope.cu, the attention's q / k RMSNorm
+     and 3D RoPE in one pass) against the eager chain it replaced
+     (`rms_norm` then `apply_rope`), on the card, at dim 1536 and 5120, 2
+     x 32,768 rows: the self-attention's q and k with the flagship's
+     tables (bf16 and fp32 rows) and the cross-attention's q with a
+     512-row text k; the rotation bit-equal to `apply_rope` of the
+     kernel's own norm, every element within two bf16 steps of its pair's
+     magnitude of the eager chain (the count of elements apart printed);
+     ms a call back to back and alone, as in phase 32, against the byte
+     bound and the eager ms; ptxas's registers and spills; the launches
+     in a full-width t2v-1.3B DiT forward, 60 without the gradient and
+     120 in a forward and backward with per-block remat. Counted on every
+     path below as block_norm is; a path that launched K1 without it
+     fails the smoke.
 
 The line before last is a JSON object {"kernels": [...]}; its
 `launches_by_path` holds each path's launches (phase 19's t2v request,
@@ -340,7 +354,8 @@ The line before last is a JSON object {"kernels": [...]}; its
 training steps ("sp_train"), 31's W-sharded passes ("vae_decode_w2" ...)
 and mesh one-step batch ("spatial_one_step") among them), and K3's and
 K4's `w_shard_rows` hold phase 31's shard shapes; block_norm's row (phase
-32) holds each site form's numbers and its launches by path; the last
+32) and qk_norm_rope's (phase 33) hold each form's numbers and their
+launches by path; the last
 line is {"ok": true, "device": {...}}.
 
     torchrun --standalone --nproc_per_node N chip_smoke.py --sp-worker OUT
@@ -1131,7 +1146,8 @@ def _zero(kernels):
 
 def _differ(counts, want):
     """Whether the launches of the kernels `want` names differ from it
-    (block_norm's, beside them in `counts`, are checked in main)."""
+    (block_norm's and qk_norm_rope's, beside them in `counts`, are
+    checked in main)."""
     return any(counts.get(k) != v for k, v in want.items())
 
 
@@ -2479,8 +2495,8 @@ class _SaveTimes:
 
 def _want(kernels, long_k=0, short_k=0, bwd=0, k3=0, k4=0):
     """{kernel name: launches} in the order K1 long-K, K1 short-K, K2, K3,
-    K4 (the names of the first five of `kernels`; block_norm's, after
-    them, are left to `_differ`'s callers)."""
+    K4 (the names of the first five of `kernels`; block_norm's and
+    qk_norm_rope's, after them, are left to `_differ`'s callers)."""
     return dict(zip([kn.name for kn in kernels],
                     (long_k, short_k, bwd, k3, k4)))
 
@@ -2681,7 +2697,8 @@ def phase_f_distill(npz, kernels, teacher):
                               fa.flash_attention_plain):
         loss_p, grads_p = _f_distill_grads(state, teacher, batch, snap, kw)
     torch.cuda.synchronize()
-    # only the attention is patched: block_norm runs in both passes
+    # only the attention is patched: block_norm and qk_norm_rope run in
+    # both passes
     if any(_count(kernels[:3]).values()):
         fail(f"the plain pass launched kernels: {_count(kernels)}")
     num = sum((a.float() - b.float()).square().sum() for a, b in
@@ -5203,6 +5220,141 @@ def phase_block_norm():
                 **head, forms=forms, launches_a_forward=launches)
 
 
+
+# ---------------------------------------------------------------------------
+# phase 33: qk_norm_rope, the attention's q / k RMSNorm and 3D RoPE in one pass
+
+QK_ROWS = (2, 32768)         # the fused CFG batch at the flagship's tokens
+
+
+def _qk_args(form, b, l, d, rd, seed):
+    """qk_norm_rope's arguments in one form the DiT calls: q and k [b, l,
+    d] in rd (or a 512-row text k), bf16 norm weights, the flagship grid's
+    tables padded to l rows."""
+    import torch
+    from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rows(n, scale):
+        return (torch.randn(b, n, d, generator=gen, device="cuda") * scale
+                ).to(rd)
+
+    q, k = rows(l, 3.0), rows(l if form == "self" else 512, 0.5)
+    wq, wk = ((1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(
+        torch.bfloat16) for _ in range(2))
+    sin, cos = rope_angles_3d((21, 30, 52), 128, seq_len=l, device="cuda")
+    if form == "self":
+        return q, k, wq, wk, sin, cos
+    return q, k, wq, wk, None, None          # "cross": q and the text k
+
+
+def _qk_bytes(args) -> int:
+    """Each input and output once: q and k read and written, the tables
+    and the weights read."""
+    return sum(2 * t.numel() * t.element_size() if i < 2 else
+               t.numel() * t.element_size()
+               for i, t in enumerate(args) if t is not None)
+
+
+def phase_qk_norm_rope():
+    """qk_norm_rope against the eager chain (`rms_norm` then `apply_rope`)
+    at both published widths, 65,536 rows: the self-attention's q and k
+    with the tables (bf16 and fp32 rows), the cross-attention's q with a
+    512-row text k; ms back to back and for one call, the byte bound, the
+    eager ms; the kernel's launches in a full-width t2v-1.3B DiT forward
+    without the gradient, and in a forward and backward with it and
+    per-block remat. Returns the JSON row (the 1536 self form's numbers as
+    the headline)."""
+    import torch
+    from omnihuman_tpu_torch.configs import T2V_1_3B
+    from omnihuman_tpu_torch.models.wan_dit import build_wan_model
+    from omnihuman_tpu_torch.ops.qk_norm_rope import (
+        QK_NORM_ROPE, qk_norm_rope_eager, qk_norm_rope_op)
+    from omnihuman_tpu_torch.ops.rope import apply_rope, rope_angles_3d
+
+    ptxas_facts(QK_NORM_ROPE.source, "33", "qk_norm_rope")
+    b, l = QK_ROWS
+    forms, worst = {}, 1.0
+    for d in (1536, 5120):
+        for form, rd in (("self", torch.bfloat16), ("cross", torch.bfloat16),
+                         ("self", torch.float32)):
+            args = _qk_args(form, b, l, d, rd, seed=d)
+            got = qk_norm_rope_op(*args, 1e-6)
+            want = qk_norm_rope_eager(*args, 1e-6)
+            normed = qk_norm_rope_op(*args[:4], None, None, 1e-6)
+            torch.cuda.synchronize()
+            apart = 0
+            for g, w, n in zip(got, want, normed):
+                if args[4] is not None:     # the rotation of its own norm
+                    again = apply_rope(n.unflatten(-1, (-1, 128)), args[4],
+                                       args[5]).flatten(-2)
+                    if not torch.equal(g, again):
+                        fail(f"qk_norm_rope {form} d={d} {rd}: the rotation "
+                             "differs from apply_rope of the kernel's norm")
+                apart += int((g != w).sum().item())
+                tol = (2.0 ** -6 if rd == torch.bfloat16 else 2.0 ** -18) * (
+                    w.float().unflatten(-1, (-1, 2)).square().sum(-1).sqrt()
+                    .repeat_interleave(2, dim=-1))
+                if ((g.float() - w.float()).abs() > tol).any():
+                    fail(f"qk_norm_rope {form} d={d} {rd}: more than two "
+                         "steps of a pair's magnitude from the eager chain")
+            del got, want, normed
+            one_call_ms = bench_ms(lambda: qk_norm_rope_op(*args, 1e-6))
+            back_to_back_ms = bench_ms(lambda: [
+                qk_norm_rope_op(*args, 1e-6)
+                for _ in range(BN_BATCH)]) / BN_BATCH
+            plain = bench_ms(lambda: qk_norm_rope_eager(*args, 1e-6), reps=3)
+            bound = _qk_bytes(args) / PEAK_BYTES * 1e3
+            share = bound / back_to_back_ms
+            tag = f"{form} d={d} {str(rd).removeprefix('torch.')}"
+            log(f"[33] {tag}: {back_to_back_ms:.4f} ms a call back to back "
+                f"({one_call_ms:.4f} one call with its wrapper), bound "
+                f"{bound:.4f} ms (bytes), {100 * share:.1f}%; eager "
+                f"{plain:.3f} ms; elements apart from eager {apart}")
+            forms[tag] = dict(back_to_back_ms=round(back_to_back_ms, 4),
+                              one_call_ms=round(one_call_ms, 4),
+                              bound_ms=round(bound, 4),
+                              plain_ms=round(plain, 3), apart=apart)
+            if rd == torch.bfloat16:
+                worst = min(worst, share)
+            del args
+    torch.cuda.empty_cache()
+    log(f"[33] lowest share of the byte bound in bf16: {100 * worst:.1f}%")
+
+    # launches a full-width t2v-1.3B forward (one frame at 480x832)
+    cfg = T2V_1_3B.model
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    x = torch.randn((1, 16, 1, 60, 104), generator=gen, device="cuda")
+    ctx = torch.randn((1, 128, cfg.text_dim), generator=gen, device="cuda")
+    sin, cos = rope_angles_3d((1, 30, 52), cfg.head_dim, seq_len=1560,
+                              device="cuda")
+    t = torch.tensor([900.0], device="cuda")
+    launches = {}
+    for trainable in (False, True):
+        model = build_wan_model(cfg, "cuda", torch.bfloat16, seed=0,
+                                trainable=trainable)
+        before = QK_NORM_ROPE.launches
+        with torch.set_grad_enabled(trainable):
+            v = model(x, t, ctx, seq_len=1560, rope_sin=sin, rope_cos=cos,
+                      policy=T2V_1_3B.policy, remat=trainable)
+        if trainable:       # remat's recompute; the op's backward is eager
+            v.float().square().mean().backward()
+        torch.cuda.synchronize()
+        launches["train_forward_backward" if trainable
+                 else "serve_forward"] = QK_NORM_ROPE.launches - before
+        del model, v
+    log(f"[33] qk_norm_rope launches a t2v-1.3B DiT forward: {launches}")
+    if launches != {"serve_forward": 2 * cfg.num_layers,
+                    "train_forward_backward": 4 * cfg.num_layers}:
+        fail(f"qk_norm_rope launches {launches}")
+    head = forms["self d=1536 bfloat16"]
+    return dict(name=QK_NORM_ROPE.name, route="cuda",
+                source="omnihuman_tpu_torch/csrc/qk_norm_rope.cu",
+                replaces="none (XLA fuses the JAX attention's q / k norm "
+                         "and RoPE)",
+                shape=f"self, q and k {b} x {l} rows, dim 1536, bf16",
+                **head, forms=forms, launches_a_forward=launches)
+
 def run_slice_12_phases(all_kernels, paths):
     """Phases 25, 26 and 28, each timed (27 runs after phase 6, on phase
     5's pipeline)."""
@@ -5296,14 +5448,17 @@ def main() -> None:
     bwd_rows = timed_phase(7, phase_backward_kernels)
     vae_rows = timed_phase(12, phase_vae_kernels)
     bn_row = timed_phase(32, phase_block_norm)
+    qk_row = timed_phase(33, phase_qk_norm_rope)
     timed_phase(4, phase_small_reference)
     from omnihuman_tpu_torch.ops.flash_attention import (
         FLASH_BWD, FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K)
     from omnihuman_tpu_torch.ops.vae_kernels import VAE_CONV, VAE_UPSAMPLE
     from omnihuman_tpu_torch.ops.block_norm import BLOCK_NORM
+    from omnihuman_tpu_torch.ops.qk_norm_rope import QK_NORM_ROPE
     kernels = (FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K)
     flash_kernels = kernels + (FLASH_BWD,)
-    all_kernels = flash_kernels + (VAE_CONV, VAE_UPSAMPLE, BLOCK_NORM)
+    all_kernels = flash_kernels + (VAE_CONV, VAE_UPSAMPLE, BLOCK_NORM,
+                                   QK_NORM_ROPE)
     _zero(all_kernels)
     pipe, launches = timed_phase(5, phase_main_path, kernels)
     paths = {"serve": _count(all_kernels)}
@@ -5361,13 +5516,15 @@ def main() -> None:
         return {p: c.get(kn.name, 0) for p, c in paths.items()}
 
     # every path that ran a DiT block ran its residual sites through
-    # block_norm (K1 runs only inside the DiT's attention)
-    no_bn = [p for p, c in paths.items() if BLOCK_NORM.name in c and (
-        c[FLASH_FWD_LONG_K.name] or c[FLASH_FWD_SHORT_K.name])
-        and not c[BLOCK_NORM.name]]
-    log(f"block_norm launches by path: {by_path(BLOCK_NORM)}")
-    if no_bn:
-        fail(f"paths that ran the DiT without block_norm: {no_bn}")
+    # block_norm and its attentions' q / k through qk_norm_rope (K1 runs
+    # only inside the DiT's attention)
+    for kn in (BLOCK_NORM, QK_NORM_ROPE):
+        without = [p for p, c in paths.items() if kn.name in c and (
+            c[FLASH_FWD_LONG_K.name] or c[FLASH_FWD_SHORT_K.name])
+            and not c[kn.name]]
+        log(f"{kn.name} launches by path: {by_path(kn)}")
+        if without:
+            fail(f"paths that ran the DiT without {kn.name}: {without}")
 
     fwd_src = "omnihuman_tpu_torch/csrc/flash_fwd.cu"
     bwd_src = "omnihuman_tpu_torch/csrc/flash_bwd.cu"
@@ -5396,6 +5553,8 @@ def main() -> None:
                         w_shard_rows=spatial[key]))
     out.append(dict(bn_row, launches=paths["serve"][BLOCK_NORM.name],
                     launches_by_path=by_path(BLOCK_NORM)))
+    out.append(dict(qk_row, launches=paths["serve"][QK_NORM_ROPE.name],
+                    launches_by_path=by_path(QK_NORM_ROPE)))
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

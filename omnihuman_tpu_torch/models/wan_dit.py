@@ -65,9 +65,9 @@ from torch import nn
 from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanModelConfig
 from omnihuman_tpu_torch.ops.attention import flash_attention
 from omnihuman_tpu_torch.ops.block_norm import add_norm
-from omnihuman_tpu_torch.ops.norms import layer_norm, rms_norm
+from omnihuman_tpu_torch.ops.norms import layer_norm
+from omnihuman_tpu_torch.ops.qk_norm_rope import qk_norm_rope
 from omnihuman_tpu_torch.ops.quant import Int8Linear, int8_linear
-from omnihuman_tpu_torch.ops.rope import apply_rope
 from omnihuman_tpu_torch.parallel.partition import gather_tokens, shard_tokens
 from omnihuman_tpu_torch.utils.spans import span
 
@@ -191,12 +191,11 @@ def _self_attention(p: WanAttention, x, rope_sin, rope_cos, seq_lens,
     n, d = cfg.num_heads, cfg.head_dim
     cd = policy.compute
     xc = x.to(cd)
-    q = rms_norm(_linear(p.q, xc), p.norm_q.weight, eps=cfg.eps)
-    k = rms_norm(_linear(p.k, xc), p.norm_k.weight, eps=cfg.eps)
+    q, k = qk_norm_rope(_linear(p.q, xc), _linear(p.k, xc), p.norm_q.weight,
+                        p.norm_k.weight, rope_sin, rope_cos, eps=cfg.eps)
     v = _linear(p.v, xc)
-    q = apply_rope(q.reshape(b, s, n, d), rope_sin, rope_cos)
-    k = apply_rope(k.reshape(b, s, n, d), rope_sin, rope_cos)
-    y = flash_attention(q, k, v.reshape(b, s, n, d), k_lens=seq_lens,
+    y = flash_attention(q.reshape(b, s, n, d), k.reshape(b, s, n, d),
+                        v.reshape(b, s, n, d), k_lens=seq_lens,
                         window_size=cfg.window_size, dtype=cd,
                         implementation=attn_impl)
     return _linear(p.o, y.reshape(b, s, n * d).to(cd))
@@ -215,26 +214,25 @@ def _cross_attention(p: WanAttention, x, context, context_lens,
     cd = policy.compute
     xc = x.to(cd)
     ctx = context.to(cd)
-    q = rms_norm(_linear(p.q, xc), p.norm_q.weight, eps=cfg.eps)
-    q = q.reshape(b, s, n, d)
-    y_img = None
-    if cfg.model_type == "i2v":   # image tokens first (model.py:211-229)
+    i2v = cfg.model_type == "i2v"
+    if i2v:                       # image tokens first (model.py:211-229)
         ti = cfg.clip_tokens
         ctx_img, ctx = ctx[:, :ti], ctx[:, ti:]
-        k_img = rms_norm(_linear(p.k_img, ctx_img), p.norm_k_img.weight,
-                         eps=cfg.eps)
-        v_img = _linear(p.v_img, ctx_img)
-        y_img = flash_attention(q, k_img.reshape(b, ti, n, d),
-                                v_img.reshape(b, ti, n, d), dtype=cd,
-                                implementation=attn_impl)
     lc = ctx.shape[1]
-    k = rms_norm(_linear(p.k, ctx), p.norm_k.weight, eps=cfg.eps)
+    q, k = qk_norm_rope(_linear(p.q, xc), _linear(p.k, ctx), p.norm_q.weight,
+                        p.norm_k.weight, eps=cfg.eps)
+    q = q.reshape(b, s, n, d)
     v = _linear(p.v, ctx)
     y = flash_attention(q, k.reshape(b, lc, n, d), v.reshape(b, lc, n, d),
                         k_lens=context_lens, dtype=cd,
                         implementation=attn_impl)
-    if y_img is not None:
-        y = y + y_img
+    if i2v:
+        k_img, _ = qk_norm_rope(_linear(p.k_img, ctx_img), None,
+                                p.norm_k_img.weight, eps=cfg.eps)
+        v_img = _linear(p.v_img, ctx_img)
+        y = y + flash_attention(q, k_img.reshape(b, ti, n, d),
+                                v_img.reshape(b, ti, n, d), dtype=cd,
+                                implementation=attn_impl)
     return _linear(p.o, y.reshape(b, s, n * d).to(cd))
 
 

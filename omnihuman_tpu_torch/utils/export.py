@@ -162,7 +162,7 @@ class LoadedStep:
 def load_exported(path: str) -> LoadedStep:
     """Read an artifact written by `export_program`. The custom ops it
     calls are registered by this module's imports of ops/flash_attention
-    and (through models/wan_dit) ops/block_norm."""
+    and (through models/wan_dit) ops/block_norm and ops/qk_norm_rope."""
     meta = None
     if os.path.exists(path + ".json"):
         with open(path + ".json") as f:

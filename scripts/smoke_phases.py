@@ -20,6 +20,7 @@ steps; the 81-frame step is logged without phase 10's time), 31 (the
 W-sharded VAE on virtual ranks, the one-step batch and an omni step with
 the pose guider's H path on a one-rank NCCL mesh; it runs phase 15 first
 for its reference), 32 (block_norm at every site form and width, and its
+launches a t2v-1.3B forward), 33 (qk_norm_rope at both widths, and its
 launches a t2v-1.3B forward).
 Phases 19-22 run after phase 8
 (the checkpoint directory, teacher data and distill output they read). To compare two commits on one card, unpack the
@@ -42,7 +43,7 @@ def main(argv=None) -> None:
         os.path.abspath(__file__))))
     p.add_argument("phases", nargs="+", type=int,
                    choices=(14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26,
-                            27, 28, 29, 30, 31, 32))
+                            27, 28, 29, 30, 31, 32, 33))
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -54,10 +55,11 @@ def main(argv=None) -> None:
     from omnihuman_tpu_torch.ops.flash_attention import (
         FLASH_BWD, FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K)
     from omnihuman_tpu_torch.ops.block_norm import BLOCK_NORM
+    from omnihuman_tpu_torch.ops.qk_norm_rope import QK_NORM_ROPE
     from omnihuman_tpu_torch.ops.vae_kernels import VAE_CONV, VAE_UPSAMPLE
     fwd = (FLASH_FWD_LONG_K, FLASH_FWD_SHORT_K)
     flash = fwd + (FLASH_BWD,)
-    every = flash + (VAE_CONV, VAE_UPSAMPLE, BLOCK_NORM)
+    every = flash + (VAE_CONV, VAE_UPSAMPLE, BLOCK_NORM, QK_NORM_ROPE)
     held = {}      # phase 16's pipeline for 23, 23's processor for 24
 
     def omni():
@@ -80,6 +82,7 @@ def main(argv=None) -> None:
            29: lambda: cs.run_sp_phase(every, cs.t2v_pipe(), {}),
            30: lambda: cs.run_sp_train_phase(every, {}),
            32: cs.phase_block_norm,
+           33: cs.phase_qk_norm_rope,
            31: lambda: cs.run_spatial_phase(
                every, {}, cs.phase_one_step(every, fwd)[1])}
     import shutil

@@ -25,7 +25,11 @@ bit-equal outputs too. A small bf16 VAE decode / encode with the kernels
 against the plain fused path: 2^-5 relative L2. block_norm (the DiT
 block's residual sites): x' bit-equal to the eager chain on the card, h
 within one bf16 step of it (see `_bn_h_within_one_ulp`), run to run
-bit-equal, its gradient the eager chain's."""
+bit-equal, its gradient the eager chain's. qk_norm_rope (the attention's
+q / k RMSNorm and RoPE): the norm within one step of the eager `rms_norm`,
+its rotation bit-equal to `apply_rope` of it, the whole within two bf16
+steps of each pair's magnitude of the eager chain, run to run bit-equal,
+its gradient the eager chain's."""
 
 import pytest
 import torch
@@ -1198,3 +1202,293 @@ def test_block_norm_launches_per_dit_forward(cuda_device):
             context_lens=torch.tensor([5], device=cuda_device), policy=pol)
     torch.cuda.synchronize()
     assert BLOCK_NORM.launches - before == 5 * ocfg.base.num_layers
+
+
+# -- qk_norm_rope: the attention's q / k RMSNorm and 3D RoPE in one pass -----
+
+QK_FORMS = ("self", "cross", "q_alone", "q_alone_rotated")
+
+
+def _qk_inputs(b, l, d, rd, dev, seed, shard=False):
+    """q and k [b, l, d] in rd, a 512-row text k, bf16 norm weights, and
+    the fp32 tables of the flagship grid (21, 30, 52) cut or padded to l
+    rows (rows past 32,760: the identity rotation). With `shard`, q, k and
+    the tables are the second quarter of a 4 x l sequence (an sp-4 rank's
+    rows: packed in each batch, batches apart)."""
+    from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lf = 4 * l if shard else l
+
+    def rows(n, scale):
+        return (torch.randn(b, n, d, generator=g, device=dev) * scale
+                + 0.1).to(rd)
+
+    q, k, kc = rows(lf, 3.0), rows(lf, 0.5), rows(512, 1.0)
+    wq = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(torch.bfloat16)
+    wk = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(torch.bfloat16)
+    sin, cos = rope_angles_3d((21, 30, 52), 128, seq_len=max(lf, 32760),
+                              device=dev)
+    sin, cos = sin[:lf], cos[:lf]
+    if shard:
+        q, k, sin, cos = (t.narrow(t.dim() - 2, l, l)
+                          for t in (q, k, sin, cos))
+    return q, k, kc, wq, wk, sin, cos
+
+
+def _qk_form(form, q, k, kc, wq, wk, sin, cos):
+    return {"self": (q, k, wq, wk, sin, cos),
+            "cross": (q, kc, wq, wk, None, None),
+            "q_alone": (q, None, wq, None, None, None),
+            "q_alone_rotated": (q, None, wq, None, sin, cos)}[form]
+
+
+def _qk_norm_within_one_step(got, want):
+    """The norm alone: one step of each element's own dtype at its own
+    magnitude (bf16 2^-8, fp32 2^-20 relative: a few fp32 ulps of the row's
+    scale, where the sum of squares takes another order). RMSNorm has no
+    mean to cancel, so no floor."""
+    gf, wf = got.float(), want.float()
+    bits = 7 if want.dtype == torch.bfloat16 else 19
+    mag = wf.abs().clamp_min(2.0 ** -126)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - bits)
+    return bool(((gf - wf).abs() <= step).all())
+
+
+def _qk_rotated_within_two_steps(got, want):
+    """Normed and rotated, against the eager chain: where the norm's result
+    lies one step apart, the rotation carries that step into both elements
+    of the pair, so each is held to 2^-6 of its pair's magnitude (two bf16
+    steps of it; fp32: 2^-18)."""
+    gf, wf = got.float(), want.float()
+    pair = wf.unflatten(-1, (-1, 2)).square().sum(-1).sqrt()
+    r = pair.repeat_interleave(2, dim=-1)
+    rel = 2.0 ** -6 if want.dtype == torch.bfloat16 else 2.0 ** -18
+    return bool(((gf - wf).abs() <= rel * r).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rd", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("rows", ["65536", "8192_sp4_shard", "4097"])
+@pytest.mark.parametrize("d", [1536, 5120])
+def test_qk_norm_rope_kernel_matches_eager(cuda_device, d, rows, rd):
+    """Every form the DiT calls at the published widths: the norm within
+    one step of the eager `rms_norm`; the rotation of the kernel's own norm
+    bit-equal to `apply_rope` of it; the whole against the eager chain
+    within two steps of each pair's magnitude; padded rows (past 32,760,
+    sin 0 / cos 1) the norm alone; one launch a call."""
+    from omnihuman_tpu_torch.ops.qk_norm_rope import (
+        QK_NORM_ROPE, qk_norm_rope_cuda, qk_norm_rope_eager)
+    from omnihuman_tpu_torch.ops.rope import apply_rope
+    b, l, shard = {"65536": (2, 32768, False), "8192_sp4_shard": (2, 4096, True),
+                   "4097": (1, 4097, False)}[rows]
+    inputs = _qk_inputs(b, l, d, rd, cuda_device, seed=d + l, shard=shard)
+    for form in QK_FORMS:
+        q, k, wq, wk, sin, cos = _qk_form(form, *inputs)
+        before = QK_NORM_ROPE.launches
+        qo, ko = qk_norm_rope_cuda(q, k, wq, wk, sin, cos, 1e-6)
+        torch.cuda.synchronize()
+        assert QK_NORM_ROPE.launches == before + 1
+        want_q, want_k = qk_norm_rope_eager(q, k, wq, wk, sin, cos, 1e-6)
+        assert qo.dtype == rd and qo.is_contiguous(), form
+        if k is None:
+            assert ko.numel() == 0
+        outs = [(qo, want_q, q, wq)] + ([] if k is None else
+                                        [(ko, want_k, k, wk)])
+        if sin is None:
+            for got, want, _, _ in outs:
+                assert _qk_norm_within_one_step(got, want), form
+            continue
+        normed = qk_norm_rope_cuda(q, k, wq, wk, None, None, 1e-6)
+        for (got, want, x, w), n in zip(outs, normed):
+            bb, ll, dd = n.shape
+            again = apply_rope(n.reshape(bb, ll, dd // 128, 128), sin,
+                               cos).reshape(bb, ll, dd)
+            assert torch.equal(got, again), form
+            assert _qk_rotated_within_two_steps(got, want), form
+            if ll > 32760:                     # the identity rotation
+                assert torch.equal(got[:, 32760:], n[:, 32760:]), form
+
+
+@pytest.mark.cuda
+def test_qk_norm_rope_fp32_weights_and_small_heads(cuda_device):
+    """fp32 norm weights (a trainer's fp32 parameters) and head_dim 16 (the
+    tiny test model), q and k against the eager chain."""
+    from omnihuman_tpu_torch.ops.qk_norm_rope import (
+        qk_norm_rope_cuda, qk_norm_rope_eager)
+    from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k = (torch.randn(2, 24, 64, generator=g, device=cuda_device)
+            .to(torch.bfloat16) for _ in range(2))
+    wq, wk = (1 + 0.1 * torch.randn(64, generator=g, device=cuda_device)
+              for _ in range(2))
+    sin, cos = rope_angles_3d((3, 2, 3), 16, seq_len=24, device=cuda_device)
+    for tables in ((None, None), (sin, cos)):
+        got = qk_norm_rope_cuda(q, k, wq, wk, *tables, 1e-6)
+        want = qk_norm_rope_eager(q, k, wq, wk, *tables, 1e-6)
+        for a, b in zip(got, want):
+            if tables[0] is None:
+                assert _qk_norm_within_one_step(a, b)
+            else:
+                assert _qk_rotated_within_two_steps(a, b)
+
+
+@pytest.mark.cuda
+def test_qk_norm_rope_run_to_run(cuda_device):
+    from omnihuman_tpu_torch.ops.qk_norm_rope import qk_norm_rope_cuda
+    for d in (1536, 5120):
+        inputs = _qk_inputs(2, 8192, d, torch.bfloat16, cuda_device, seed=d)
+        for form in QK_FORMS:
+            args = _qk_form(form, *inputs)
+            a = qk_norm_rope_cuda(*args, 1e-6)
+            b = qk_norm_rope_cuda(*args, 1e-6)
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), form
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rd", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_qk_norm_rope_gradient_is_the_eager_chains(cuda_device, rd):
+    """The op's backward on the card (the eager chain on the saved inputs,
+    differentiated) against the eager chain's own, every form at dim
+    1536."""
+    from omnihuman_tpu_torch.ops.qk_norm_rope import (
+        qk_norm_rope_eager, qk_norm_rope_op)
+    inputs = _qk_inputs(2, 1024, 1536, rd, cuda_device, seed=11)
+    for form in QK_FORMS:
+        args = _qk_form(form, *inputs)
+        grads = []
+        for fn in (qk_norm_rope_op, qk_norm_rope_eager):
+            a = [None if t is None else t.detach().clone().requires_grad_()
+                 for t in args[:4]] + list(args[4:])
+            qo, ko = fn(*a, 1e-6)
+            g = torch.Generator(device=cuda_device).manual_seed(5)
+            loss = (qo.float() * torch.randn(qo.shape, generator=g,
+                                             device=cuda_device)).sum()
+            if ko is not None and ko.numel():
+                loss = loss + (ko.float() * torch.randn(
+                    ko.shape, generator=g, device=cuda_device)).sum()
+            loss.backward()
+            grads.append([None if t is None else t.grad for t in a[:4]])
+        for got, want in zip(*grads):
+            assert (got is None) == (want is None), form
+            if got is not None:
+                ulp = 2.0 ** -7 if got.dtype == torch.bfloat16 else 2.0 ** -20
+                tol = ulp * want.float().abs().max().item()
+                assert (got.float() - want.float()).abs().max() <= tol, form
+
+
+@pytest.mark.cuda
+def test_qk_norm_rope_refuses_what_it_does_not_take(cuda_device):
+    from omnihuman_tpu_torch.ops.qk_norm_rope import qk_norm_rope_cuda
+    q, k, kc, wq, wk, sin, cos = _qk_inputs(2, 64, 256, torch.bfloat16,
+                                            cuda_device, seed=1)
+
+    def call(**change):
+        args = dict(q=q, k=k, wq=wq, wk=wk, sin=sin, cos=cos)
+        args.update(change)
+        return qk_norm_rope_cuda(*args.values(), 1e-6)
+
+    with pytest.raises(TypeError):
+        call(q=q.half(), k=k.half())                  # a dtype it lacks
+    with pytest.raises(TypeError):
+        call(k=k.float())                             # q and k differ
+    with pytest.raises(TypeError):
+        call(wq=wq.half())
+    with pytest.raises(TypeError):
+        call(sin=sin.double(), cos=cos.double())      # tables are fp32
+    for d in (12, 6152):                              # dim % 8, dim > 6144
+        qd, kd, _, wqd, wkd, _, _ = _qk_inputs(1, 4, d, torch.bfloat16,
+                                               cuda_device, seed=2)
+        with pytest.raises(ValueError):
+            qk_norm_rope_cuda(qd, kd, wqd, wkd, None, None, 1e-6)
+    with pytest.raises(ValueError):                   # head_dim 12
+        call(sin=sin[:, :6].contiguous(), cos=cos[:, :6].contiguous())
+    with pytest.raises(ValueError):                   # tables' rows != L
+        call(sin=sin[:32], cos=cos[:32])
+    with pytest.raises(ValueError):                   # a short k, rotated
+        call(k=kc)
+    with pytest.raises(ValueError):                   # rows not contiguous
+        call(q=q.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError):
+        call(k=torch.empty(2, 64, 512, device=cuda_device,
+                           dtype=torch.bfloat16)[..., ::2])
+    with pytest.raises(ValueError):                   # not 16-byte aligned
+        flat = torch.empty(2 * 64 * 256 + 1, device=cuda_device,
+                           dtype=torch.bfloat16)
+        call(q=flat[1:].view(2, 64, 256))
+    with pytest.raises(ValueError):                   # tables' rows apart
+        call(sin=torch.zeros(64, 128, device=cuda_device)[:, ::2],
+             cos=torch.ones(64, 128, device=cuda_device)[:, ::2])
+    with pytest.raises(ValueError):
+        call(q=q.cpu())
+    with pytest.raises(ValueError):
+        call(sin=sin.cpu(), cos=cos.cpu())
+
+
+@pytest.mark.cuda
+def test_qk_norm_rope_launches_per_dit_forward(cuda_device):
+    """A DiT forward launches the kernel twice a block (the self-attention's
+    q and k; the cross-attention's q and text k), three times with i2v's
+    image keys or the audio adapters; with the gradient as often;
+    per-block remat's recompute launches it again, the op's backward (the
+    eager chain) not."""
+    import dataclasses
+    from omnihuman_tpu_torch.configs.wan import (
+        TINY_TEST_HD128, DTypePolicy)
+    from omnihuman_tpu_torch.models.wan_dit import build_wan_model
+    from omnihuman_tpu_torch.ops.qk_norm_rope import QK_NORM_ROPE
+    from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+    pol = DTypePolicy(residual=torch.bfloat16)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    sin, cos = rope_angles_3d((2, 2, 3), 128, seq_len=16, device=cuda_device)
+    t = torch.tensor([500.0], device=cuda_device)
+    t2v = TINY_TEST_HD128.model
+    i2v = dataclasses.replace(t2v, model_type="i2v", in_dim=36,
+                              clip_tokens=5, clip_embed_dim=40)
+    n = t2v.num_layers
+    for cfg, trainable, remat, want in (
+            (t2v, False, False, (2 * n, 2 * n)),
+            (t2v, True, False, (2 * n, 2 * n)),
+            (t2v, True, True, (2 * n, 4 * n)),
+            (i2v, False, False, (3 * n, 3 * n))):
+        x = torch.randn((1, cfg.out_dim, 2, 4, 6), generator=g,
+                        device=cuda_device)
+        ctx = torch.randn((1, cfg.text_len, cfg.text_dim), generator=g,
+                          device=cuda_device)
+        kw = dict(seq_len=16, rope_sin=sin, rope_cos=cos, policy=pol)
+        if cfg.model_type == "i2v":
+            kw["clip_fea"] = torch.randn((1, 5, 40), generator=g,
+                                         device=cuda_device)
+            kw["y"] = torch.randn((1, 20, 2, 4, 6), generator=g,
+                                  device=cuda_device)
+        model = build_wan_model(cfg, cuda_device, torch.bfloat16, seed=0,
+                                trainable=trainable)
+        before = QK_NORM_ROPE.launches
+        with torch.set_grad_enabled(trainable):
+            v = model(x, t, ctx, remat=remat, **kw)
+        torch.cuda.synchronize()
+        forward = QK_NORM_ROPE.launches - before
+        if trainable:
+            v.float().square().mean().backward()
+            grads = [p.grad for p in model.parameters() if p.requires_grad]
+            assert all(g is not None and torch.isfinite(g).all()
+                       for g in grads)
+        torch.cuda.synchronize()
+        assert torch.isfinite(v).all()
+        assert (forward, QK_NORM_ROPE.launches - before) == want, (
+            cfg.model_type, trainable, remat)
+    from omnihuman_tpu_torch.omni.model import (
+        build_omni_model, omni_model_forward)
+    ocfg = _omni_card_cfg()
+    omni = build_omni_model(ocfg, cuda_device, torch.bfloat16, seed=3)
+    before = QK_NORM_ROPE.launches
+    with torch.inference_mode():
+        omni_model_forward(
+            omni, x=torch.randn((1, 16, 3, 8, 8), device=cuda_device),
+            t=torch.tensor([700.0], device=cuda_device),
+            context=torch.randn((1, 8, 24), device=cuda_device),
+            audio=torch.randn((1, 3, 20), device=cuda_device),
+            context_lens=torch.tensor([5], device=cuda_device), policy=pol)
+    torch.cuda.synchronize()
+    assert QK_NORM_ROPE.launches - before == 3 * ocfg.base.num_layers
