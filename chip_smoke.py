@@ -3977,6 +3977,8 @@ def phase_sp_serve(all_kernels, pipe):
     from omnihuman_tpu_torch.models.vae import vae_decode
     from omnihuman_tpu_torch.ops.vae_kernels import VAE_CONV, VAE_UPSAMPLE
     from omnihuman_tpu_torch.parallel import MeshConfig, create_mesh
+    from omnihuman_tpu_torch.parallel.mesh import (
+        self_attention_route, use_mesh)
 
     want, want_s, want_t = _sp_request(pipe)
     dist.init_process_group(
@@ -3987,12 +3989,14 @@ def phase_sp_serve(all_kernels, pipe):
         t0 = time.perf_counter()
         mp = t2v_pipe(mesh)
         torch.cuda.synchronize()
+        with use_mesh(mp.mesh):
+            route = self_attention_route()
         log(f"[29] WanT2V(t2v-1.3B, mesh (1, 1, 1)) built in "
-            f"{time.perf_counter() - t0:.1f} s: attn_impl {mp.attn_impl}, "
+            f"{time.perf_counter() - t0:.1f} s: attn route {route}, "
             f"sp {mp.sp_size}, FSDP2 on the DiT: "
             f"{isinstance(mp.model, FSDPModule)} and its blocks: "
             f"{all(isinstance(b, FSDPModule) for b in mp.model.blocks)}")
-        if mp.attn_impl != "ring" or not isinstance(mp.model, FSDPModule):
+        if route != "ring" or not isinstance(mp.model, FSDPModule):
             fail("[29] the mesh pipeline did not take the mesh plan")
         _zero(all_kernels)
         got, got_s, got_t = _sp_request(mp)

@@ -168,8 +168,7 @@ def d_step_with_draws(state: APTState, batch: Tensors, t_norm, r1_noise, *,
     sigma = apt_cfg.r1_sigma_video if video else apt_cfg.r1_sigma_image
     t_shifted = timestep_shift(t_norm, s) * apt_cfg.num_train_timesteps
     fwd = dict(seq_len=seq_len, rope_sin=rope_sin, rope_cos=rope_cos,
-               policy=policy, attn_impl=plan.attn_impl,
-               token_sharding=plan.token_sharding)
+               policy=policy)
     params = d_trainable_params(state.disc)
     with plan.mesh_context():
         with torch.no_grad():
@@ -206,8 +205,7 @@ def g_step_with_draws(state: APTState, batch: Tensors, t_norm, *,
     s = apt_cfg.shift_video if video else apt_cfg.shift_image
     t_shifted = timestep_shift(t_norm, s) * apt_cfg.num_train_timesteps
     fwd = dict(seq_len=seq_len, rope_sin=rope_sin, rope_cos=rope_cos,
-               policy=policy, remat=remat, attn_impl=plan.attn_impl,
-               token_sharding=plan.token_sharding)
+               policy=policy, remat=remat)
     params = trainable_params(state.g_model)
     with plan.mesh_context(), frozen(state.disc):
         fake = apt_generator_forward(

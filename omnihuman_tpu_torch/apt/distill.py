@@ -103,10 +103,8 @@ def init_distill_state(model: WanModel, optimizer: Optimizer) -> DistillState:
 
 def distill_loss(model: WanModel, batch: Tensors, *, seq_len: int,
                  rope_sin, rope_cos, policy: DTypePolicy,
-                 remat=True, attn_impl: str = "auto",
-                 token_sharding=None) -> torch.Tensor:
+                 remat=True) -> torch.Tensor:
     """MSE(v_student(noise, t=T), v_teacher) (distilled_trainer.py:241-316).
-    attn_impl / token_sharding: the mesh plan's (`TrainMeshPlan`).
 
     batch: {"noise": [B,C,F,H,W], "context": [B,text_len,text_dim],
             "v_teacher": [B,C,F,H,W]}"""
@@ -114,8 +112,7 @@ def distill_loss(model: WanModel, batch: Tensors, *, seq_len: int,
     t = torch.full((noise.shape[0],), T_MAX, dtype=torch.float32,
                    device=noise.device)
     v = model(noise, t, batch["context"], seq_len=seq_len, rope_sin=rope_sin,
-              rope_cos=rope_cos, policy=policy, remat=remat,
-              attn_impl=attn_impl, token_sharding=token_sharding)
+              rope_cos=rope_cos, policy=policy, remat=remat)
     return torch.mean(torch.square(v - batch["v_teacher"].float()))
 
 
@@ -137,9 +134,7 @@ def distill_train_step(state: DistillState, batch: Tensors, *,
             with span("forward"):
                 loss = distill_loss(state.model, batch, seq_len=seq_len,
                                     rope_sin=rope_sin, rope_cos=rope_cos,
-                                    policy=policy, remat=remat,
-                                    attn_impl=plan.attn_impl,
-                                    token_sharding=plan.token_sharding)
+                                    policy=policy, remat=remat)
             with span("backward"):
                 grads = plan.grads(loss, params)
         with span("optimizer"):

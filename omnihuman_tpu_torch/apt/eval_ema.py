@@ -21,7 +21,7 @@ import torch
 
 from omnihuman_tpu_torch.apt.generate import load_teacher_data
 from omnihuman_tpu_torch.models.vae import vae_decode
-from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+from omnihuman_tpu_torch.models.wan_dit import latent_rope
 from omnihuman_tpu_torch.pipelines.wan_inference import one_step_latents
 from omnihuman_tpu_torch.utils.logging import logger
 from omnihuman_tpu_torch.utils.media import cache_image
@@ -66,16 +66,10 @@ def evaluate_ema(pipe, data_path: str, num_samples: int = 10,
     noise = torch.from_numpy(noise_np).to(dev)
     ctx = torch.from_numpy(
         data["positive_contexts"][:num_samples].astype(np.float32)).to(dev)
-    n, c, f, h, w = noise.shape
-    pt, ph, pw = cfg.model.patch_size
-    grid = (f // pt, h // ph, w // pw)
-    seq_len = pipe.seq_len_for((c, f, h, w))
-    sin, cos = rope_angles_3d(grid, cfg.model.head_dim, seq_len=seq_len,
-                              device=dev)
-
-    latents = one_step_latents(pipe.model, noise, ctx, seq_len=seq_len,
-                               rope_sin=sin, rope_cos=cos, policy=cfg.policy,
-                               t_final=t_final)
+    n = noise.shape[0]
+    latents = one_step_latents(
+        pipe.model, noise, ctx, policy=cfg.policy, t_final=t_final,
+        **latent_rope(cfg.model, noise.shape, dev, sp=pipe.sp_size))
     videos = vae_decode(pipe.vae, latents, streaming=True)
     # the teacher's x0 = noise - v_teacher, decoded the same way
     x0_teacher = noise_np - data["v_teacher"][:num_samples]

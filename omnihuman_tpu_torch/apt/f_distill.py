@@ -183,8 +183,7 @@ def f_distill_train_step(
     b = noise.shape[0]
     t = torch.full((b,), t_max, dtype=torch.float32, device=noise.device)
     fwd = dict(seq_len=seq_len, rope_sin=rope_sin, rope_cos=rope_cos,
-               policy=policy, attn_impl=plan.attn_impl,
-               token_sharding=plan.token_sharding)
+               policy=policy)
     mean = plan.mean_over_data
     disc = state.disc
     with plan.mesh_context():

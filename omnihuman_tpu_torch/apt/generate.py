@@ -23,10 +23,8 @@ from typing import Dict, Iterator, List
 import numpy as np
 import torch
 
-from omnihuman_tpu_torch.configs.wan import (
-    DTypePolicy, WanConfig, WanModelConfig)
-from omnihuman_tpu_torch.models.wan_dit import WanModel, padded_seq_len
-from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanConfig
+from omnihuman_tpu_torch.models.wan_dit import WanModel, latent_rope
 
 # the JAX package's 100 procedural prompts (subjects x actions)
 _SUBJECTS = [
@@ -45,39 +43,20 @@ RANDOM_PROMPTS: List[str] = [f"{s} {a}" for s in _SUBJECTS for a in _ACTIONS]
 TEACHER_BATCH = 8   # samples in one teacher forward (cond + uncond: 2x)
 
 
-def latent_rope(cfg: WanModelConfig, latent_shape, device,
-                sp: int = 1) -> Dict:
-    """{"seq_len", "rope_sin", "rope_cos"} for the DiT on latents of shape
-    [..., F, H, W]: the padded token length (`wan_dit.padded_seq_len`, a
-    multiple of the sp degree) and its RoPE tables, as the training steps
-    take them."""
-    f, h, w = latent_shape[-3:]
-    pt, ph, pw = cfg.patch_size
-    grid = (f // pt, h // ph, w // pw)
-    seq_len = padded_seq_len(grid[0] * grid[1] * grid[2], sp)
-    sin, cos = rope_angles_3d(grid, cfg.head_dim, seq_len=seq_len,
-                              device=device)
-    return dict(seq_len=seq_len, rope_sin=sin, rope_cos=cos)
-
-
 @torch.no_grad()
 def teacher_cfg_velocity(model: WanModel, noise, context, context_null, *,
                          seq_len: int, rope_sin, rope_cos, policy: DTypePolicy,
-                         t_value: float, cfg_scale: float,
-                         attn_impl: str = "auto",
-                         token_sharding=None) -> torch.Tensor:
+                         t_value: float, cfg_scale: float) -> torch.Tensor:
     """The teacher's CFG velocity at one timestep, cond and uncond stacked
     on the batch in one forward (JAX `teacher_cfg`): noise [B, C, F, H, W],
-    context [B, L, text_dim], context_null [B, L, text_dim] -> fp32.
-    attn_impl / token_sharding: a mesh plan's (the serving path on it)."""
+    context [B, L, text_dim], context_null [B, L, text_dim] -> fp32."""
     b = noise.shape[0]
     x2 = torch.cat([noise, noise], dim=0)
     c2 = torch.cat([context, context_null], dim=0)
     t2 = torch.full((2 * b,), t_value, dtype=torch.float32,
                     device=noise.device)
     v = model(x2, t2, c2, seq_len=seq_len, rope_sin=rope_sin,
-              rope_cos=rope_cos, policy=policy, attn_impl=attn_impl,
-              token_sharding=token_sharding)
+              rope_cos=rope_cos, policy=policy)
     v_cond, v_uncond = v.chunk(2, dim=0)
     return v_uncond + cfg_scale * (v_cond - v_uncond)
 
@@ -100,11 +79,7 @@ def generate_batch(
     h, w = size
     target_shape = (cfg.vae.z_dim, 1, h // cfg.vae_stride[1],
                     w // cfg.vae_stride[2])
-    grid = (1, target_shape[2] // cfg.model.patch_size[1],
-            target_shape[3] // cfg.model.patch_size[2])
-    seq_len = grid[0] * grid[1] * grid[2]
-    sin, cos = rope_angles_3d(grid, cfg.model.head_dim, seq_len=seq_len,
-                              device=dev)
+    geo = latent_rope(cfg.model, target_shape, dev)
 
     # no context_lens: the reference teacher sees the full padded context,
     # and the student is trained on the same artifact
@@ -124,8 +99,7 @@ def generate_batch(
         nb = min(TEACHER_BATCH, num_samples - i)
         v = teacher_cfg_velocity(
             pipe.model, noise[i:i + nb].to(dev), pos_ctx[i:i + nb],
-            neg_ctx0[None].expand(nb, -1, -1), seq_len=seq_len,
-            rope_sin=sin, rope_cos=cos, policy=cfg.policy,
+            neg_ctx0[None].expand(nb, -1, -1), **geo, policy=cfg.policy,
             t_value=float(cfg.num_train_timesteps - 1), cfg_scale=cfg_scale)
         v_teacher[i:i + nb] = v.cpu().numpy()
 

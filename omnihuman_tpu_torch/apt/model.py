@@ -52,16 +52,13 @@ def timestep_shift(t: torch.Tensor, s: float) -> torch.Tensor:
 
 def apt_generator_forward(model: WanModel, z, context, *, seq_len: int,
                           rope_sin, rope_cos, final_timestep: float = 1000.0,
-                          policy: DTypePolicy = DTypePolicy(), remat=False,
-                          attn_impl: str = "auto", token_sharding=None
+                          policy: DTypePolicy = DTypePolicy(), remat=False
                           ) -> torch.Tensor:
-    """One-step generation: x = z - v(z, T_final) (model.py:199-221).
-    attn_impl / token_sharding: the mesh plan's (`WanModel.body`)."""
+    """One-step generation: x = z - v(z, T_final) (model.py:199-221)."""
     t = torch.full((z.shape[0],), final_timestep, dtype=torch.float32,
                    device=z.device)
     v = model(z, t, context, seq_len=seq_len, rope_sin=rope_sin,
-              rope_cos=rope_cos, policy=policy, remat=remat,
-              attn_impl=attn_impl, token_sharding=token_sharding)
+              rope_cos=rope_cos, policy=policy, remat=remat)
     return z - v
 
 
@@ -161,8 +158,7 @@ def _probe_forward(p: Probe, x: torch.Tensor, num_heads: int) -> torch.Tensor:
 def apt_discriminator_forward(disc: APTDiscriminator, x, t, context, *,
                               seq_len: int, rope_sin, rope_cos,
                               policy: DTypePolicy = DTypePolicy(),
-                              stop_features: bool = True, remat=False,
-                              attn_impl: str = "auto", token_sharding=None):
+                              stop_features: bool = True, remat=False):
     """Scalar real/fake logit [B, 1] (model.py:123-186) at the (already
     shifted) raw timestep t [B].
 
@@ -171,12 +167,11 @@ def apt_discriminator_forward(disc: APTDiscriminator, x, t, context, *,
     train. The G update passes False, so the generator's adversarial
     gradient flows through the frozen backbone into its input (the
     reference's no_grad there zeroes it); pass remat=True with it.
-    attn_impl / token_sharding: the mesh plan's; the taps come back
-    gathered, so the probes and the head see every token on every rank."""
+    Under a current mesh the taps come back gathered, so the probes and
+    the head see every token on every rank."""
     taps = disc.taps
     fwd = dict(seq_len=seq_len, rope_sin=rope_sin, rope_cos=rope_cos,
-               policy=policy, remat=remat, collect_layers=taps,
-               attn_impl=attn_impl, token_sharding=token_sharding)
+               policy=policy, remat=remat, collect_layers=taps)
     if stop_features:
         with torch.no_grad():
             _, feats = disc.backbone(x, t, context, **fwd)

@@ -30,7 +30,7 @@ def main(argv=None):
 
     import torch
     from omnihuman_tpu_torch.configs import SIZE_CONFIGS, WAN_CONFIGS
-    from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+    from omnihuman_tpu_torch.models.wan_dit import latent_rope
     from omnihuman_tpu_torch.pipelines.text2video import WanT2V, cfg_model_step
 
     cfg = WAN_CONFIGS[args.task]
@@ -38,15 +38,14 @@ def main(argv=None):
     pipe = WanT2V(cfg, precision=args.precision)
     dev = pipe.device
     lat = pipe.latent_shape((w, h), args.frame_num)
-    seq_len = pipe.seq_len_for(lat)
     grid = tuple(n // s for n, s in zip(lat[1:], pipe.patch_size))
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((1,) + lat, generator=gen, device=dev)
     ctx2 = torch.randn((2, 128, cfg.model.text_dim), generator=gen,
                        device=dev)
     lens = torch.tensor([37, 12], dtype=torch.int32, device=dev)
-    sin, cos = rope_angles_3d(grid, cfg.model.head_dim, seq_len=seq_len,
-                              device=dev)
+    geo = latent_rope(cfg.model, lat, dev, sp=pipe.sp_size)
+    seq_len, sin, cos = geo["seq_len"], geo["rope_sin"], geo["rope_cos"]
     total = torch.cuda.get_device_properties(dev).total_memory
     weights = torch.cuda.memory_allocated(dev)
     for mode in ("fused", "sequential"):

@@ -40,13 +40,16 @@ after the text cross-attention when `body` is given `audio_ctx` (JAX
 `_block_forward`, wan_dit.py:291-303). `_linear` takes the int8 serving
 weights of ops/quant.py (`Int8Linear`) as well as nn.Linear.
 
-Sequence parallelism (JAX `attn_impl` and `token_sharding`): with
-`token_sharding` (the 1-D `mesh["sp"]`), `body` keeps this rank's
-contiguous 1/sp of the padded tokens and of the RoPE rows (seq_lens stays
-global), the self-attention runs as `attn_impl` "ring" or "ulysses" and
-every cross-attention (text, i2v image, audio) as "sp_cross"
+Sequence parallelism (two arguments of the JAX forward): the plan is the
+mesh that `parallel.use_mesh` made current. Under one, `body` keeps
+this rank's contiguous 1/sp of the padded tokens and of the RoPE rows
+(seq_lens stays global), the self-attention runs the mesh's route (the
+ring, or Ulysses where the context asks for it) and every
+cross-attention (text, i2v image, audio) runs "sp_cross"
 (ops/ring_attention.py), and the head output (and any taps) is gathered
-over sp before it is returned. The blocks are called as modules
+over sp before it is returned; with no mesh current all of it is the
+single-device forward. `latent_rope` gives a latent's padded length and
+RoPE tables. The blocks are called as modules
 (`WanAttentionBlock.forward`), so FSDP2's per-block hooks
 (parallel/partition.py) gather and free their parameters.
 """
@@ -68,6 +71,9 @@ from omnihuman_tpu_torch.ops.block_norm import add_norm
 from omnihuman_tpu_torch.ops.norms import layer_norm
 from omnihuman_tpu_torch.ops.qk_norm_rope import qk_norm_rope
 from omnihuman_tpu_torch.ops.quant import Int8Linear, int8_linear
+from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+from omnihuman_tpu_torch.parallel.mesh import (
+    AXIS_SP, current_mesh, self_attention_route)
 from omnihuman_tpu_torch.parallel.partition import gather_tokens, shard_tokens
 from omnihuman_tpu_torch.utils.spans import span
 
@@ -80,6 +86,20 @@ def padded_seq_len(n_tokens: int, sp: int = 1) -> int:
     sp = max(int(sp), 1)
     align = math.lcm(sp, 1024) if n_tokens >= 4096 else sp
     return int(math.ceil(n_tokens / align) * align)
+
+
+def latent_rope(cfg: WanModelConfig, latent_shape, device,
+                sp: int = 1) -> Dict:
+    """{"seq_len", "rope_sin", "rope_cos"} for the DiT on latents of shape
+    [..., F, H, W]: the padded token length (`padded_seq_len` at the sp
+    degree) and its RoPE tables, which every caller of the DiT takes."""
+    f, h, w = latent_shape[-3:]
+    pt, ph, pw = cfg.patch_size
+    grid = (f // pt, h // ph, w // pw)
+    seq_len = padded_seq_len(grid[0] * grid[1] * grid[2], sp)
+    sin, cos = rope_angles_3d(grid, cfg.head_dim, seq_len=seq_len,
+                              device=device)
+    return dict(seq_len=seq_len, rope_sin=sin, rope_cos=cos)
 
 
 def _linear(lin: nn.Linear, x: torch.Tensor,
@@ -185,8 +205,7 @@ class Head(nn.Module):
 
 
 def _self_attention(p: WanAttention, x, rope_sin, rope_cos, seq_lens,
-                    cfg: WanModelConfig, policy: DTypePolicy,
-                    attn_impl: str = "auto"):
+                    cfg: WanModelConfig, policy: DTypePolicy):
     b, s, _ = x.shape
     n, d = cfg.num_heads, cfg.head_dim
     cd = policy.compute
@@ -197,18 +216,15 @@ def _self_attention(p: WanAttention, x, rope_sin, rope_cos, seq_lens,
     y = flash_attention(q.reshape(b, s, n, d), k.reshape(b, s, n, d),
                         v.reshape(b, s, n, d), k_lens=seq_lens,
                         window_size=cfg.window_size, dtype=cd,
-                        implementation=attn_impl)
+                        implementation=self_attention_route())
     return _linear(p.o, y.reshape(b, s, n * d).to(cd))
 
 
 def _cross_attention(p: WanAttention, x, context, context_lens,
-                     cfg: WanModelConfig, policy: DTypePolicy,
-                     attn_impl: str = "auto"):
+                     cfg: WanModelConfig, policy: DTypePolicy):
     """Queries of x (this rank's token shard under sp) against the whole
-    short context: with a sequence-parallel self-attention, "sp_cross"
-    (JAX wan_dit.py:209-214)."""
-    if attn_impl in ("ring", "ulysses"):
-        attn_impl = "sp_cross"
+    short context: "sp_cross", the single-device route with no mesh
+    current (JAX wan_dit.py:209-214)."""
     b, s, _ = x.shape
     n, d = cfg.num_heads, cfg.head_dim
     cd = policy.compute
@@ -225,21 +241,20 @@ def _cross_attention(p: WanAttention, x, context, context_lens,
     v = _linear(p.v, ctx)
     y = flash_attention(q, k.reshape(b, lc, n, d), v.reshape(b, lc, n, d),
                         k_lens=context_lens, dtype=cd,
-                        implementation=attn_impl)
+                        implementation="sp_cross")
     if i2v:
         k_img, _ = qk_norm_rope(_linear(p.k_img, ctx_img), None,
                                 p.norm_k_img.weight, eps=cfg.eps)
         v_img = _linear(p.v_img, ctx_img)
         y = y + flash_attention(q, k_img.reshape(b, ti, n, d),
                                 v_img.reshape(b, ti, n, d), dtype=cd,
-                                implementation=attn_impl)
+                                implementation="sp_cross")
     return _linear(p.o, y.reshape(b, s, n * d).to(cd))
 
 
 def _block_forward(blk: WanAttentionBlock, x, e0, context, context_lens,
                    rope_sin, rope_cos, seq_lens, cfg: WanModelConfig,
-                   policy: DTypePolicy, audio_ctx=None,
-                   attn_impl: str = "auto"):
+                   policy: DTypePolicy, audio_ctx=None):
     """One transformer block (reference model.py:279-330); x in
     policy.residual, e0 [B, 6, dim] fp32. With `audio_ctx` [B, La, dim]
     and an adapter in the block, the gated audio cross-attention follows
@@ -257,7 +272,7 @@ def _block_forward(blk: WanAttentionBlock, x, e0, context, context_lens,
         _, h = add_norm(x, shift=sa_shift, scale=sa_scale, **site)
         with span("self_attn"):
             y = _self_attention(blk.self_attn, h, rope_sin, rope_cos, seq_lens,
-                                cfg, policy, attn_impl)
+                                cfg, policy)
 
         if cfg.cross_attn_norm:
             x, h = add_norm(x, y, sa_gate, weight=blk.norm3.weight,
@@ -267,7 +282,7 @@ def _block_forward(blk: WanAttentionBlock, x, e0, context, context_lens,
             h = x
         with span("cross_attn"):
             y = _cross_attention(blk.cross_attn, h, context, context_lens, cfg,
-                                 policy, attn_impl)
+                                 policy)
 
         ap = getattr(blk, "audio_attn", None)
         if audio_ctx is not None and ap is not None:
@@ -276,8 +291,7 @@ def _block_forward(blk: WanAttentionBlock, x, e0, context, context_lens,
             # the t2v branch even on an i2v base: no image tokens in audio
             t2v = dataclasses.replace(cfg, model_type="t2v")
             with span("audio_attn"):
-                y = _cross_attention(ap, h, audio_ctx, None, t2v, policy,
-                                     attn_impl)
+                y = _cross_attention(ap, h, audio_ctx, None, t2v, policy)
             x, h = add_norm(x, y, ap.gate.to(f32), round_inner=False,
                             shift=ff_shift, scale=ff_scale, **site)
         else:
@@ -383,14 +397,14 @@ class WanModel(nn.Module):
              n_tokens: int, context_lens=None, clip_fea=None,
              policy: DTypePolicy = DTypePolicy(), remat=False,
              collect_layers: Optional[Sequence[int]] = None,
-             audio_ctx=None, attn_impl: str = "auto", token_sharding=None):
+             audio_ctx=None):
         """The DiT trunk on built tokens (JAX dit_body): pad to seq_len,
         time / text (and, with clip_fea, image) embeddings, blocks (with
         `audio_ctx` [B, La, dim], the audio adapters), modulated head.
         Returns (out [B, seq_len, prod(patch)*out_dim], taps), taps being
         {layer: [B, seq_len, dim] in policy.residual} for collect_layers.
-        `token_sharding` (the 1-D sp mesh): the blocks and the head run on
-        this rank's 1/sp of the tokens, and the outputs are gathered."""
+        Under a current mesh the blocks and the head run on this rank's
+        1/sp of the tokens, and the outputs are gathered."""
         cfg, f32 = self.cfg, torch.float32
         b = tokens.shape[0]
         if n_tokens > seq_len:
@@ -404,9 +418,11 @@ class WanModel(nn.Module):
             rope_cos = F.pad(rope_cos, (0, 0, 0, pad), value=1.0)
         seq_lens = torch.full((b,), n_tokens, dtype=torch.int32,
                               device=x.device)
-        x = shard_tokens(x, token_sharding)
-        rope_sin = shard_tokens(rope_sin, token_sharding, dim=0)
-        rope_cos = shard_tokens(rope_cos, token_sharding, dim=0)
+        mesh = current_mesh()
+        sp = None if mesh is None else mesh[AXIS_SP]
+        x = shard_tokens(x, sp)
+        rope_sin = shard_tokens(rope_sin, sp, dim=0)
+        rope_cos = shard_tokens(rope_cos, sp, dim=0)
 
         # time path, fp32 (model.py:526-528)
         e = sinusoidal_embedding_1d(cfg.freq_dim, t)
@@ -432,15 +448,15 @@ class WanModel(nn.Module):
 
         x, taps = self._blocks(x, (e0, ctx, context_lens, rope_sin,
                                    rope_cos, seq_lens, cfg, policy,
-                                   audio_ctx, attn_impl),
+                                   audio_ctx),
                                remat, collect_layers)
 
         # head: fp32, two-chunk modulation (model.py:332-359)
         he = self.head.modulation.to(f32) + e[:, None]        # [B, 2, dim]
         h = layer_norm(x, eps=cfg.eps, out_dtype=f32)
         h = h * (1.0 + he[:, 1:2]) + he[:, 0:1]
-        out = gather_tokens(_linear(self.head.head, h), token_sharding)
-        taps = {i: gather_tokens(v, token_sharding) for i, v in taps.items()}
+        out = gather_tokens(_linear(self.head.head, h), sp)
+        taps = {i: gather_tokens(v, sp) for i, v in taps.items()}
         return out, taps
 
     def _blocks(self, x, args, remat, collect_layers):
@@ -483,8 +499,7 @@ class WanModel(nn.Module):
     def forward(self, x, t, context, *, seq_len: int, rope_sin, rope_cos,
                 context_lens=None, clip_fea=None, y=None,
                 policy: DTypePolicy = DTypePolicy(),
-                remat=False, collect_layers: Optional[Sequence[int]] = None,
-                attn_impl: str = "auto", token_sharding=None):
+                remat=False, collect_layers: Optional[Sequence[int]] = None):
         """Velocity v = model(x_t, t, context) (JAX wan_model_forward):
         x [B, out_dim, F, H, W], t [B], context [B, Lc, text_dim]; i2v adds
         clip_fea [B, 257, clip_embed_dim] and y [B, in_dim - out_dim, F, H,
@@ -492,7 +507,7 @@ class WanModel(nn.Module):
         [B, out_dim, F, H, W] fp32, or (v, {layer: [B, seq_len, dim]})
         when `collect_layers` is given. `remat`: False, True (per block) or
         an int group size (grouped two-level; ignored with
-        collect_layers, as in JAX). `attn_impl` / `token_sharding`: the
+        collect_layers, as in JAX). Under a current mesh, its
         sequence-parallel plan (`body`)."""
         if y is not None:           # i2v: mask + reference latent
             x = torch.cat([x, y.to(x.dtype)], dim=1)
@@ -504,9 +519,7 @@ class WanModel(nn.Module):
                               rope_sin=rope_sin, rope_cos=rope_cos,
                               n_tokens=n_tokens, context_lens=context_lens,
                               clip_fea=clip_fea, policy=policy, remat=remat,
-                              collect_layers=collect_layers,
-                              attn_impl=attn_impl,
-                              token_sharding=token_sharding)
+                              collect_layers=collect_layers)
         v = self.unpatchify(out, grid).to(torch.float32)
         return (v, taps) if collect_layers is not None else v
 

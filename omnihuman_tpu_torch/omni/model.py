@@ -45,6 +45,7 @@ from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanModelConfig
 from omnihuman_tpu_torch.models.wan_dit import (
     WanModel, _linear, padded_seq_len)
 from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+from omnihuman_tpu_torch.parallel.mesh import current_mesh, sp_degree
 from omnihuman_tpu_torch.parallel.spatial import gather_spatial, halo_exchange
 from omnihuman_tpu_torch.utils.spans import span
 
@@ -233,28 +234,25 @@ def omni_model_forward(
     context_lens: Optional[torch.Tensor] = None,
     policy: DTypePolicy = DTypePolicy(),
     remat=True,
-    attn_impl: str = "auto",
-    token_sharding=None,
-    seq_align: int = 1,
+    seq_align: Optional[int] = None,
     pose_sharding=None,
 ) -> torch.Tensor:
     """Velocity [B, out_dim, F, H, W] fp32 with the omni conditions
     (JAX `omni_model_forward`). `cond_mask`: {"audio" / "pose" /
     "reference": [B] in {0, 1}}. `remat`: False, True (per block, the JAX
     default) or an int group size, as `WanModel.body` takes it; it acts
-    only while autograd records. `attn_impl` / `token_sharding`: the
-    sequence-parallel plan of `WanModel.body`; `seq_align`: the sp degree,
-    which the packed length is padded to a multiple of
-    (`padded_seq_len`). `pose_sharding`: the group whose ranks each hold
-    an H shard of `pose` (`process_pose`), or None for the whole heatmaps.
-    The call goes through the model's `__call__`
+    only while autograd records. Under a current mesh, the
+    sequence-parallel plan of `WanModel.body`; `seq_align`: what the
+    packed length is padded to a multiple of (`padded_seq_len`), by
+    default the current mesh's sp degree. `pose_sharding`: the group whose
+    ranks each hold an H shard of `pose` (`process_pose`), or None for the
+    whole heatmaps. The call goes through the model's `__call__`
     (`OmniModel.forward`), so FSDP2's root hooks gather the parameters
     outside the blocks."""
     return model(x, t, context, audio=audio, pose=pose,
                  ref_latent=ref_latent, motion_latent=motion_latent,
                  cond_mask=cond_mask, context_lens=context_lens,
-                 policy=policy, remat=remat, attn_impl=attn_impl,
-                 token_sharding=token_sharding, seq_align=seq_align,
+                 policy=policy, remat=remat, seq_align=seq_align,
                  pose_sharding=pose_sharding)
 
 
@@ -293,8 +291,8 @@ def _packed_rope(model: OmniModel, grid, m_frames: Optional[int],
 def _omni_forward(model: OmniModel, x, t, context, *, audio=None, pose=None,
                   ref_latent=None, motion_latent=None, cond_mask=None,
                   context_lens=None, policy: DTypePolicy = DTypePolicy(),
-                  remat=True, attn_impl: str = "auto", token_sharding=None,
-                  seq_align: int = 1, pose_sharding=None):
+                  remat=True, seq_align: Optional[int] = None,
+                  pose_sharding=None):
     """`omni_model_forward`'s computation (`OmniModel.forward`)."""
     cfg = model.cfg
     base_cfg = cfg.base
@@ -332,6 +330,8 @@ def _omni_forward(model: OmniModel, x, t, context, *, audio=None, pose=None,
     r_frames = None if ref_latent is None else ref_latent.shape[2] // pt
     n_packed = n_video + ((m_frames or 0) + (r_frames or 0)) * (
         grid[1] * grid[2])
+    if seq_align is None:
+        seq_align = sp_degree(current_mesh())
     seq_len = padded_seq_len(n_packed, seq_align)
     with span("pack", tokens=n_packed, pad=seq_len - n_packed,
               audio_tokens=0 if audio is None else audio.shape[1]):
@@ -360,6 +360,5 @@ def _omni_forward(model: OmniModel, x, t, context, *, audio=None, pose=None,
     out, _ = base.body(tokens, t, context, seq_len=seq_len,
                        rope_sin=rope_sin, rope_cos=rope_cos,
                        n_tokens=n_packed, context_lens=context_lens,
-                       policy=policy, remat=remat, audio_ctx=audio_ctx,
-                       attn_impl=attn_impl, token_sharding=token_sharding)
+                       policy=policy, remat=remat, audio_ctx=audio_ctx)
     return base.unpatchify(out[:, :n_video], grid).to(torch.float32)

@@ -26,8 +26,9 @@ kernels (ops/flash_attention.py).
 
 The mesh plan (JAX `:185-244`, parallel/train_mesh.py): `OmniHumanTrainer
 (plan=)` shards the model with FSDP2 before its AdamW state is made, runs
-the step with the ring self-attention and sp_cross on this rank's 1/sp of
-the packed tokens (padded to a multiple of sp, `seq_align`), takes each
+the step inside `plan.mesh_context()`, where the forward runs the ring
+self-attention and sp_cross on this rank's 1/sp of the packed tokens
+(padded to a multiple of sp), takes each
 data rank's slice of the global batch and each sp rank's rows of the pose
 heatmaps (`plan.put_batch`; the pose guider runs on them with halos) and
 averages the gradients over the mesh. The draws are made for the global batch on every
@@ -196,12 +197,9 @@ def omni_flow_matching_loss(model: OmniModel, batch: Dict, masks: Tensors,
                             t: torch.Tensor, noise: torch.Tensor, *,
                             policy: DTypePolicy = DTypePolicy(),
                             target: str = "velocity",
-                            remat=True, attn_impl: str = "auto",
-                            token_sharding=None,
-                            seq_align: int = 1) -> torch.Tensor:
-    """mean((v - target)^2 * (1 - t)) at x_t = (1 - t) x + t noise.
-    attn_impl / token_sharding / seq_align: the mesh plan's
-    (`omni_model_forward`).
+                            remat=True) -> torch.Tensor:
+    """mean((v - target)^2 * (1 - t)) at x_t = (1 - t) x + t noise; under
+    a current mesh, its plan (`omni_model_forward`).
 
     batch: "frames" (clean latents [B, C, F, H, W]), "context", and
     optionally "audio", "pose", "reference", and "pose_sharding" where
@@ -214,8 +212,7 @@ def omni_flow_matching_loss(model: OmniModel, batch: Dict, masks: Tensors,
     pred = omni_model_forward(
         model, noisy, t * 1000.0, batch["context"], audio=batch.get("audio"),
         pose=batch.get("pose"), ref_latent=batch.get("reference"),
-        cond_mask=masks, policy=policy, remat=remat, attn_impl=attn_impl,
-        token_sharding=token_sharding, seq_align=seq_align,
+        cond_mask=masks, policy=policy, remat=remat,
         pose_sharding=batch.get("pose_sharding"))
     tgt = noise - frames if target == "velocity" else frames
     return torch.mean(torch.square(pred - tgt) * (1.0 - tb))
@@ -238,8 +235,7 @@ def omni_train_step(state: OmniTrainState, batch: Dict, masks: Tensors,
     with plan.mesh_context():
         loss = omni_flow_matching_loss(
             state.model, batch, masks, t, noise, policy=policy,
-            target=target, remat=remat, attn_impl=plan.attn_impl,
-            token_sharding=plan.token_sharding, seq_align=plan.sp)
+            target=target, remat=remat)
         grads = plan.grads(loss, params, allow_unused=True)
     optimizer.step(params, grads, state.opt_state)
     state.step += 1

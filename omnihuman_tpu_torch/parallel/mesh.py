@@ -97,18 +97,23 @@ def init_distributed(device: Optional[str] = None) -> torch.device:
 
 
 # ---------------------------------------------------------------------------
-# the current mesh: deep model code (the attention dispatcher) reaches it
-# without threading it through every call
+# the current mesh: the DiT and the attention dispatcher take the forward's
+# sequence-parallel plan from it, so no caller threads the plan through
 
-_CURRENT_MESH: list = []
+_CURRENT_MESH: list = []       # (mesh, self-attention route) of each use_mesh
+SP_ROUTE = "ring"              # the self-attention's route on program paths
 
 
 @contextlib.contextmanager
-def use_mesh(mesh):
+def use_mesh(mesh, sp_route: str = SP_ROUTE):
     """`mesh` is the current mesh inside; None means none (the attention
     dispatcher's single-device routes), so a caller passes its optional
-    mesh through unchanged."""
-    _CURRENT_MESH.append(mesh)
+    mesh through unchanged. `sp_route`: the DiT self-attention's route on
+    the mesh (`flash_attention`'s implementation): the ring on every
+    program path, Ulysses where a caller asks for it."""
+    if sp_route not in (SP_ROUTE, "ulysses"):
+        raise ValueError(f"unknown sequence-parallel route {sp_route!r}")
+    _CURRENT_MESH.append((mesh, sp_route))
     try:
         yield mesh
     finally:
@@ -116,7 +121,22 @@ def use_mesh(mesh):
 
 
 def current_mesh():
-    return _CURRENT_MESH[-1] if _CURRENT_MESH else None
+    return _CURRENT_MESH[-1][0] if _CURRENT_MESH else None
+
+
+def self_attention_route() -> str:
+    """The DiT self-attention's `flash_attention` implementation: the
+    route the current mesh was made current with, "auto" (the
+    single-device route) with no mesh current."""
+    if current_mesh() is None:
+        return "auto"
+    return _CURRENT_MESH[-1][1]
+
+
+def sp_degree(mesh) -> int:
+    """The sp degree of an optional mesh, 1 without one: token lengths
+    are padded to a multiple of it."""
+    return 1 if mesh is None else int(mesh[AXIS_SP].size())
 
 
 def mesh_from_flags(fsdp_size: int, sp_size: int, device=None,

@@ -14,8 +14,9 @@ it needs. On a mesh:
   - `shard_tree` applies FSDP2 to a model (parallel/partition.py): the
     parameters JAX shards live as DTensor shards on `fsdp`, the others
     whole on every rank; optimizer states and EMAs made from them follow;
-  - the steps run the ring self-attention and sp_cross cross-attention on
-    this rank's 1/sp of the tokens (`token_sharding`, `mesh_context`);
+  - the steps run inside `mesh_context`, where the DiT takes its plan
+    from the mesh (`WanModel.body`): the ring self-attention and sp_cross
+    cross-attention on this rank's 1/sp of the tokens;
   - `put_batch` gives each data rank its slice of the global batch: the
     fsdp and sp ranks of one data group take the same samples (JAX's
     `P("data")`); the pose heatmaps [B, K, F, H, W] also give each sp
@@ -49,7 +50,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from omnihuman_tpu_torch.parallel.mesh import (
-    AXIS_DATA, AXIS_FSDP, AXIS_SP, mesh_from_flags, use_mesh)
+    AXIS_DATA, AXIS_FSDP, AXIS_SP, SP_ROUTE, mesh_from_flags, use_mesh)
 from omnihuman_tpu_torch.parallel.partition import local, shard_params
 
 REDUCE_BUCKET = 2 ** 26      # elements (fp32) of one gradient all-reduce
@@ -88,21 +89,6 @@ class TrainMeshPlan:
     def data(self) -> int:
         return self._size(AXIS_DATA)
 
-    @property
-    def attn_impl(self) -> str:
-        return "auto" if self.mesh is None else "ring"
-
-    @property
-    def token_sharding(self):
-        """The 1-D sp mesh the DiT shards its tokens over, or None."""
-        return None if self.mesh is None else self.mesh[AXIS_SP]
-
-    def seq_len(self, n_tokens: int) -> int:
-        """Padded token length: sp-divisible, and 1024-aligned at flagship
-        lengths (JAX `:68`, `wan_dit.padded_seq_len`)."""
-        from omnihuman_tpu_torch.models.wan_dit import padded_seq_len
-        return padded_seq_len(n_tokens, self.sp)
-
     def check_batch(self, batch_size: int) -> None:
         if batch_size % self.data != 0:
             raise ValueError(
@@ -114,7 +100,7 @@ class TrainMeshPlan:
         if self.mesh is None:
             return "single-device (no mesh)"
         shape = {a: self._size(a) for a in (AXIS_DATA, AXIS_FSDP, AXIS_SP)}
-        return f"mesh {shape} attn=ring"
+        return f"mesh {shape} attn={SP_ROUTE}"
 
     # -- placing state and batches -------------------------------------------
 
@@ -156,7 +142,8 @@ class TrainMeshPlan:
         return out
 
     def mesh_context(self):
-        """The mesh made current for the attention dispatcher."""
+        """The mesh made current: the DiT and the attention dispatcher
+        take the step's sequence-parallel plan from it."""
         if self.mesh is None:
             return contextlib.nullcontext()
         return use_mesh(self.mesh)

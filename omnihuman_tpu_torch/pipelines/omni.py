@@ -17,11 +17,12 @@ tracks are cut per window, repeating their last frame when they run out;
 the result is trimmed to `total_frames`. Each window's noise is drawn by
 `window_noise` from a torch.Generator seeded by (seed, window).
 
-With `mesh` (`OmniHuman(mesh=)`, `omni_generate(mesh=)`), the plan of
-`text2video.mesh_plan` (JAX pipelines/omni.py:30-72): the packed
-self-attention as the ring, the text and audio cross-attention as
-sp_cross, the packed tokens sharded over `sp` and padded to a multiple of
-it (`seq_align`), the DiT sharded over `fsdp` by FSDP2; the VAE stays
+With `mesh` (`OmniHuman(mesh=)`, `omni_generate(mesh=)`), the forwards run
+under `use_mesh` and take the DiT's plan from it (JAX
+pipelines/omni.py:30-72): the packed self-attention as the ring, the text
+and audio cross-attention as sp_cross, the packed tokens sharded over
+`sp` and padded to a multiple of it, the DiT sharded over `fsdp` by
+FSDP2; the VAE stays
 whole on every rank. Serving runs under `torch.no_grad`. On
 the card every attention of the DiT runs the K1 kernel and the VAE encode
 / decode the K3 / K4 kernels.
@@ -40,7 +41,7 @@ from omnihuman_tpu_torch.omni.model import (
     OmniModel, OmniModelConfig, build_omni_model, load_base_dit,
     omni_model_forward)
 from omnihuman_tpu_torch.parallel.mesh import use_mesh
-from omnihuman_tpu_torch.pipelines.text2video import WanT2V, mesh_plan
+from omnihuman_tpu_torch.pipelines.text2video import WanT2V
 from omnihuman_tpu_torch.samplers.fm_solvers import get_solver
 from omnihuman_tpu_torch.utils.checkpoint import CheckpointManager
 from omnihuman_tpu_torch.utils.spans import span, stage
@@ -73,19 +74,14 @@ def omni_cfg_step(
     motion_latent: Optional[torch.Tensor] = None,
     context_lens: Optional[torch.Tensor] = None,
     null_lens: Optional[torch.Tensor] = None,
-    attn_impl: str = "auto",
-    token_sharding=None,
-    seq_align: int = 1,
 ) -> Tuple[torch.Tensor, dict]:
     """One denoise step of `omni_generate` (span `step` > `cond`,
     `uncond`, `solver`): the conditional forward with audio, pose,
     reference and motion, the unconditional one with the negative prompt
     alone, the guidance at the annealed scale of step i of the solver's
     schedule, then the solver's update. Returns (x, state) after it.
-    `attn_impl` / `token_sharding` / `seq_align`: the mesh plan
-    (`omni_model_forward`)."""
-    plan = dict(attn_impl=attn_impl, token_sharding=token_sharding,
-                seq_align=seq_align, policy=policy, remat=False)
+    Under a current mesh, its plan (`omni_model_forward`)."""
+    fwd = dict(policy=policy, remat=False)
     steps = len(solver.timesteps)
     with span("step", index=i):
         # the JAX float32 arithmetic of the annealed scale
@@ -98,10 +94,10 @@ def omni_cfg_step(
             v_c = omni_model_forward(
                 model, x, tb, context, audio=audio, pose=pose,
                 ref_latent=ref_latent, motion_latent=motion_latent,
-                context_lens=context_lens, **plan)
+                context_lens=context_lens, **fwd)
         with span("uncond"):
             v_u = omni_model_forward(model, x, tb, context_null,
-                                     context_lens=null_lens, **plan)
+                                     context_lens=null_lens, **fwd)
         v = v_u + float(cfg_t) * (v_c - v_u)
         return solver.step(state, v, x, i)
 
@@ -128,9 +124,8 @@ def omni_generate(
 ) -> torch.Tensor:
     """Sampled latents [B, C, F, H, W] fp32 from `noise` (JAX
     `omni_generate`): `omni_cfg_step` at every step of the schedule; with
-    `mesh`, under its plan (`text2video.mesh_plan`), the packed tokens
+    `mesh`, under `use_mesh` (`omni_model_forward`), the packed tokens
     padded to a multiple of sp."""
-    attn_impl, token_sharding, sp = mesh_plan(mesh)
     sol = get_solver(solver, sampling_steps, float(shift))
     x = noise
     state = sol.init_state(noise)
@@ -140,9 +135,7 @@ def omni_generate(
                 model, x, state, i, sol, context, context_null,
                 cfg_scale=cfg_scale, policy=policy, audio=audio, pose=pose,
                 ref_latent=ref_latent, motion_latent=motion_latent,
-                context_lens=context_lens, null_lens=null_lens,
-                attn_impl=attn_impl, token_sharding=token_sharding,
-                seq_align=sp)
+                context_lens=context_lens, null_lens=null_lens)
     return x
 
 

@@ -13,11 +13,12 @@ the default raises.
 
 With `mesh` (parallel/mesh.py, one process per GPU, every rank calling
 `generate` with the same arguments) the pipeline runs JAX's mesh plan
-(text2video.py:85-107): self-attention as the ring at any sp (sp 1
-included), cross-attention as sp_cross, the tokens sharded over `sp`
-(`WanModel.body`), the DiT and umT5 parameters sharded over `fsdp` by
-FSDP2 (`parallel.shard_params`, the int8 weights included); umT5 stays on
-the card between requests; the VAE stays whole on every rank and each
+(text2video.py:85-107) by making the mesh current (`use_mesh`), where the
+DiT reads it (`WanModel.body`): self-attention as the ring at any sp (sp
+1 included), cross-attention as sp_cross, the tokens sharded over `sp`,
+the DiT and umT5 parameters sharded over `fsdp` by FSDP2
+(`parallel.shard_params`, the int8 weights included); umT5 stays on the
+card between requests; the VAE stays whole on every rank and each
 rank decodes the whole clip (JAX's t2v decode is unsharded too; the
 one-step generator's decode shards W, pipelines/wan_inference.py).
 The noise comes from the same seeded generator on every rank (a random
@@ -35,15 +36,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanConfig, WanModelConfig
+from omnihuman_tpu_torch.configs.wan import DTypePolicy, WanConfig
 from omnihuman_tpu_torch.models.t5 import load_t5_encoder
 from omnihuman_tpu_torch.models.tokenizers import HuggingfaceTokenizer
 from omnihuman_tpu_torch.models.vae import build_vae, vae_decode
 from omnihuman_tpu_torch.models.wan_dit import (
-    WanModel, build_wan_model, padded_seq_len)
+    WanModel, build_wan_model, latent_rope, padded_seq_len)
 from omnihuman_tpu_torch.ops.quant import quantize_wan_model
-from omnihuman_tpu_torch.ops.rope import rope_angles_3d
-from omnihuman_tpu_torch.parallel.mesh import AXIS_SP, use_mesh
+from omnihuman_tpu_torch.parallel.mesh import sp_degree, use_mesh
 from omnihuman_tpu_torch.parallel.partition import shard_params
 from omnihuman_tpu_torch.samplers.fm_solvers import get_solver
 from omnihuman_tpu_torch.utils.convert import load_wan_checkpoint_dir
@@ -75,15 +75,6 @@ def serving_policy(config: WanConfig, precision: str) -> DTypePolicy:
     if precision == "reference":
         return config.policy
     return dataclasses.replace(config.policy, residual=torch.bfloat16)
-
-
-def mesh_plan(mesh):
-    """(attn_impl, token_sharding, sp) of an optional mesh: any mesh runs
-    the ring with the tokens on `mesh["sp"]` (JAX WanT2V), and pads them to
-    a multiple of sp."""
-    if mesh is None:
-        return "auto", None, 1
-    return "ring", mesh[AXIS_SP], int(mesh[AXIS_SP].size())
 
 
 def request_seed(seed: int, mesh=None) -> int:
@@ -132,7 +123,7 @@ class WanT2V:
         self.policy = serving_policy(config, precision)
         self.device = resolve_device(device)
         self.mesh = mesh
-        self.attn_impl, _, self.sp_size = mesh_plan(mesh)
+        self.sp_size = sp_degree(mesh)
         # JAX's t5_auto_unload: a mesh keeps umT5 on the card
         self.t5_auto_unload = mesh is None
         self.config = config
@@ -355,19 +346,17 @@ def _t_batch(t, n: int, device) -> torch.Tensor:
 def cfg_model_step(model: WanModel, x, t, ctx2, rope_sin, rope_cos,
                    ctx_lens=None, *, policy: DTypePolicy, seq_len: int,
                    guide_scale: float, cfg_mode: str = "fused", y=None,
-                   clip_fea=None, attn_impl: str = "auto",
-                   token_sharding=None):
+                   clip_fea=None):
     """One classifier-free-guidance model call (JAX _cfg_model_step and
     _i2v_cfg_model_step): 'fused' stacks cond / uncond on the batch,
     'sequential' runs two forwards (half the activation peak). `t` is a
     float or a 0-d tensor. i2v: y [1, C, F, H, W] and clip_fea [1, 257, D]
     condition both halves, or come stacked cond / uncond ([2, ...], JAX
     `_i2v_cfg_model_step`'s y2 and clip2, whose 'sequential' mode gives
-    the cond half to both forwards). `attn_impl` / `token_sharding`: the
-    mesh plan (`mesh_plan`)."""
+    the cond half to both forwards). Under a current mesh, its plan
+    (`WanModel.body`)."""
     fwd = dict(seq_len=seq_len, rope_sin=rope_sin, rope_cos=rope_cos,
-               policy=policy, y=y, clip_fea=clip_fea, attn_impl=attn_impl,
-               token_sharding=token_sharding)
+               policy=policy, y=y, clip_fea=clip_fea)
     with span("cfg"):
         b = x.shape[0]
         if cfg_mode == "fused":
@@ -402,13 +391,10 @@ def sample(model: WanModel, noise, context, context_null, *,
            clip_fea=None, mesh=None) -> torch.Tensor:
     """Denoising loop from the caller's noise [1, C, F, H, W] (fp32); with
     y and clip_fea, the i2v loop (JAX _i2v_sample). With `mesh`, every
-    model call runs the mesh plan under `use_mesh`."""
-    attn_impl, token_sharding, _ = mesh_plan(mesh)
-    cfg: WanModelConfig = model.cfg
-    pt, ph, pw = cfg.patch_size
-    grid = (noise.shape[2] // pt, noise.shape[3] // ph, noise.shape[4] // pw)
-    rope_sin, rope_cos = rope_angles_3d(grid, cfg.head_dim, seq_len=seq_len,
-                                        device=noise.device)
+    model call runs the mesh plan under `use_mesh`. A `seq_len` past the
+    latent's padded length pads the tables in the forward (`WanModel.body`)."""
+    geo = latent_rope(model.cfg, noise.shape, noise.device, sp_degree(mesh))
+    rope_sin, rope_cos = geo["rope_sin"], geo["rope_cos"]
     sol = get_solver(solver, steps, float(shift), num_train_timesteps)
     ctx2 = torch.cat([context, context_null], dim=0)
     ctx_lens = (None if context_lens is None else torch.as_tensor(
@@ -423,8 +409,6 @@ def sample(model: WanModel, noise, context, context_null, *,
                                    rope_sin, rope_cos, ctx_lens,
                                    policy=policy, seq_len=seq_len,
                                    guide_scale=float(guide_scale),
-                                   cfg_mode=cfg_mode, y=y, clip_fea=clip_fea,
-                                   attn_impl=attn_impl,
-                                   token_sharding=token_sharding)
+                                   cfg_mode=cfg_mode, y=y, clip_fea=clip_fea)
                 x, state = sol.step(state, v, x, i)
     return x

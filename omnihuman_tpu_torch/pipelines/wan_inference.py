@@ -27,11 +27,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from omnihuman_tpu_torch.models.vae import vae_decode
-from omnihuman_tpu_torch.models.wan_dit import WanModel
-from omnihuman_tpu_torch.ops.rope import rope_angles_3d
+from omnihuman_tpu_torch.models.wan_dit import WanModel, latent_rope
 from omnihuman_tpu_torch.parallel.mesh import use_mesh
-from omnihuman_tpu_torch.pipelines.text2video import (
-    WanT2V, mesh_plan, request_seed)
+from omnihuman_tpu_torch.pipelines.text2video import WanT2V, request_seed
 from omnihuman_tpu_torch.utils.spans import span, stage
 
 
@@ -51,14 +49,12 @@ def one_step_latents(model: WanModel, noise: torch.Tensor, context, *,
                      t_final: float, context_lens=None,
                      mesh=None) -> torch.Tensor:
     """x = noise - v(noise, t = T) (JAX _one_step, then noise - v); with
-    `mesh`, the forward runs its plan (`text2video.mesh_plan`)."""
-    attn_impl, token_sharding, _ = mesh_plan(mesh)
+    `mesh`, the forward runs under it (`WanModel.body`)."""
     t = torch.full((noise.shape[0],), t_final, dtype=torch.float32,
                    device=noise.device)
     with use_mesh(mesh):
         v = model(noise, t, context, seq_len=seq_len, rope_sin=rope_sin,
-                  rope_cos=rope_cos, policy=policy, context_lens=context_lens,
-                  attn_impl=attn_impl, token_sharding=token_sharding)
+                  rope_cos=rope_cos, policy=policy, context_lens=context_lens)
     return noise - v
 
 
@@ -120,19 +116,13 @@ class SeaweedWanAPTGenerator:
 
             with span("prep"):
                 lat_shape = pipe.latent_shape(size, frame_num)
-                seq_len = pipe.seq_len_for(lat_shape)
-                pt, ph, pw = cfg.model.patch_size
-                grid = (lat_shape[1] // pt, lat_shape[2] // ph,
-                        lat_shape[3] // pw)
-                sin, cos = rope_angles_3d(grid, cfg.model.head_dim,
-                                          seq_len=seq_len, device=dev)
+                geo = latent_rope(cfg.model, lat_shape, dev, sp=pipe.sp_size)
                 noise = torch.stack([clip_noise(seed, i, lat_shape, dev)
                                      for i in range(context.shape[0])])
 
-            with stage("dit_s", timings, dev, tokens=seq_len):
+            with stage("dit_s", timings, dev, tokens=geo["seq_len"]):
                 latents = one_step_latents(
-                    self.model, noise, context, seq_len=seq_len,
-                    rope_sin=sin, rope_cos=cos, policy=pipe.policy,
+                    self.model, noise, context, **geo, policy=pipe.policy,
                     t_final=float(cfg.num_train_timesteps),
                     context_lens=None if context_lens is None
                     else torch.as_tensor(context_lens,

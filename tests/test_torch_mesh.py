@@ -11,10 +11,11 @@ pipelines/text2video.py and the serving CLIs).
 - In 4 gloo processes (tests/torch_sp_workers.py, spawned once for the
   file) on a (1, 2, 2) mesh: FSDP2 places every parameter on the inferred
   dimension and the sharded DiT and umT5 forwards equal the unsharded
-  ones; `WanT2V`'s latents (ring at sp 2, FSDP2 at fsdp 2, 2 UniPC steps, fp32) equal
-  JAX's `WanT2V` on (2, 2, 2) within 2e-4 (tests/test_mesh_pipeline.py's
-  tolerance; JAX's data axis replicates), both reading one checkpoint
-  directory; `cli.generate` and
+  ones, the DiT's also under `use_mesh` with no plan argument (sp 2);
+  `WanT2V`'s latents (ring at sp 2, FSDP2 at fsdp 2, 2 UniPC steps, fp32)
+  equal JAX's `WanT2V` on (2, 2, 2) within 2e-4
+  (tests/test_mesh_pipeline.py's tolerance; JAX's data axis replicates),
+  both reading one checkpoint directory; `cli.generate` and
   `cli.omni_inference` run with --sp_size / --fsdp_size on the joined
   group and only rank 0 writes its file.
 """
@@ -225,19 +226,36 @@ def test_shard_params_places_every_parameter(results):
                 assert local == tuple(want), name
 
 
-def test_fsdp_forward_equals_unsharded(results):
-    payload, ranks, _ = results
+def _single_device_forward(payload):
     model = build_wan_model(TINY_TEST.model, "cpu", torch.float32, seed=None)
     model.load_state_dict(payload["sd"])
     sin, cos = rope_angles_3d((2, 4, 4), TINY_TEST.model.head_dim,
                               seq_len=32)
     policy = dataclasses.replace(TINY_TEST.policy, compute=torch.float32)
     with torch.no_grad():
-        want = model(*(torch.from_numpy(payload[k]) for k in ("x", "t", "ctx")),
+        return model(*(torch.from_numpy(payload[k])
+                       for k in ("x", "t", "ctx")),
                      seq_len=32, rope_sin=sin, rope_cos=cos, policy=policy)
+
+
+def test_fsdp_forward_equals_unsharded(results):
+    payload, ranks, _ = results
+    want = _single_device_forward(payload)
     for r in ranks:
         torch.testing.assert_close(r["fsdp_forward"], want, rtol=1e-6,
                                    atol=1e-6)
+
+
+def test_forward_under_use_mesh_equals_single_device(results):
+    """The DiT called with no plan argument inside `use_mesh` of the
+    (1, 2, 2) mesh takes the plan from the mesh (its tokens sharded over
+    the 2 sp ranks, the ring, sp_cross) and gives every rank the
+    single-device velocity, within the sp tests' 2e-4."""
+    payload, ranks, _ = results
+    want = _single_device_forward(payload)
+    for r in ranks:
+        torch.testing.assert_close(r["mesh_forward"], want, rtol=2e-4,
+                                   atol=2e-4)
 
 
 def test_fsdp_t5_forward_equals_unsharded(results):

@@ -164,8 +164,7 @@ def test_op_refuses_what_no_call_site_asks():
 
 # -- the DiT on the CPU, against the eager chain it called before the op ----
 
-def _old_self_attention(p, x, rope_sin, rope_cos, seq_lens, cfg, policy,
-                        attn_impl="auto"):
+def _old_self_attention(p, x, rope_sin, rope_cos, seq_lens, cfg, policy):
     b, s, _ = x.shape
     n, d = cfg.num_heads, cfg.head_dim
     cd = policy.compute
@@ -177,15 +176,11 @@ def _old_self_attention(p, x, rope_sin, rope_cos, seq_lens, cfg, policy,
     q = apply_rope(q.reshape(b, s, n, d), rope_sin, rope_cos)
     k = apply_rope(k.reshape(b, s, n, d), rope_sin, rope_cos)
     y = flash_attention(q, k, v.reshape(b, s, n, d), k_lens=seq_lens,
-                        window_size=cfg.window_size, dtype=cd,
-                        implementation=attn_impl)
+                        window_size=cfg.window_size, dtype=cd)
     return lin(p.o, y.reshape(b, s, n * d).to(cd))
 
 
-def _old_cross_attention(p, x, context, context_lens, cfg, policy,
-                         attn_impl="auto"):
-    if attn_impl in ("ring", "ulysses"):
-        attn_impl = "sp_cross"
+def _old_cross_attention(p, x, context, context_lens, cfg, policy):
     b, s, _ = x.shape
     n, d = cfg.num_heads, cfg.head_dim
     cd = policy.compute
@@ -202,14 +197,12 @@ def _old_cross_attention(p, x, context, context_lens, cfg, policy,
                          eps=cfg.eps)
         v_img = lin(p.v_img, ctx_img)
         y_img = flash_attention(q, k_img.reshape(b, ti, n, d),
-                                v_img.reshape(b, ti, n, d), dtype=cd,
-                                implementation=attn_impl)
+                                v_img.reshape(b, ti, n, d), dtype=cd)
     lc = ctx.shape[1]
     k = rms_norm(lin(p.k, ctx), p.norm_k.weight, eps=cfg.eps)
     v = lin(p.v, ctx)
     y = flash_attention(q, k.reshape(b, lc, n, d), v.reshape(b, lc, n, d),
-                        k_lens=context_lens, dtype=cd,
-                        implementation=attn_impl)
+                        k_lens=context_lens, dtype=cd)
     if y_img is not None:
         y = y + y_img
     return lin(p.o, y.reshape(b, s, n * d).to(cd))

@@ -16,8 +16,9 @@ from omnihuman_tpu.configs.wan import DTypePolicy as JaxPolicy
 from omnihuman_tpu.models.wan_dit import init_wan_model, wan_model_forward
 from omnihuman_tpu.ops.rope import rope_angles_3d as jax_rope_angles
 from omnihuman_tpu_torch.configs.wan import (
-    TINY_TEST, TINY_TEST_HD128, DTypePolicy)
-from omnihuman_tpu_torch.models.wan_dit import build_wan_model
+    T2V_1_3B, TINY_TEST, TINY_TEST_HD128, DTypePolicy)
+from omnihuman_tpu_torch.models.wan_dit import (
+    build_wan_model, latent_rope, padded_seq_len)
 from omnihuman_tpu_torch.ops.rope import rope_angles_3d
 from omnihuman_tpu_torch.utils.convert import wan_dit_state_dict_from_jax
 
@@ -88,3 +89,25 @@ def test_forward_matches_jax_fp32_compute(port_cfg, param_dtype):
     assert got.shape == (B, port_cfg.out_dim, F, H, W)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+@pytest.mark.parametrize("frames,tokens,seq_len", [
+    (1, 1560, 1560),          # the teacher's 480x832 frame: unpadded
+    (21, 32760, 32768),       # the flagship 81 frames: 1024-aligned
+], ids=["teacher_frame", "flagship_81_frames"])
+def test_latent_rope_is_padded_seq_len_and_rope_angles(frames, tokens,
+                                                       seq_len):
+    """`latent_rope` of a t2v-1.3B latent at 480x832 gives, bit for bit,
+    the padded length and tables that `padded_seq_len` and
+    `rope_angles_3d` give for its grid."""
+    cfg = T2V_1_3B.model
+    grid = (frames, 30, 52)
+    assert grid[0] * grid[1] * grid[2] == tokens
+    assert padded_seq_len(tokens) == seq_len
+    want = rope_angles_3d(grid, cfg.head_dim, seq_len=seq_len)
+    got = latent_rope(cfg, (1, 16, frames, 60, 104), "cpu")
+    assert got["seq_len"] == seq_len
+    for g, w in zip((got["rope_sin"], got["rope_cos"]), want):
+        assert g.dtype == w.dtype == torch.float32
+        assert g.shape == (seq_len, cfg.head_dim // 2)
+        assert torch.equal(g, w)

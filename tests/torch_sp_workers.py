@@ -136,11 +136,10 @@ def dit_cases(p):
                   policy=f32, context_lens=d.get("lens"),
                   y=None if "y" not in d else _t(d["y"]),
                   clip_fea=None if "clip" not in d else _t(d["clip"]))
-        with torch.no_grad(), use_mesh(mesh):
-            for impl in ("ring", "ulysses"):
+        for impl in ("ring", "ulysses"):
+            with torch.no_grad(), use_mesh(mesh, sp_route=impl):
                 out[f"{kind}_{impl}"] = model(
-                    _t(d["x"]), _t(d["t"]), _t(d["ctx"]), attn_impl=impl,
-                    token_sharding=mesh["sp"], **kw)
+                    _t(d["x"]), _t(d["t"]), _t(d["ctx"]), **kw)
     o = p["omni"]
     model = build_omni_model(o["cfg"], "cpu", torch.float32, seed=None)
     model.load_state_dict(o["sd"])
@@ -163,7 +162,8 @@ def mesh_cases(p):
     from omnihuman_tpu_torch.ops.rope import rope_angles_3d
     from omnihuman_tpu_torch.models.t5 import build_t5_encoder
     from omnihuman_tpu_torch.parallel import (
-        MeshConfig, create_mesh, infer_param_specs, shard_params)
+        MeshConfig, create_mesh, infer_param_specs, shard_params, use_mesh)
+    from omnihuman_tpu_torch.parallel.mesh import self_attention_route
     from omnihuman_tpu_torch.pipelines.text2video import WanT2V, sample
     from torch.distributed.tensor import DTensor
     out = {}
@@ -184,10 +184,13 @@ def mesh_cases(p):
         for n, x in model.named_parameters()}
     out["specs"] = specs
     sin, cos = rope_angles_3d((2, 4, 4), cfg.model.head_dim, seq_len=32)
+    args = (_t(p["x"]), _t(p["t"]), _t(p["ctx"]))
+    kw = dict(seq_len=32, rope_sin=sin, rope_cos=cos, policy=cfg.policy)
     with torch.no_grad():
-        out["fsdp_forward"] = model(
-            _t(p["x"]), _t(p["t"]), _t(p["ctx"]), seq_len=32, rope_sin=sin,
-            rope_cos=cos, policy=cfg.policy)
+        out["fsdp_forward"] = model(*args, **kw)
+        # the same call under the mesh: the ring at sp 2, from the mesh alone
+        with use_mesh(mesh):
+            out["mesh_forward"] = model(*args, **kw)
 
     t5 = build_t5_encoder(cfg.t5, "cpu", torch.float32, seed=5)
     ids = _t(p["t5_ids"])
@@ -201,7 +204,9 @@ def mesh_cases(p):
     # frame_num=5, sampling_steps=2) runs it at its defaults
     pipe = WanT2V(cfg, device="cpu", param_dtype=torch.float32, mesh=mesh,
                   checkpoint_dir=p["ckpt"])
-    out["plan"] = (pipe.attn_impl, pipe.sp_size, pipe.t5_auto_unload)
+    with use_mesh(pipe.mesh):
+        route = self_attention_route()
+    out["plan"] = (route, pipe.sp_size, pipe.t5_auto_unload)
     noise = _t(p["gen_noise"])
     out["latents"] = sample(
         pipe.model, noise, _t(p["gen_ctx"]), _t(p["gen_ctx_null"]),
@@ -565,8 +570,7 @@ def _int8_on_fsdp(p):
     sin, cos = rope_angles_3d((2, 4, 4), TINY_TEST.model.head_dim,
                               seq_len=32)
     kw = dict(seq_len=32, rope_sin=sin, rope_cos=cos,
-              policy=DTypePolicy(compute=torch.float32), attn_impl="ring",
-              token_sharding=mesh["sp"])
+              policy=DTypePolicy(compute=torch.float32))
     args = [_t(p["int8_in"][k]) for k in ("x", "t", "ctx")]
     with torch.no_grad(), use_mesh(mesh):
         got = sharded(*args, **kw)
